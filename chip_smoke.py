@@ -2,14 +2,20 @@
 
     python3 chip_smoke.py
 
-Builds the BP decode kernel from wenet_tpu_torch/csrc with nvcc, holds it
-against its plain PyTorch version on the card, then drives the streaming
-receiver (the port's main path) at the v2 and v1 flight geometries on
-synthetic captures, a negative probe below the decode cliff, and the
-`python -m wenet_tpu_torch rx` CLI.  Each phase prints one line; any failed
-check raises, so the script exits non-zero before its last line.  The last
-two lines are a JSON object with the kernels' numbers and one with the
-device.  Without a CUDA device the script fails at once.
+Builds the CUDA kernels from wenet_tpu_torch/csrc with nvcc (one process
+per source, all at once) and holds each against its plain PyTorch version
+on the card: the sum-product BP kernel, its min-sum variant and the one-hot
+tensor-core BP kernel.  Then it drives the port's paths: the streaming
+receiver at the v2 and v1 flight geometries on synthetic captures, a
+negative probe below the decode cliff and the `python -m wenet_tpu_torch
+rx` CLI; the decoder-throughput stage of bench.py (B = 2048 at 7.5 dB);
+LDPC BER sweeps with both algorithms; a full-chain PER sweep; and the
+coarse acquisition search, alone and through the CLI's --acquire, on a
+capture tuned 300 kHz off.  Each phase prints one line; any failed check
+raises, so the script exits non-zero before its last line.  The last three
+lines are a JSON object with the kernels' numbers, the card's name and
+power limit, and a JSON object with the device.  Without a CUDA device the
+script fails at once.
 """
 from __future__ import annotations
 
@@ -30,6 +36,12 @@ V1_PACKETS = 20
 EBNO_DB = 12.0
 BP_BATCH = 128
 BP_SNRS = (2.5, 3.0, 6.0)
+STAGE_BATCH = 2048            # bench.py stage_ldpc
+STAGE_EBNO_DB = 7.5
+SWEEP_EBNO_DB = (1.5, 2.5, 3.5, 5.0)
+ACQ_PACKETS = 4
+ACQ_SHIFT_HZ = 300e3
+ACQ_LOCK_HZ = (132e3, 468e3)  # offsets that bring both tones into the band
 
 
 def require(ok, msg: str):
@@ -43,20 +55,11 @@ def say(phase: str, **kv):
           flush=True)
 
 
-def add_awgn(iq, ebno_db, Fs, Rs, rng):
-    """Calibrated complex AWGN at Eb/N0 (1 bit/symbol), peak-normalised."""
-    var = float(np.var(iq))
-    nvar = var * Fs / (Rs * 10.0 ** (ebno_db / 10.0))
-    n = rng.standard_normal(len(iq)) + 1j * rng.standard_normal(len(iq))
-    noisy = iq + np.sqrt(nvar / 2.0) * n
-    return (noisy / np.max(np.abs(noisy))).astype(np.complex64)
-
-
-def make_capture(cfg, mode, payloads, ebno_db, rng):
-    """Framed packets with random idle bits between them -> FSK -> AWGN ->
-    cu8 bytes."""
+def make_capture(cfg, mode, payloads, ebno_db, rng, shift_hz=0.0):
+    """Framed packets with random idle bits between them -> FSK -> a
+    frequency shift -> AWGN -> cu8 bytes."""
     from wenet_tpu_torch.core import framing
-    from wenet_tpu_torch.ops import fsk, ldpc
+    from wenet_tpu_torch.ops import channel, fsk, ldpc
 
     bits = [rng.integers(0, 2, 4000).astype(np.uint8)]
     for p in payloads:
@@ -68,7 +71,10 @@ def make_capture(cfg, mode, payloads, ebno_db, rng):
     stream = np.concatenate(
         [stream, np.zeros((-len(stream)) % cfg.Nbits, np.uint8)])
     sig, _ = fsk.fsk_mod_np(cfg, stream, 2 * cfg.Rs, cfg.Rs)
-    return fsk.iq_to_cu8(add_awgn(sig, ebno_db, cfg.Fs, cfg.Rs, rng))
+    if shift_hz:
+        sig = channel.freq_shift(sig, shift_hz, cfg.Fs)
+    return fsk.iq_to_cu8(channel.add_awgn(sig, ebno_db, cfg.Fs, cfg.Rs,
+                                          rng=rng))
 
 
 def text_message(message: str, count: int) -> bytes:
@@ -91,6 +97,29 @@ def timed(fn, *args, n=20):
     return (time.perf_counter() - t0) / n
 
 
+def mismatches(got, want):
+    """(codewords differing in bits, in iters, in parity_ok; max |diff|)
+    of two (bits, iters, parity_ok) results."""
+    bk, ik, ok_k, br, ir, ok_r = (t.cpu().numpy() for t in (*got, *want))
+    err = max(int(np.abs(bk.astype(int) - br).max(initial=0)),
+              int(np.abs(ik - ir).max(initial=0)))
+    return (int((bk != br).any(axis=1).sum()), int((ik != ir).sum()),
+            int((ok_k != ok_r).sum()), err)
+
+
+def noisy_llrs(n, snr_db, rng, dev):
+    """LLRs of n random codewords at Es/N0 = snr_db (rate 0.8) on dev."""
+    import torch
+    from wenet_tpu_torch.ops import ldpc
+    ib = np.unpackbits(rng.integers(0, 256, (n, 258), dtype=np.uint8),
+                       axis=1)
+    cw = np.concatenate([ib, ldpc.encode_bits_np(ib)], axis=1)
+    esn0 = 10 ** (snr_db / 10) * 0.8
+    sd = (1 - 2.0 * cw) + rng.normal(0, np.sqrt(1 / (2 * esn0)), cw.shape)
+    return ldpc.sd_to_llr(torch.as_tensor(sd, dtype=torch.float32,
+                                          device=dev))
+
+
 def run_receiver(cfg, mode, raw, pipelined=False, chunk_seconds=2.0):
     from wenet_tpu_torch.rx.pipeline import Receiver
     import torch
@@ -108,6 +137,22 @@ def run_receiver(cfg, mode, raw, pipelined=False, chunk_seconds=2.0):
     return got, time.perf_counter() - t0, rx
 
 
+def run_cli(path, *args):
+    """`python -m wenet_tpu_torch rx path ...` -> (rc, last stderr line,
+    stderr, seconds)."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "wenet_tpu_torch", "rx", path, "--format",
+         "cu8", "--no-udp", *args],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    err = proc.stderr.strip()
+    line = err.splitlines()[-1] if err else ""
+    return proc.returncode, line, proc.stderr, dt
+
+
 def main() -> int:
     import torch
 
@@ -117,8 +162,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from wenet_tpu_torch import kernels
     from wenet_tpu_torch.core import framing
-    from wenet_tpu_torch.kernels import bp_decode
-    from wenet_tpu_torch.ops import fsk, ldpc
+    from wenet_tpu_torch.kernels import bp_decode, bp_onehot
+    from wenet_tpu_torch.ops import fsk, ldpc, ldpc_onehot
+    from wenet_tpu_torch.parallel import sweep
 
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -129,45 +175,55 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda)
     dev = torch.device("cuda")
 
-    # 2. build
+    # 2. build: one nvcc per source, all at once
     t0 = time.perf_counter()
-    bp_decode.build()
-    say("build", kernel="bp_decode", seconds=f"{time.perf_counter() - t0:.2f}",
-        nvcc=kernels.nvcc_path())
+    kernels.build("bp_decode", "bp_onehot")
+    say("build", kernels="bp_decode,bp_onehot",
+        seconds=f"{time.perf_counter() - t0:.2f}", nvcc=kernels.nvcc_path())
+    for name, log in kernels.build_logs.items():
+        regs = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        say("ptxas", kernel=name, info=repr("; ".join(regs)))
 
-    # 3. kernel vs plain on the card, B = 128
+    # 3. each kernel vs its plain version on the card, B = 128
+    # (name, op, plain, timed reps of the plain version)
+    decoders = [
+        ("bp_decode", ldpc.decode, ldpc.decode_reference, 20),
+        ("bp_minsum", ldpc.decode_minsum, ldpc.decode_minsum_reference, 20),
+        ("bp_onehot", ldpc_onehot.decode_onehot,
+         ldpc_onehot.decode_onehot_reference, 3),
+    ]
     rng = np.random.default_rng(SEED)
-    max_err = 0
+    max_err = {name: 0 for name, *_ in decoders}
     times = {}
     for snr in BP_SNRS:
-        ib = np.unpackbits(rng.integers(0, 256, (BP_BATCH, 258),
-                                        dtype=np.uint8), axis=1)
-        cw = np.concatenate([ib, ldpc.encode_bits_np(ib)], axis=1)
-        esn0 = 10 ** (snr / 10) * 0.8
-        sd = (1 - 2.0 * cw) + rng.normal(0, np.sqrt(1 / (2 * esn0)), cw.shape)
-        llr = ldpc.sd_to_llr(torch.as_tensor(sd, dtype=torch.float32,
-                                             device=dev))
-        bk, ik, ok_k = ldpc.decode(llr)
-        br, ir, ok_r = ldpc.decode_reference(llr)
-        torch.cuda.synchronize()
-        bk, ik, ok_k, br, ir, ok_r = (t.cpu().numpy() for t in
-                                      (bk, ik, ok_k, br, ir, ok_r))
-        # exact: bits, iters and parity_ok of every codeword
-        bit_mis = int((bk != br).any(axis=1).sum())
-        it_mis = int((ik != ir).sum())
-        ok_mis = int((ok_k != ok_r).sum())
-        require(bit_mis == 0 and it_mis == 0 and ok_mis == 0,
-                f"{snr} dB: {bit_mis} codewords differ in bits, {it_mis} in "
-                f"iters, {ok_mis} in parity_ok")
-        max_err = max(max_err, int(np.abs(bk.astype(int) - br).max()),
-                      int(np.abs(ik - ir).max()))
-        tk = timed(ldpc.decode, llr) * 1e3
-        tr = timed(ldpc.decode_reference, llr) * 1e3
-        times[snr] = (tk, tr)
-        say("bp_vs_plain", snr_db=snr, batch=BP_BATCH,
-            converged=int(ok_k.sum()), bit_mismatch=bit_mis,
-            iters_mismatch=it_mis, parity_mismatch=ok_mis,
-            kernel_ms=f"{tk:.4f}", plain_ms=f"{tr:.4f}")
+        llr = noisy_llrs(BP_BATCH, snr, rng, dev)
+        for name, op, plain, reps in decoders:
+            got = op(llr)
+            bit_mis, it_mis, ok_mis, err = mismatches(got, plain(llr))
+            require(bit_mis == 0 and it_mis == 0 and ok_mis == 0,
+                    f"{name} {snr} dB: {bit_mis} codewords differ in bits, "
+                    f"{it_mis} in iters, {ok_mis} in parity_ok")
+            if name == "bp_onehot":     # the same sum-product as bp_decode
+                sp = mismatches(got, ldpc.decode_reference(llr))
+                require(sp[:3] == (0, 0, 0),
+                        f"bp_onehot {snr} dB differs from decode_reference")
+            max_err[name] = max(max_err[name], err)
+            tk = timed(op, llr) * 1e3
+            tr = timed(plain, llr, n=reps) * 1e3
+            times[name, snr] = (tk, tr)
+            say("bp_vs_plain", kernel=name, snr_db=snr, batch=BP_BATCH,
+                converged=int(got[2].sum()), bit_mismatch=bit_mis,
+                iters_mismatch=it_mis, parity_mismatch=ok_mis,
+                kernel_ms=f"{tk:.4f}", plain_ms=f"{tr:.4f}")
+    llr7 = noisy_llrs(7, BP_SNRS[1], np.random.default_rng(SEED + 7),
+                      dev)                          # a ragged batch tile
+    got7 = ldpc_onehot.decode_onehot(llr7)
+    mis7 = mismatches(got7, ldpc_onehot.decode_onehot_reference(llr7))
+    require(mis7[:3] == (0, 0, 0), f"bp_onehot B=7: mismatches {mis7[:3]}")
+    say("bp_vs_plain", kernel="bp_onehot", snr_db=BP_SNRS[1], batch=7,
+        converged=int(got7[2].sum()), bit_mismatch=mis7[0],
+        iters_mismatch=mis7[1], parity_mismatch=mis7[2])
 
     # 4. main path, v2 at flight rate (the counted run)
     cfg2 = fsk.V2_CONFIG
@@ -177,17 +233,18 @@ def main() -> int:
     want2 = [framing.pad_payload(p) for p in sent2]
     bp_decode.launches = 0
     got2, dt2, rx2 = run_receiver(cfg2, "v2", raw2)
-    main_launches = bp_decode.launches
+    main_launches = {"bp_decode": bp_decode.launches}
     n2 = len(raw2) // 2
     require(got2 == want2, f"v2: {len(got2)}/{len(want2)} payloads match")
-    require(main_launches > 0, "v2 main path never launched bp_decode")
+    require(main_launches["bp_decode"] > 0,
+            "v2 main path never launched bp_decode")
     sec2 = rx2.seconds
     say("v2_stream", packets=f"{len(got2)}/{len(sent2)}", samples=n2,
         wall_s=f"{dt2:.3f}", msps=f"{n2 / dt2 / 1e6:.4f}",
         realtime_msps=f"{cfg2.Fs / 1e6:.3f}",
         demod_share=f"{sec2['demod'] / dt2:.3f}",
         deframe_share=f"{sec2['deframe'] / dt2:.3f}",
-        bp_launches=main_launches, frames=rx2.stats.frames)
+        bp_launches=main_launches["bp_decode"], frames=rx2.stats.frames)
 
     # 5. main path, v1 at flight rate; pipelined == serial
     cfg1 = fsk.V1_CONFIG
@@ -215,31 +272,142 @@ def main() -> int:
     say("negative", ebno_db=-6.0, payloads=len(got_neg),
         detections=rx_neg.stats.detections, wall_s=f"{dt_neg:.3f}")
 
-    # 7. CLI on the v2 capture
     with tempfile.TemporaryDirectory() as tmp:
+        # 7. CLI on the v2 capture
         path = os.path.join(tmp, "smoke_v2.cu8")
         raw2.tofile(path)
-        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "wenet_tpu_torch", "rx", path,
-             "--format", "cu8", "--mode", "v2", "--no-udp",
-             "--image-dir", os.path.join(tmp, "img")],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-        dt_cli = time.perf_counter() - t0
-    line = proc.stderr.strip().splitlines()[-1] if proc.stderr.strip() else ""
-    require(proc.returncode == 0, f"CLI exit {proc.returncode}: {proc.stderr}")
-    require(f"crc_ok={V2_PACKETS} " in line, f"CLI: {line}")
-    say("cli", rc=proc.returncode, wall_s=f"{dt_cli:.2f}", stderr=repr(line))
+        rc, line, err, dt_cli = run_cli(path, "--mode", "v2", "--image-dir",
+                                        os.path.join(tmp, "img"))
+        require(rc == 0, f"CLI exit {rc}: {err}")
+        require(f"crc_ok={V2_PACKETS} " in line, f"CLI: {line}")
+        say("cli", rc=rc, wall_s=f"{dt_cli:.2f}", stderr=repr(line))
 
-    tk, tr = times[BP_SNRS[0]]
-    print(json.dumps({"kernels": [{
-        "name": "bp_decode", "route": "cuda",
-        "source": "wenet_tpu_torch/csrc/bp_decode.cu",
-        "replaces": "wenet_tpu/ops/ldpc_pallas2.py:114",
-        "launches": main_launches, "max_abs_err": max_err,
-        "ms": tk, "plain_ms": tr}]}))
+        # 8. the decoder-throughput stage of bench.py: B = 2048 at 7.5 dB,
+        # each decoder timed, then held against its plain version
+        r2 = np.random.default_rng(1)
+        ib = np.unpackbits(r2.integers(0, 256, (STAGE_BATCH, 258),
+                                       dtype=np.uint8), axis=1)
+        cw = np.concatenate([ib, ldpc.encode_bits_np(ib)], axis=1)
+        esn0 = 10 ** (STAGE_EBNO_DB / 10) * 0.8
+        sd = (1 - 2.0 * cw) + r2.normal(0, np.sqrt(1 / (2 * esn0)), cw.shape)
+        llr = ldpc.sd_to_llr(torch.as_tensor(sd, dtype=torch.float32,
+                                             device=dev))
+        stage = {}
+        for name, op, plain, _ in decoders:
+            bp_decode.launches = bp_decode.minsum_launches = 0
+            bp_onehot.launches = 0
+            tk = timed(op, llr, n=10)
+            counts = {"bp_decode": bp_decode.launches,
+                      "bp_minsum": bp_decode.minsum_launches,
+                      "bp_onehot": bp_onehot.launches}
+            require(counts[name] == 11 and sum(counts.values()) == 11,
+                    f"ldpc_stage {name}: launches {counts}")
+            if name == "bp_onehot":
+                main_launches[name] = counts[name]
+            got = op(llr)
+            tr = timed(plain, llr, n=1)
+            mis = mismatches(got, plain(llr))
+            require(mis[:3] == (0, 0, 0),
+                    f"ldpc_stage {name}: mismatches {mis[:3]}")
+            require(int(got[2].sum()) >= STAGE_BATCH - 2,
+                    f"ldpc_stage {name}: {int(got[2].sum())} converged")
+            stage[name] = (tk, tr)
+            say("ldpc_stage", kernel=name, batch=STAGE_BATCH,
+                ebno_db=STAGE_EBNO_DB, converged=int(got[2].sum()),
+                mean_iters=f"{got[1].float().mean().item():.3f}",
+                mismatches=sum(mis[:3]), kernel_ms=f"{tk * 1e3:.4f}",
+                plain_ms=f"{tr * 1e3:.4f}",
+                codewords_per_s=f"{STAGE_BATCH / tk:.0f}",
+                plain_codewords_per_s=f"{STAGE_BATCH / tr:.0f}")
+
+        # 9. LDPC BER sweeps, both algorithms (the counted min-sum run)
+        for algo, count in (("sum-product", "bp_decode"),
+                            ("min-sum", "bp_minsum")):
+            bp_decode.launches = bp_decode.minsum_launches = 0
+            t0 = time.perf_counter()
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            r = sweep.ldpc_ber_sweep(SWEEP_EBNO_DB, STAGE_BATCH, gen, dev,
+                                     algo=algo)
+            dt = time.perf_counter() - t0
+            n = (bp_decode.launches if count == "bp_decode"
+                 else bp_decode.minsum_launches)
+            require(n == len(SWEEP_EBNO_DB), f"ber_sweep {algo}: {n} launches")
+            if count == "bp_minsum":
+                main_launches[count] = n
+            fer, ber = r["fer"], r["ber"]
+            require(fer[0] >= 0.9 and fer[-1] <= 0.01,
+                    f"ber_sweep {algo}: fer {fer.tolist()}")
+            require(np.all(np.isfinite(ber)) and np.all(ber <= fer),
+                    f"ber_sweep {algo}: ber {ber.tolist()} fer {fer.tolist()}")
+            say("ber_sweep", algo=algo, ebno_db=list(SWEEP_EBNO_DB),
+                codewords=r["n_codewords"],
+                fer=[round(float(x), 5) for x in fer],
+                ber=[f"{x:.3e}" for x in ber],
+                mean_iters=[round(float(x), 3) for x in r["mean_iters"]],
+                launches=n, wall_s=f"{dt:.3f}")
+
+        # 10. full-chain PER at the v2 flight geometry
+        bp_decode.launches = 0
+        t0 = time.perf_counter()
+        r = sweep.chain_per_sweep(cfg2, [4.0, 20.0], 8, device=dev)
+        dt = time.perf_counter() - t0
+        require(r["per"].tolist() == [1.0, 0.0], f"chain_per: {r['per']}")
+        require(bp_decode.launches == 2, "chain_per: bp_decode launches")
+        say("chain_per", ebno_db=[4.0, 20.0], trials=r["trials"],
+            per=r["per"].tolist(), mean_iters=r["mean_iters"].tolist(),
+            launches=bp_decode.launches, wall_s=f"{dt:.3f}")
+
+        # 11. coarse acquisition: v2 packets with the capture tuned 300 kHz
+        # off (tones at 492 and 588 kHz, outside the estimator band)
+        sent_a = [text_message(f"acq {i}", i) for i in range(ACQ_PACKETS)]
+        raw_a = make_capture(cfg2, "v2", sent_a, EBNO_DB,
+                             np.random.default_rng(SEED + 300),
+                             shift_hz=ACQ_SHIFT_HZ)
+        step = cfg2.Rs // 2
+        grid = np.arange(-(cfg2.Fs // 2) + 2 * step,
+                         cfg2.Fs // 2 - 2 * step, step, dtype=np.float32)
+        probe = fsk.iq_from_cu8(raw_a[: 2 * int(0.1 * cfg2.Fs)])
+        t0 = time.perf_counter()
+        best, scores = sweep.acquisition_search(cfg2, probe, grid,
+                                                device=dev)
+        dt = time.perf_counter() - t0
+        require(ACQ_LOCK_HZ[0] <= best <= ACQ_LOCK_HZ[1],
+                f"acquire picked {best} Hz, scores {scores.tolist()}")
+        require(scores.max() >= 32 - 8, f"acquire: scores {scores.tolist()}")
+        path = os.path.join(tmp, "smoke_acq.cu8")
+        raw_a.tofile(path)
+        plain_rc, plain_line, _, _ = run_cli(
+            path, "--mode", "v2", "--image-dir", os.path.join(tmp, "img0"))
+        rc, line, err, dt_cli = run_cli(
+            path, "--mode", "v2", "--acquire", "0.1", "--image-dir",
+            os.path.join(tmp, "img1"))
+        require(rc == 0, f"CLI --acquire exit {rc}: {err}")
+        require(f"crc_ok={ACQ_PACKETS} " in line, f"CLI --acquire: {err}")
+        require(plain_rc == 0 and "crc_ok=0 " in plain_line,
+                f"CLI without --acquire: {plain_line}")
+        acq_msg = [ln for ln in err.splitlines() if "acquired" in ln]
+        say("acquire", shift_hz=ACQ_SHIFT_HZ, grid_hz=f"{grid[0]:.0f}.."
+            f"{grid[-1]:.0f}/{step}", best_hz=best,
+            best_score=float(scores.max()), search_s=f"{dt:.3f}",
+            cli=repr(acq_msg[0] if acq_msg else ""), cli_stderr=repr(line),
+            without_acquire=repr(plain_line.split(" images")[0]),
+            cli_wall_s=f"{dt_cli:.2f}")
+
+    sources = {
+        "bp_decode": ("wenet_tpu_torch/csrc/bp_decode.cu",
+                      "wenet_tpu/ops/ldpc_pallas2.py:114"),
+        "bp_minsum": ("wenet_tpu_torch/csrc/bp_decode.cu",
+                      "wenet_tpu/ops/ldpc.py:188"),
+        "bp_onehot": ("wenet_tpu_torch/csrc/bp_onehot.cu",
+                      "wenet_tpu/ops/ldpc_pallas.py:86"),
+    }
+    out = []
+    for name, (source, replaces) in sources.items():
+        tk, tr = times[name, BP_SNRS[0]]
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": main_launches[name],
+                    "max_abs_err": max_err[name], "ms": tk, "plain_ms": tr})
+    print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -16,19 +16,24 @@ from wenet_tpu_torch.core import framing
 from wenet_tpu_torch.core import ldpc_tables as tables
 from wenet_tpu_torch.device import resolve_device
 from wenet_tpu_torch.ops import fsk as tfsk
-from wenet_tpu_torch.ops import ldpc
+from wenet_tpu_torch.ops import ldpc, ldpc_onehot
+from wenet_tpu_torch.parallel import sweep
 from wenet_tpu_torch.rx.pipeline import Receiver
 
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "wenet_tpu_torch")
+# the decoder and Monte-Carlo path: LDPC variants, sweeps, acquisition
+NEW_MODULES = ("wenet_tpu_torch.ops.ldpc_onehot, wenet_tpu_torch.ops.channel, "
+               "wenet_tpu_torch.kernels.bp_onehot, "
+               "wenet_tpu_torch.parallel.sweep")
 
 
 def test_port_imports_no_jax():
     code = ("import sys, wenet_tpu_torch, wenet_tpu_torch.rx.pipeline, "
             "wenet_tpu_torch.cli.rx, wenet_tpu_torch.kernels.bp_decode, "
-            "wenet_tpu_torch.ops.deframe; "
+            "wenet_tpu_torch.ops.deframe, " + NEW_MODULES + "; "
             "print('jax' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=ROOT),
@@ -41,7 +46,7 @@ def test_receive_path_imports_nothing_of_the_jax_package():
     """The receive path and chip_smoke.py's own imports load no module of
     `wenet_tpu`; only the CLI's payload sink (its router) is shared."""
     code = ("import sys, wenet_tpu_torch.rx.pipeline, wenet_tpu_torch.cli.rx, "
-            "wenet_tpu_torch.ops.deframe, chip_smoke; "
+            "wenet_tpu_torch.ops.deframe, chip_smoke, " + NEW_MODULES + "; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('wenet_tpu', 'jax')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -156,3 +161,10 @@ def test_cuda_requests_raise_without_card():
     with pytest.raises(ValueError):
         ldpc.decode(torch.zeros(1, 2580, device="meta"))
     assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError):
+        sweep.ldpc_ber_sweep([3.0], 4)           # device defaults to cuda
+    with pytest.raises(RuntimeError):
+        sweep.acquisition_search(tfsk.FSKConfig(Fs=96000, Rs=9600),
+                                 np.zeros(4096, np.complex64), [0.0])
+    with pytest.raises(ValueError):
+        ldpc_onehot.decode_onehot(torch.zeros(1, 2580, device="meta"))

@@ -1,10 +1,12 @@
 """PyTorch port of the LDPC decoder (wenet_tpu_torch.ops.ldpc) against the
 XLA decoder (wenet_tpu.ops.ldpc.decode) and the gather-native Pallas kernel
-(ldpc_pallas2.decode_pallas2, interpret mode) on identical LLRs.
+(ldpc_pallas2.decode_pallas2, interpret mode) on identical LLRs, and of the
+normalized min-sum decoder against wenet_tpu.ops.ldpc.decode_minsum.
 
-The plain PyTorch decode is bit-exact: bits, iteration counts and parity
+The plain PyTorch decodes are bit-exact: bits, iteration counts and parity
 flags are equal for every codeword, across the decode threshold
-(2.5 dB: almost none converge; 3 dB: about half; 6 and 12 dB: all).
+(2.5 dB: almost none converge; 3 dB: about half; 6 and 12 dB: all), and at
+every iteration cap.  The device encoder is integer-exact.
 sd_to_llr differs only in reduction order: rtol 1e-5.
 """
 import numpy as np
@@ -94,4 +96,45 @@ def test_decode_on_cpu_uses_reference():
 def test_kernel_wrapper_rejects_cpu_tensor():
     with pytest.raises(ValueError):
         bp_decode.decode(torch.zeros(2, 2580))
+    with pytest.raises(ValueError):
+        bp_decode.decode_minsum(torch.zeros(2, 2580))
+
+
+def test_encode_bits_matches_jax():
+    rng = np.random.default_rng(8)
+    ib = rng.integers(0, 2, (5, 2064)).astype(np.uint8)
+    want = np.asarray(jldpc.encode_bits(jnp.asarray(ib)))
+    got = ldpc.encode_bits(torch.from_numpy(ib))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), ldpc.encode_bits_np(ib))
+    # a leading batch shape and an int64 input give the same parity
+    got3 = ldpc.encode_bits(torch.from_numpy(ib.astype(np.int64))[None])
+    np.testing.assert_array_equal(got3[0].numpy(), want)
+
+
+@pytest.mark.parametrize("max_iter", [0, 1, 3, 10])
+@pytest.mark.parametrize("snr_db", [2.5, 3.0, 6.0, 12.0])
+def test_decode_minsum_reference_matches_jax(snr_db, max_iter):
+    llr, _ = _llrs(12, snr_db, int(snr_db * 10) + 1)
+    bt, it, okt = (a.numpy() for a in ldpc.decode_minsum_reference(
+        torch.from_numpy(llr), max_iter=max_iter))
+    bx, ix, okx = (np.asarray(a) for a in jldpc.decode_minsum(
+        jnp.asarray(llr), max_iter=max_iter))
+    np.testing.assert_array_equal(bt, bx)
+    np.testing.assert_array_equal(it, ix)
+    np.testing.assert_array_equal(okt, okx)
+
+
+def test_decode_minsum_on_cpu_uses_reference():
+    llr, cw = _llrs(4, 8.0, 12)
+    before = bp_decode.minsum_launches
+    got = ldpc.decode_minsum(torch.from_numpy(llr))
+    want = ldpc.decode_minsum_reference(torch.from_numpy(llr))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(got[0].numpy(), cw)
+    assert bp_decode.minsum_launches == before
+    with pytest.raises(ValueError):
+        ldpc.decode_minsum(torch.zeros(1, 2580, device="meta"))
 

@@ -4,10 +4,12 @@ The JAX package (`wenet_tpu`) stays the reference; this package mirrors its
 module names so every counterpart is easy to find:
 
   core/      wire formats and LDPC code tables (numpy, host side)
-  ops/       FSK demod, LDPC decode, CRC, deframing on torch tensors
+  ops/       FSK demod, LDPC decode, CRC, deframing, channel models on
+             torch tensors
   kernels/   hand-written CUDA kernels for Hopper (sm_90a), built at first
              use with nvcc and bound with ctypes
   csrc/      the CUDA sources of those kernels
+  parallel/  Monte-Carlo sweeps and the coarse acquisition search
   rx/        the streaming Receiver
   cli/       `python -m wenet_tpu_torch rx ...`
   utils/     DFT-as-matmul, polynomial atan2

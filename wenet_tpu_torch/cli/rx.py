@@ -5,8 +5,12 @@ The streaming branch of `python -m wenet_tpu rx` on the PyTorch port:
     python -m wenet_tpu_torch rx capture.cu8 --format cu8 --mode v2
 
 Payloads go through `wenet_tpu.rx.router.PacketRouter` (images, JSON logs,
-UDP side-channels).  The whole-capture modes of the JAX CLI (--parallel,
---slabs, --channels, --acquire) are not ported yet and exit with status 2.
+UDP side-channels).  `--acquire SECONDS` probes the head of the stream,
+searches a coarse frequency-offset grid on the device
+(`parallel.sweep.acquisition_search`) and, on a UW lock, mixes every chunk
+by the winner on the host, phase-continuously.  The whole-capture modes of
+the JAX CLI (--parallel, --slabs, --channels) are not ported yet and exit
+with status 2.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import time
 
 import numpy as np
 
-NOT_PORTED = ("parallel", "slabs", "channels", "acquire")
+NOT_PORTED = ("parallel", "slabs", "channels")
 
 
 def add_args(ap: argparse.ArgumentParser):
@@ -39,6 +43,10 @@ def add_args(ap: argparse.ArgumentParser):
     ap.add_argument("--stats-rate", type=float, default=1.0,
                     help="modem stats emission rate, Hz")
     ap.add_argument("--chunk-seconds", type=float, default=2.0)
+    ap.add_argument("--acquire", type=float, default=0.0, metavar="SECONDS",
+                    help="probe this many seconds first and search a coarse "
+                         "frequency-offset grid (parallel on the device) "
+                         "when the SDR tuning is unknown; 0 = off")
     ap.add_argument("--pipelined", action="store_true",
                     help="overlap device demod of chunk k+1 with host "
                          "deframe of chunk k (payloads arrive one chunk "
@@ -73,9 +81,48 @@ def main(argv=None):
     if args.est_min is not None or args.est_max is not None:
         limits = (args.est_min if args.est_min is not None else cfg.est_min,
                   args.est_max if args.est_max is not None else cfg.est_max)
-    rx = Receiver(mode=args.mode, cfg=cfg, estimator_limits=limits,
-                  pipelined=args.pipelined, input_format=args.format,
-                  device=args.device)
+
+    def receiver(input_format):
+        return Receiver(mode=args.mode, cfg=cfg, estimator_limits=limits,
+                        pipelined=args.pipelined, input_format=input_format,
+                        device=args.device)
+
+    conv, dtype, width = INPUT_CONVERTERS[args.format]
+    bytes_per_sample = np.dtype(dtype).itemsize * width
+    rx = receiver("c64")
+    chunk_bytes = int(rx.cfg.Fs * args.chunk_seconds) * bytes_per_sample
+
+    fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
+
+    # optional coarse acquisition: probe the head of the stream across an
+    # offset grid on the device, then mix every chunk by the winner
+    mix_frac = 0.0            # offset/Fs (fractional cycles per sample)
+    mix_pos = 0               # global sample index for phase continuity
+    pending = b""
+    if args.acquire > 0:
+        from ..parallel.sweep import acquisition_search
+        probe_n = int(rx.cfg.Fs * args.acquire)
+        pending = fin.read(probe_n * bytes_per_sample)
+        probe_iq = conv(np.frombuffer(pending, dtype=dtype))
+        step = rx.cfg.Rs // 2
+        grid = np.arange(-(rx.cfg.Fs // 2) + 2 * step,
+                         rx.cfg.Fs // 2 - 2 * step, step, dtype=np.float32)
+        best, scores = acquisition_search(rx.cfg, probe_iq, grid,
+                                          mode=args.mode, device=rx.device)
+        nuw = 32 if args.mode == "v2" else 40
+        if scores.max() >= nuw - 2 * (4 if args.mode == "v2" else 5):
+            mix_frac = float(best) / rx.cfg.Fs
+            print(f"acquired coarse offset {best:+.0f} Hz "
+                  f"(UW score {scores.max():.0f}/{nuw})", file=sys.stderr)
+        else:
+            print(f"acquisition found no UW lock (best score "
+                  f"{scores.max():.0f}/{nuw}); leaving tuning unchanged",
+                  file=sys.stderr)
+
+    # without mixing, push the raw rtl_sdr / pcmcat bytes and convert on
+    # the device; mixing converts and mixes on the host
+    if not mix_frac and args.format != "c64":
+        rx = receiver(args.format)
     emitter = UDPEmitter(enabled=not args.no_udp)
     router = PacketRouter(image_dir=args.image_dir, log_dir=args.log_dir,
                           emitter=emitter)
@@ -83,19 +130,22 @@ def main(argv=None):
         averaging_time=max(1.0 / args.stats_rate, 0.5), peak_hold=True,
         sample_rate=rx.cfg.Fs)
 
-    _, dtype, width = INPUT_CONVERTERS[args.format]
-    bytes_per_sample = np.dtype(dtype).itemsize * width
-    chunk_bytes = int(rx.cfg.Fs * args.chunk_seconds) * bytes_per_sample
-
-    fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
     last_stats = 0.0
     t0 = time.time()
     try:
         while True:
-            raw = fin.read(chunk_bytes)
+            raw = pending + fin.read(chunk_bytes)
+            pending = b""
             if not raw:
                 break
-            for payload in rx.push(np.frombuffer(raw, dtype=dtype)):
+            buf = np.frombuffer(raw, dtype=dtype)
+            if mix_frac:
+                iq = conv(buf)
+                n = mix_pos + np.arange(len(iq), dtype=np.float64)
+                buf = (iq * np.exp(-2j * np.pi * np.mod(n * mix_frac, 1.0))
+                       ).astype(np.complex64)
+                mix_pos += len(iq)
+            for payload in rx.push(buf):
                 router.handle_packet(payload)
             now = time.time()
             if not args.no_udp and now - last_stats > 1.0 / args.stats_rate:

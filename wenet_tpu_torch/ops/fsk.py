@@ -8,7 +8,8 @@ dump at P phases as a banded matmul, timing from the spectral line at Rs,
 elastic nin, interpolated symbol decisions, soft bits and Eb/N0 — as a
 Python loop over frames.  The read pointer `pos` stays a device tensor and
 each frame's window is a device-side gather, so the loop never syncs with
-the host.
+the host, and the loop has no data-dependent Python control flow: that is
+what lets `demod_lanes` run many captures at once under `torch.func.vmap`.
 """
 from __future__ import annotations
 
@@ -473,3 +474,15 @@ def demod_stream(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
         st = DemodState(*(torch.where(valid, a, b) for a, b in zip(nst, st)))
         outs.append(out._replace(valid=valid))
     return st, FrameOut(*(torch.stack(f) for f in zip(*outs)))
+
+
+def demod_lanes(cfg: FSKConfig, iq: torch.Tensor, num_frames: int):
+    """Demodulate L captures of one length at once: iq (L, n) complex64 ->
+    (final state, FrameOut), every field with a leading lane axis.
+
+    `torch.func.vmap` of `demod_stream` over the lanes (the JAX sweeps
+    vmap the demod over trials and offsets the same way); each lane
+    computes what an unbatched `demod_stream` call computes, and the
+    unbatched path is untouched.
+    """
+    return torch.func.vmap(lambda x: demod_stream(cfg, x, num_frames))(iq)

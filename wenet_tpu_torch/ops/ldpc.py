@@ -1,12 +1,14 @@
-"""H2064_516 LDPC encode + batched sum-product decode (counterpart of
-wenet_tpu/ops/ldpc.py).
+"""H2064_516 LDPC encode + batched sum-product and min-sum decode
+(counterpart of wenet_tpu/ops/ldpc.py).
 
-`decode` dispatches on the tensor's device: a CPU tensor goes through
-`decode_reference`, the plain PyTorch version; a CUDA tensor goes through
-the hand-written BP kernel (`wenet_tpu_torch.kernels.bp_decode`), never the
-reference.  Both compute what `wenet_tpu.ops.ldpc.decode` computes:
-phi-domain sum-product with the reference's phi0 clamps, the per-codeword
-convergence freeze and the same `iters` semantics.
+`decode` and `decode_minsum` dispatch on the tensor's device: a CPU tensor
+goes through the plain PyTorch version (`decode_reference`,
+`decode_minsum_reference`); a CUDA tensor goes through the hand-written BP
+kernel (`wenet_tpu_torch.kernels.bp_decode`), never the reference.  Both
+compute what `wenet_tpu.ops.ldpc.decode` / `decode_minsum` compute: the
+per-codeword convergence freeze and the same `iters` semantics, with the
+phi-domain check update (reference phi0 clamps) or the normalized two-min
+check update.
 """
 from __future__ import annotations
 
@@ -26,6 +28,19 @@ def encode_bits_np(ibits: np.ndarray) -> np.ndarray:
     taps = T.encoder_taps()                       # (516, 12)
     par = ibits[..., taps].sum(axis=-1)           # (..., 516)
     return (np.cumsum(par, axis=-1) & 1).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=8)
+def _encoder_taps(device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(T.encoder_taps(), dtype=torch.int64, device=device)
+
+
+def encode_bits(ibits: torch.Tensor) -> torch.Tensor:
+    """ibits (..., 2064) {0,1} tensor -> parity (..., 516) uint8, on the
+    tensor's device (integer-exact)."""
+    par = ibits.to(torch.int32)[..., _encoder_taps(ibits.device)].sum(
+        dim=-1, dtype=torch.int32)
+    return (torch.cumsum(par, dim=-1, dtype=torch.int32) & 1).to(torch.uint8)
 
 
 def encode_bytes(payload258: bytes) -> bytes:
@@ -143,3 +158,78 @@ def decode(llr: torch.Tensor, max_iter: int = T.MAX_ITER):
     if llr.device.type == "cpu":
         return decode_reference(llr, max_iter)
     raise ValueError(f"decode: unsupported device {llr.device}")
+
+
+MINSUM_BIG = 1e30        # magnitude of the invalid edge slots
+
+
+def decode_minsum_reference(llr: torch.Tensor, max_iter: int = T.MAX_ITER,
+                            scale: float = 0.8):
+    """Plain PyTorch normalized min-sum decode (any device).
+
+    Same graph, freeze and returns as `decode_reference`; the check update
+    is r = scale * sign-product * (the smallest |q| of the other edges),
+    from the two smallest magnitudes per check.  The first-min slot is the
+    lowest slot holding the minimum, invalid slots carry MINSUM_BIG, and
+    the var-side sign is `q < 0` (sum-product: `q <= 0`).
+    """
+    var_idx, mask, vslots, vmask = decoder_tables(llr.device)
+    B = llr.shape[0]
+    fmask = mask.to(llr.dtype)
+    vfmask = vmask.to(llr.dtype)
+    big = torch.tensor(MINSUM_BIG, dtype=llr.dtype, device=llr.device)
+    slot = torch.arange(T.MAX_CHECK_DEG, device=llr.device)
+
+    q_e = llr[:, var_idx]                                     # (B, 516, 14)
+    qmag = torch.where(mask, torch.abs(q_e), big)
+    qsgn = ((q_e < 0) & mask).int()
+    bits = torch.zeros(B, T.CODE_LEN, dtype=torch.uint8, device=llr.device)
+    iters = torch.full((B,), max_iter, dtype=torch.int32, device=llr.device)
+    converged = torch.zeros(B, dtype=torch.bool, device=llr.device)
+    pad = torch.zeros(B, 1, dtype=llr.dtype, device=llr.device)
+
+    for it in range(max_iter):
+        m1 = qmag.min(dim=-1, keepdim=True).values
+        pos = torch.where(qmag <= m1, slot, T.MAX_CHECK_DEG).min(
+            dim=-1, keepdim=True).values
+        first = slot == pos
+        m2 = torch.where(first, big, qmag).min(dim=-1, keepdim=True).values
+        r_mag = torch.where(first, m2, m1) * scale
+        sgn_tot = qsgn.sum(dim=-1, keepdim=True) & 1
+        r_sgn = (sgn_tot ^ qsgn) & 1
+        rmsg = torch.where(r_sgn == 1, -r_mag, r_mag) * fmask
+        ssum = (sgn_tot[..., 0] == 0).sum(dim=-1)
+
+        flat = torch.cat([rmsg.reshape(B, -1), pad], dim=1)
+        g = flat[:, vslots] * vfmask
+        qi = llr + ((g[..., 0] + g[..., 1]) + g[..., 2])
+        new_bits = (qi < 0).to(torch.uint8)
+        q_e = qi[:, var_idx] - rmsg
+        new_qmag = torch.where(mask, torch.abs(q_e), big)
+        new_qsgn = ((q_e < 0) & mask).int()
+
+        data_zero = torch.all(new_bits[:, : T.N_DATA] == 0, dim=-1)
+        trigger = data_zero | (ssum == T.N_PARITY)
+
+        upd = ~converged
+        qmag = torch.where(upd[:, None, None], new_qmag, qmag)
+        qsgn = torch.where(upd[:, None, None], new_qsgn, qsgn)
+        bits = torch.where(upd[:, None], new_bits, bits)
+        iters = torch.where(upd, torch.tensor(it + 1, dtype=torch.int32,
+                                              device=llr.device), iters)
+        converged = converged | trigger
+        if bool(converged.all()):
+            break
+
+    return bits, iters, _parity_ok(bits, var_idx, mask)
+
+
+def decode_minsum(llr: torch.Tensor, max_iter: int = T.MAX_ITER,
+                  scale: float = 0.8):
+    """Batched normalized min-sum decode: the min-sum variant of the BP
+    kernel for a CUDA tensor, the plain reference for a CPU tensor."""
+    if llr.device.type == "cuda":
+        return bp_decode.decode_minsum(llr, max_iter, scale)
+    if llr.device.type == "cpu":
+        return decode_minsum_reference(llr, max_iter, scale)
+    raise ValueError(f"decode_minsum: unsupported device {llr.device}")
