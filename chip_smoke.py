@@ -5,17 +5,23 @@
 Builds the CUDA kernels from wenet_tpu_torch/csrc with nvcc (one process
 per source, all at once) and holds each against its plain PyTorch version
 on the card: the sum-product BP kernel, its min-sum variant and the one-hot
-tensor-core BP kernel.  Then it drives the port's paths: the streaming
-receiver at the v2 and v1 flight geometries on synthetic captures, a
-negative probe below the decode cliff and the `python -m wenet_tpu_torch
-rx` CLI; the decoder-throughput stage of bench.py (B = 2048 at 7.5 dB);
-LDPC BER sweeps with both algorithms; a full-chain PER sweep; and the
-coarse acquisition search, alone and through the CLI's --acquire, on a
-capture tuned 300 kHz off.  Each phase prints one line; any failed check
-raises, so the script exits non-zero before its last line.  The last three
-lines are a JSON object with the kernels' numbers, the card's name and
-power limit, and a JSON object with the device.  Without a CUDA device the
-script fails at once.
+tensor-core BP kernel, at B = 16, 32, 70 and 128.  Kernel times are
+CUDA-event times: `ms` over replays of a CUDA graph of many launches (the
+kernel alone), `call_ms` over many eager calls (the wrapper's host work
+included); the plain versions are timed over eager calls.  Each time is
+printed beside its bound (the larger of bytes at 3.35 TB/s and float32
+operations at 67 TFLOP/s, from this run's iterations) and the card's name
+and power limit.  Then it drives the port's paths: the streaming receiver
+at the v2 and v1 flight geometries on synthetic captures (printing the
+decode batch of each push), a negative probe below the decode cliff and
+the `python -m wenet_tpu_torch rx` CLI; the decoder-throughput stage of
+bench.py (B = 2048 at 7.5 dB); LDPC BER sweeps with both algorithms; a
+full-chain PER sweep; and the coarse acquisition search, alone and through
+the CLI's --acquire, on a capture tuned 300 kHz off.  Each phase prints one
+line; any failed check raises, so the script exits non-zero before its last
+line.  The last three lines are a JSON object with the kernels' numbers,
+the card's name and power limit, and a JSON object with the device.
+Without a CUDA device the script fails at once.
 """
 from __future__ import annotations
 
@@ -34,14 +40,20 @@ SEED = 1234
 V2_PACKETS = 40
 V1_PACKETS = 20
 EBNO_DB = 12.0
-BP_BATCH = 128
-BP_SNRS = (2.5, 3.0, 6.0)
+# (batch, dB): the v2 capture's push batches (16, 32: clustered launches),
+# a flight-traffic push (70) and its power-of-two bucket (128)
+BP_CASES = ((16, 2.5), (32, 2.5), (70, 2.5), (128, 2.5), (128, 3.0),
+            (128, 6.0))
+MAIN_CASE = (128, 2.5)        # the v2 push's bucketed batch, slow codewords
 STAGE_BATCH = 2048            # bench.py stage_ldpc
 STAGE_EBNO_DB = 7.5
 SWEEP_EBNO_DB = (1.5, 2.5, 3.5, 5.0)
 ACQ_PACKETS = 4
 ACQ_SHIFT_HZ = 300e3
 ACQ_LOCK_HZ = (132e3, 468e3)  # offsets that bring both tones into the band
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 rate; FP32 peak below
+FP32_OPS_PER_S = 67e12
+VALID_EDGES = 7223            # of the 516 x 14 edge slots of H2064_516
 
 
 def require(ok, msg: str):
@@ -84,17 +96,96 @@ def text_message(message: str, count: int) -> bytes:
             + message.encode("ascii"))
 
 
-def timed(fn, *args, n=20):
-    """Seconds per call: warm-up, n calls, synchronize, one-element D2H."""
+def event_ms(fn, n):
+    """CUDA-event ms per call over n eager calls, after one warm-up."""
     import torch
-    out = fn(*args)
+    fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
     for _ in range(n):
-        out = fn(*args)
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def graph_ms(fn, n=20, replays=5):
+    """CUDA-event ms per launch over replays of a CUDA graph of n calls:
+    the device time of the kernel without the wrapper's host work."""
+    import torch
+    fn()
     torch.cuda.synchronize()
-    out[1][:1].cpu()
-    return (time.perf_counter() - t0) / n
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        fn()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(n):
+                fn()
+    torch.cuda.synchronize()
+    return event_ms(graph.replay, replays) / n
+
+
+def bp_bound(batch, iters_total, table_bytes, minsum, log_ops=1, tanh_ops=1):
+    """(bound ms, 'bytes' or 'operations') of one BP decode: the llr in, the
+    tables in, bits, iterations and parity flags out, each once, at
+    HBM_BYTES_PER_S; and the reference's float32 operations for the
+    iterations this run took, at FP32_OPS_PER_S.  Per valid edge and
+    iteration, sum-product: q = qi - r, |q|, x * 0.5, tanh, log, negate,
+    the check sum; acc - m, x * 0.5, tanh, log, negate, the sign; the var
+    sum (10 + 2 tanh + 2 log); min-sum: q, |q|, two minima, the scaled
+    select, the sign, the var sum (7).  logf and tanhf count log_ops and
+    tanh_ops each."""
+    per_edge = 7 if minsum else 10 + 2 * (log_ops + tanh_ops)
+    ops = iters_total * VALID_EDGES * per_edge
+    nbytes = batch * (4 * 2580 + 2580 + 4 + 1) + table_bytes
+    t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+PROBE_SRC = r"""
+extern "C" __global__ void probe_half(float* x) { x[threadIdx.x] *= 0.5f; }
+extern "C" __global__ void probe_logf(float* x) {
+    x[threadIdx.x] = logf(x[threadIdx.x]);
+}
+extern "C" __global__ void probe_tanhf(float* x) {
+    x[threadIdx.x] = tanhf(x[threadIdx.x]);
+}
+"""
+
+
+def libdevice_expansion(nvcc, flags, build_dir):
+    """Static SASS instructions of logf and tanhf as the BP kernel is built
+    (the kernels' nvcc flags): a probe kernel of each, less one that
+    only scales its input, counted with cuobjdump."""
+    import re
+    os.makedirs(build_dir, exist_ok=True)
+    src = os.path.join(build_dir, "libdevice_probe.cu")
+    cubin = os.path.join(build_dir, "libdevice_probe.cubin")
+    with open(src, "w") as f:
+        f.write(PROBE_SRC)
+    cflags = [f for f in flags if f not in ("-shared", "-Xcompiler", "-fPIC",
+                                            "-Xptxas=-v")]
+    subprocess.run([nvcc, *cflags, "-cubin", "-o", cubin, src], check=True,
+                   capture_output=True)
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
+        check=True, capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/\s+[A-Z@]", line) \
+                and " NOP" not in line:
+            counts[name] += 1
+    base = counts["probe_half"]
+    return {"logf": counts["probe_logf"] - base,
+            "tanhf": counts["probe_tanhf"] - base}
 
 
 def mismatches(got, want):
@@ -184,44 +275,88 @@ def main() -> int:
         regs = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
         say("ptxas", kernel=name, info=repr("; ".join(regs)))
+    expansion = libdevice_expansion(kernels.nvcc_path(), kernels.NVCC_FLAGS,
+                                    kernels.BUILD_DIR)
+    sms, per_sm = bp_decode.card_shape(dev)
+    say("bp_launch", sms=sms, blocks_per_sm=per_sm,
+        libdevice_sass_instructions=expansion,
+        shapes={b: bp_decode.launch_shape(b, sms, per_sm)
+                for b in (1, 16, 40, 70, 128, 2048)},
+        minsum_shapes={b: bp_decode.launch_shape(b, sms, per_sm, True)
+                       for b in (1, 70, 2048)})
 
-    # 3. each kernel vs its plain version on the card, B = 128
-    # (name, op, plain, timed reps of the plain version)
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    # 3. each kernel vs its plain version on the card, B = 16 to 128
+    # (name, op, plain, timed calls of the plain version, min-sum, table
+    # bytes)
     decoders = [
-        ("bp_decode", ldpc.decode, ldpc.decode_reference, 20),
-        ("bp_minsum", ldpc.decode_minsum, ldpc.decode_minsum_reference, 20),
+        ("bp_decode", ldpc.decode, ldpc.decode_reference, 10, False,
+         nbytes(bp_decode._tables(dev))),
+        ("bp_minsum", ldpc.decode_minsum, ldpc.decode_minsum_reference, 10,
+         True, nbytes(bp_decode._tables(dev))),
         ("bp_onehot", ldpc_onehot.decode_onehot,
-         ldpc_onehot.decode_onehot_reference, 3),
+         ldpc_onehot.decode_onehot_reference, 3, False,
+         nbytes(ldpc_onehot.kernel_tables(dev))),
     ]
     rng = np.random.default_rng(SEED)
     max_err = {name: 0 for name, *_ in decoders}
     times = {}
-    for snr in BP_SNRS:
-        llr = noisy_llrs(BP_BATCH, snr, rng, dev)
-        for name, op, plain, reps in decoders:
+
+    def measure(name, op, plain, reps, minsum, table_bytes, llr, got):
+        """Times and bounds of one decoder on llr; got = its outputs."""
+        B = llr.shape[0]
+        it_total = int(got[1].sum())
+        bound, by = bp_bound(B, it_total, table_bytes, minsum)
+        bound_x, by_x = bp_bound(B, it_total, table_bytes, minsum,
+                                 expansion["logf"], expansion["tanhf"])
+        tk = graph_ms(lambda: op(llr))
+        return {"ms": tk, "call_ms": event_ms(lambda: op(llr), 20),
+                "plain_ms": event_ms(lambda: plain(llr), reps),
+                "bound_ms": bound, "bound_by": by,
+                "bound_libdevice_ms": bound_x, "bound_libdevice_by": by_x,
+                "share": bound / tk, "mean_iters": it_total / B}
+
+    def show(phase, name, B, snr, m, **kv):
+        say(phase, kernel=name, batch=B, snr_db=snr, **kv,
+            mean_iters=f"{m['mean_iters']:.3f}",
+            kernel_ms=f"{m['ms']:.4f}", call_ms=f"{m['call_ms']:.4f}",
+            plain_ms=f"{m['plain_ms']:.4f}",
+            bound_ms=f"{m['bound_ms']:.6f}", bound_by=m["bound_by"],
+            share_of_bound=f"{m['share']:.4f}",
+            bound_libdevice_ms=f"{m['bound_libdevice_ms']:.6f}",
+            bound_libdevice_by=m["bound_libdevice_by"],
+            card=repr(smi))
+
+    for B, snr in BP_CASES:
+        # the 128-codeword cases draw from the generator of the captures
+        # below, as they always have; the others from their own
+        llr = noisy_llrs(B, snr, rng if B == MAIN_CASE[0]
+                         else np.random.default_rng(SEED + B), dev)
+        for name, op, plain, reps, minsum, table_bytes in decoders:
             got = op(llr)
             bit_mis, it_mis, ok_mis, err = mismatches(got, plain(llr))
             require(bit_mis == 0 and it_mis == 0 and ok_mis == 0,
-                    f"{name} {snr} dB: {bit_mis} codewords differ in bits, "
-                    f"{it_mis} in iters, {ok_mis} in parity_ok")
+                    f"{name} B={B} {snr} dB: {bit_mis} codewords differ in "
+                    f"bits, {it_mis} in iters, {ok_mis} in parity_ok")
             if name == "bp_onehot":     # the same sum-product as bp_decode
                 sp = mismatches(got, ldpc.decode_reference(llr))
                 require(sp[:3] == (0, 0, 0),
-                        f"bp_onehot {snr} dB differs from decode_reference")
+                        f"bp_onehot B={B} {snr} dB differs from "
+                        f"decode_reference")
             max_err[name] = max(max_err[name], err)
-            tk = timed(op, llr) * 1e3
-            tr = timed(plain, llr, n=reps) * 1e3
-            times[name, snr] = (tk, tr)
-            say("bp_vs_plain", kernel=name, snr_db=snr, batch=BP_BATCH,
-                converged=int(got[2].sum()), bit_mismatch=bit_mis,
-                iters_mismatch=it_mis, parity_mismatch=ok_mis,
-                kernel_ms=f"{tk:.4f}", plain_ms=f"{tr:.4f}")
-    llr7 = noisy_llrs(7, BP_SNRS[1], np.random.default_rng(SEED + 7),
+            m = measure(name, op, plain, reps, minsum, table_bytes, llr, got)
+            times[name, B, snr] = m
+            show("bp_vs_plain", name, B, snr, m,
+                 converged=int(got[2].sum()), bit_mismatch=bit_mis,
+                 iters_mismatch=it_mis, parity_mismatch=ok_mis)
+    llr7 = noisy_llrs(7, 3.0, np.random.default_rng(SEED + 7),
                       dev)                          # a ragged batch tile
     got7 = ldpc_onehot.decode_onehot(llr7)
     mis7 = mismatches(got7, ldpc_onehot.decode_onehot_reference(llr7))
     require(mis7[:3] == (0, 0, 0), f"bp_onehot B=7: mismatches {mis7[:3]}")
-    say("bp_vs_plain", kernel="bp_onehot", snr_db=BP_SNRS[1], batch=7,
+    say("bp_vs_plain", kernel="bp_onehot", snr_db=3.0, batch=7,
         converged=int(got7[2].sum()), bit_mismatch=mis7[0],
         iters_mismatch=mis7[1], parity_mismatch=mis7[2])
 
@@ -231,8 +366,15 @@ def main() -> int:
              for i in range(V2_PACKETS)]
     raw2 = make_capture(cfg2, "v2", sent2, EBNO_DB, rng)
     want2 = [framing.pad_payload(p) for p in sent2]
+    batches = []                  # the decode batch of each push
+    decode = ldpc.decode
+    ldpc.decode = lambda llr, *a, **k: (batches.append(llr.shape[0]),
+                                        decode(llr, *a, **k))[1]
     bp_decode.launches = 0
-    got2, dt2, rx2 = run_receiver(cfg2, "v2", raw2)
+    try:
+        got2, dt2, rx2 = run_receiver(cfg2, "v2", raw2)
+    finally:
+        ldpc.decode = decode
     main_launches = {"bp_decode": bp_decode.launches}
     n2 = len(raw2) // 2
     require(got2 == want2, f"v2: {len(got2)}/{len(want2)} payloads match")
@@ -244,7 +386,8 @@ def main() -> int:
         realtime_msps=f"{cfg2.Fs / 1e6:.3f}",
         demod_share=f"{sec2['demod'] / dt2:.3f}",
         deframe_share=f"{sec2['deframe'] / dt2:.3f}",
-        bp_launches=main_launches["bp_decode"], frames=rx2.stats.frames)
+        bp_launches=main_launches["bp_decode"], frames=rx2.stats.frames,
+        decode_batches=batches)
 
     # 5. main path, v1 at flight rate; pipelined == serial
     cfg1 = fsk.V1_CONFIG
@@ -293,32 +436,29 @@ def main() -> int:
         llr = ldpc.sd_to_llr(torch.as_tensor(sd, dtype=torch.float32,
                                              device=dev))
         stage = {}
-        for name, op, plain, _ in decoders:
+        for name, op, plain, reps, minsum, table_bytes in decoders:
             bp_decode.launches = bp_decode.minsum_launches = 0
             bp_onehot.launches = 0
-            tk = timed(op, llr, n=10)
+            got = op(llr)
             counts = {"bp_decode": bp_decode.launches,
                       "bp_minsum": bp_decode.minsum_launches,
                       "bp_onehot": bp_onehot.launches}
-            require(counts[name] == 11 and sum(counts.values()) == 11,
+            require(counts[name] == 1 and sum(counts.values()) == 1,
                     f"ldpc_stage {name}: launches {counts}")
             if name == "bp_onehot":
                 main_launches[name] = counts[name]
-            got = op(llr)
-            tr = timed(plain, llr, n=1)
             mis = mismatches(got, plain(llr))
             require(mis[:3] == (0, 0, 0),
                     f"ldpc_stage {name}: mismatches {mis[:3]}")
             require(int(got[2].sum()) >= STAGE_BATCH - 2,
                     f"ldpc_stage {name}: {int(got[2].sum())} converged")
-            stage[name] = (tk, tr)
-            say("ldpc_stage", kernel=name, batch=STAGE_BATCH,
-                ebno_db=STAGE_EBNO_DB, converged=int(got[2].sum()),
-                mean_iters=f"{got[1].float().mean().item():.3f}",
-                mismatches=sum(mis[:3]), kernel_ms=f"{tk * 1e3:.4f}",
-                plain_ms=f"{tr * 1e3:.4f}",
-                codewords_per_s=f"{STAGE_BATCH / tk:.0f}",
-                plain_codewords_per_s=f"{STAGE_BATCH / tr:.0f}")
+            m = measure(name, op, plain, 1, minsum, table_bytes, llr, got)
+            stage[name] = m
+            show("ldpc_stage", name, STAGE_BATCH, STAGE_EBNO_DB, m,
+                 converged=int(got[2].sum()), mismatches=sum(mis[:3]),
+                 codewords_per_s=f"{STAGE_BATCH / m['ms'] * 1e3:.0f}",
+                 plain_codewords_per_s=(
+                     f"{STAGE_BATCH / m['plain_ms'] * 1e3:.0f}"))
 
         # 9. LDPC BER sweeps, both algorithms (the counted min-sum run)
         for algo, count in (("sum-product", "bp_decode"),
@@ -397,16 +537,20 @@ def main() -> int:
         "bp_decode": ("wenet_tpu_torch/csrc/bp_decode.cu",
                       "wenet_tpu/ops/ldpc_pallas2.py:114"),
         "bp_minsum": ("wenet_tpu_torch/csrc/bp_decode.cu",
-                      "wenet_tpu/ops/ldpc.py:188"),
+                      "wenet_tpu/ops/ldpc.py:189"),
         "bp_onehot": ("wenet_tpu_torch/csrc/bp_onehot.cu",
                       "wenet_tpu/ops/ldpc_pallas.py:86"),
     }
     out = []
     for name, (source, replaces) in sources.items():
-        tk, tr = times[name, BP_SNRS[0]]
+        m = times[(name, *MAIN_CASE)]
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": main_launches[name],
-                    "max_abs_err": max_err[name], "ms": tk, "plain_ms": tr})
+                    "max_abs_err": max_err[name], "ms": m["ms"],
+                    "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                    "bound_by": m["bound_by"], "library_ms": None,
+                    "call_ms": m["call_ms"],
+                    "batch": MAIN_CASE[0], "snr_db": MAIN_CASE[1]})
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,9 @@ NEW_MODULES = ("wenet_tpu_torch.ops.ldpc_onehot, wenet_tpu_torch.ops.channel, "
 def test_port_imports_no_jax():
     code = ("import sys, wenet_tpu_torch, wenet_tpu_torch.rx.pipeline, "
             "wenet_tpu_torch.cli.rx, wenet_tpu_torch.kernels.bp_decode, "
-            "wenet_tpu_torch.ops.deframe, " + NEW_MODULES + "; "
+            "wenet_tpu_torch.ops.deframe, wenet_tpu_torch.rx.router, "
+            "wenet_tpu_torch.rx.stats, wenet_tpu_torch.ssdv, "
+            + NEW_MODULES + "; "
             "print('jax' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=ROOT),
@@ -42,21 +44,37 @@ def test_port_imports_no_jax():
     assert out.stdout.strip() == "False"
 
 
-def test_receive_path_imports_nothing_of_the_jax_package():
-    """The receive path and chip_smoke.py's own imports load no module of
-    `wenet_tpu`; only the CLI's payload sink (its router) is shared."""
-    code = ("import sys, wenet_tpu_torch.rx.pipeline, wenet_tpu_torch.cli.rx, "
-            "wenet_tpu_torch.ops.deframe, chip_smoke, " + NEW_MODULES + "; "
-            "print(sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('wenet_tpu', 'jax')))")
+def test_receive_path_imports_nothing_of_the_jax_package(tmp_path):
+    """No module of `wenet_tpu_torch`, and not chip_smoke.py, loads a module
+    of `wenet_tpu` or `jax`: every module of the package is imported, then
+    the CLI runs to its end on an empty capture (its payload sink is
+    imported inside `main`)."""
+    empty = tmp_path / "empty.cu8"
+    empty.write_bytes(b"")
+    code = (
+        "import pkgutil, sys, wenet_tpu_torch, chip_smoke\n"
+        "for m in pkgutil.walk_packages(wenet_tpu_torch.__path__, "
+        "'wenet_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
+        "from wenet_tpu_torch.cli import rx\n"
+        f"assert rx.main([{str(empty)!r}, '--device', 'cpu', '--no-udp', "
+        f"'--image-dir', {str(tmp_path / 'img')!r}]) == 0\n"
+        "assert 'wenet_tpu_torch.rx.router' in sys.modules\n"
+        "print(sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('wenet_tpu', 'jax')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=ROOT),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
-    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
-        assert not re.search(r"^\s*(from|import) (jax|wenet_tpu)\b",
-                             fh.read(), re.M)
+    pat = re.compile(r"^\s*(from|import) (jax|wenet_tpu)\b", re.M)
+    sources = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG):
+        sources += [os.path.join(dirpath, f) for f in files
+                    if f.endswith(".py")]
+    for path in sources:
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
 
 
 def test_port_sources_have_no_jax_import():

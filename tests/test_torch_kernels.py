@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from wenet_tpu_torch import kernels
+from wenet_tpu_torch.core import ldpc_tables as T
 from wenet_tpu_torch.kernels import bp_decode, bp_onehot
 from wenet_tpu_torch.ops import ldpc, ldpc_onehot
 
@@ -73,6 +74,128 @@ def test_variant_wrappers_take_only_cuda_tensors(name):
     assert (bp_decode.minsum_launches, bp_onehot.launches) == counts
     np.testing.assert_array_equal(bits.numpy(), cw)
     assert ok.all()
+
+
+def _emulate(llr, max_iter, minsum=False, scale=0.8):
+    """The BP kernel's schedule in plain torch on the packed tables: one
+    check phase (q = qi - rmsg, the sum or the two minima, new rmsg) and one
+    var phase (qi) per iteration, first-iteration signs llr < 0, a
+    converged codeword frozen."""
+    ctab, vtab = (torch.from_numpy(a.astype(np.int64))
+                  for a in bp_decode.packed_tables())
+    cvalid, cvar = (ctab & bp_decode.VALID) != 0, ctab & bp_decode.VAR_MASK
+    vvalid, vedge = (vtab & bp_decode.VALID) != 0, vtab & bp_decode.EDGE_MASK
+    B = llr.shape[0]
+    big = ldpc.MINSUM_BIG if minsum else 0.0
+    slot = torch.arange(14)[:, None]
+    qi, rmsg = llr.clone(), torch.zeros(B, 14, 516)
+    iters = torch.full((B,), max_iter, dtype=torch.int32)
+    done = torch.zeros(B, dtype=torch.bool)
+    for it in range(max_iter):
+        q = qi[:, cvar] - rmsg                                # (B, 14, 516)
+        neg = ((q < 0) if minsum or it == 0 else (q <= 0)) & cvalid
+        mag = torch.where(cvalid, q.abs() if minsum else ldpc.phi0(q.abs()),
+                          big)
+        par = neg.int().sum(1) & 1                            # (B, 516)
+        if minsum:
+            m1 = mag.min(1, keepdim=True).values
+            pos = torch.where(mag <= m1, slot, 14).min(1, keepdim=True).values
+            m2 = torch.where(slot == pos, big, mag).min(1, keepdim=True).values
+            rmag = torch.where(slot == pos, m2, m1) * scale
+        else:
+            acc = mag[:, 0]
+            for s in range(1, 14):
+                acc = acc + mag[:, s]
+            rmag = ldpc.phi0(acc[:, None] - mag)
+        flip = ((par[:, None] ^ neg.int()) & 1) == 1
+        r = torch.where(cvalid, torch.where(flip, -rmag, rmag), 0.0)
+        g = torch.where(vvalid, r.reshape(B, -1)[:, vedge], 0.0)  # (B, 3, 2580)
+        q_new = llr + ((g[:, 0] + g[:, 1]) + g[:, 2])
+        upd = ~done
+        qi = torch.where(upd[:, None], q_new, qi)
+        rmsg = torch.where(upd[:, None, None], r, rmsg)
+        iters = torch.where(upd, it + 1, iters).int()
+        done |= (par == 0).all(1) | ~(q_new[:, :2064] < 0).any(1)
+        if bool(done.all()):
+            break
+    bits = ((qi < 0) & (max_iter > 0)).to(torch.uint8)
+    ok = ((bits[:, cvar].int() * cvalid.int()).sum(1) % 2 == 0).all(1)
+    return bits, iters, ok
+
+
+def test_packed_tables_match_the_code():
+    """Each packed check entry names the check's variable; each packed var
+    entry names an edge whose check entry names that variable back."""
+    ctab, vtab = bp_decode.packed_tables()
+    var_idx, mask = T.check_edges()
+    vslots, vmask = T.var_edges()
+    assert ctab.shape == (14, 516) and ctab.dtype == np.uint16
+    assert vtab.shape == (3, 2580) and vtab.dtype == np.uint16
+    np.testing.assert_array_equal((ctab & bp_decode.VALID) != 0, mask.T)
+    np.testing.assert_array_equal(np.where(mask.T, ctab & 0x0FFF, 0),
+                                  np.where(mask.T, var_idx.T, 0))
+    np.testing.assert_array_equal((vtab & bp_decode.VALID) != 0, vmask.T)
+    e = (vtab & bp_decode.EDGE_MASK).astype(np.int64)
+    s, c = np.divmod(e, 516)
+    back = ctab[s, c] & bp_decode.VAR_MASK
+    v = np.broadcast_to(np.arange(2580), e.shape)
+    assert (back[vmask.T] == v[vmask.T]).all()
+    np.testing.assert_array_equal((c * 14 + s)[vmask.T], vslots.T[vmask.T])
+    assert int(vmask.sum()) == int(mask.sum()) == 7223
+
+
+def test_packed_tables_fit_their_fields():
+    ctab, vtab = bp_decode.packed_tables()
+    assert int((ctab & bp_decode.VAR_MASK).max()) < 2580 <= bp_decode.VAR_MASK
+    assert int((vtab & bp_decode.EDGE_MASK).max()) < 7224 <= bp_decode.EDGE_MASK
+    assert not (ctab & ~np.uint16(bp_decode.VALID | bp_decode.VAR_MASK)).any()
+    assert not (vtab & ~np.uint16(bp_decode.VALID | bp_decode.EDGE_MASK)).any()
+    # a block of a cluster of K has 516 threads: 516/K checks of K lanes,
+    # whose slots, ceil(14/K) a lane, cover the 14 in order; and 2580/K
+    # variables
+    for k in (1, 2, 4):
+        assert (516 // k) * k == 516 and (2580 // k) * k == 2580
+        sl = -(-14 // k)
+        slots = [s for lane in range(k) for s in range(lane * sl, lane * sl + sl)
+                 if s < 14]
+        assert slots == list(range(14))
+
+
+@pytest.mark.parametrize("minsum", [False, True], ids=["sum-product",
+                                                       "min-sum"])
+@pytest.mark.parametrize("B,sp,ms", [
+    (0, (1, 0), (1, 0)), (1, (4, 4), (1, 1)), (7, (4, 28), (1, 7)),
+    (16, (4, 64), (1, 16)), (17, (2, 34), (1, 17)), (40, (2, 80), (1, 40)),
+    (66, (2, 132), (1, 66)), (67, (1, 67), (1, 67)), (70, (1, 70), (1, 70)),
+    (133, (1, 133), (1, 133)), (264, (1, 264), (1, 264)),
+    (2048, (1, 264), (1, 264))])
+def test_launch_shape(minsum, B, sp, ms):
+    """132 SMs, 2 resident blocks each: sum-product clusters of 4 while
+    4B <= 66, of 2 while 2B <= 132; else, and for min-sum, one block per
+    codeword up to 264 blocks, which draw from a queue past that."""
+    want = ms if minsum else sp
+    assert bp_decode.launch_shape(B, 132, 2, minsum) == want
+    k, grid = want
+    assert grid % k == 0
+    if B:
+        assert grid // k <= B and (k == 1 or grid <= 132)
+
+
+@pytest.mark.parametrize("minsum", [False, True], ids=["sum-product",
+                                                       "min-sum"])
+@pytest.mark.parametrize("B,snr_db,max_iter", [
+    (6, 2.5, 10), (6, 3.5, 10), (6, 6.0, 10), (5, 3.0, 0), (5, 3.0, 1),
+    (5, 3.0, 3)])
+def test_kernel_schedule_matches_plain(minsum, B, snr_db, max_iter):
+    """On the CPU, the kernel's schedule (check-owned phase, first-iteration
+    sign rule, freeze) gives the plain decoder's bits, iterations and parity
+    flags exactly."""
+    llr, _ = _llr(B, snr_db, int(10 * snr_db) + B + max_iter, "cpu")
+    plain = ldpc.decode_minsum_reference if minsum else ldpc.decode_reference
+    got = _emulate(llr, max_iter, minsum)
+    want = plain(llr, max_iter=max_iter)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -157,6 +280,32 @@ def test_variant_kernels_iteration_cap(name, max_iter):
     op, plain, _ = VARIANTS[name]
     llr, _ = _llr(16, 3.0, 6, dev)
     for a, b in zip(op(llr, max_iter=max_iter), plain(llr, max_iter=max_iter)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sum-product", "min-sum"])
+@pytest.mark.parametrize("B", [1, 7, 40, 70, 133, 2048])
+@pytest.mark.parametrize("snr_db", [2.5, 4.0, 7.5])
+@pytest.mark.parametrize("max_iter", [0, 1, 3, 10])
+def test_bp_kernels_every_launch_shape(name, B, snr_db, max_iter):
+    """Both BP variants equal their plain versions in bits, iterations and
+    parity flags on every codeword, in every launch shape the wrapper picks
+    (clusters of 4 and 2, one block per codeword, a persistent grid)."""
+    dev = _card()
+    minsum = name == "min-sum"
+    sms, per_sm = bp_decode.card_shape(dev, minsum)
+    assert per_sm >= 2
+    cluster, grid = bp_decode.launch_shape(B, sms, per_sm, minsum)
+    assert cluster == (1 if minsum else {1: 4, 7: 4, 40: 2}.get(B, 1))
+    assert (grid < B) == (B == 2048)
+    llr, _ = _llr(B, snr_db, B + int(10 * snr_db) + 100 * max_iter, dev)
+    op = ldpc.decode_minsum if minsum else ldpc.decode
+    plain = ldpc.decode_minsum_reference if minsum else ldpc.decode_reference
+    got = op(llr, max_iter=max_iter)
+    want = plain(llr, max_iter=max_iter)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
         assert torch.equal(a, b)
 
 

@@ -3,21 +3,22 @@
 The JAX package (`wenet_tpu`) stays the reference; this package mirrors its
 module names so every counterpart is easy to find:
 
-  core/      wire formats and LDPC code tables (numpy, host side)
+  core/      wire formats, packet codecs and LDPC code tables (numpy,
+             host side)
   ops/       FSK demod, LDPC decode, CRC, deframing, channel models on
              torch tensors
   kernels/   hand-written CUDA kernels for Hopper (sm_90a), built at first
              use with nvcc and bound with ctypes
   csrc/      the CUDA sources of those kernels
   parallel/  Monte-Carlo sweeps and the coarse acquisition search
-  rx/        the streaming Receiver
+  rx/        the streaming Receiver, the payload router and stats bus
+  ssdv/      the native SSDV codec (JPEG packetiser)
   cli/       `python -m wenet_tpu_torch rx ...`
   utils/     DFT-as-matmul, polynomial atan2
 
-It imports `torch` and never `jax`, and the receive path imports nothing of
-the JAX package.  Only the CLI's payload sink is shared with it: the
-jax-free application layer `wenet_tpu.rx.router` (SSDV images, telemetry
-logs, UDP side-channels) and the stats bus `wenet_tpu.rx.stats`.
+It imports `torch` and never `jax`, and no module of it imports the JAX
+package: the CLI's payload sink (`rx/router`, `rx/stats`, `core/packets`,
+`ssdv/`) is the port's own copy of the JAX package's.
 """
 
 from .device import resolve_device  # noqa: F401

@@ -4,8 +4,8 @@ The streaming branch of `python -m wenet_tpu rx` on the PyTorch port:
 
     python -m wenet_tpu_torch rx capture.cu8 --format cu8 --mode v2
 
-Payloads go through `wenet_tpu.rx.router.PacketRouter` (images, JSON logs,
-UDP side-channels).  `--acquire SECONDS` probes the head of the stream,
+Payloads go through the port's own `rx.router.PacketRouter` (images, JSON
+logs, UDP side-channels).  `--acquire SECONDS` probes the head of the stream,
 searches a coarse frequency-offset grid on the device
 (`parallel.sweep.acquisition_search`) and, on a UW lock, mixes every chunk
 by the winner on the host, phase-continuously.  The whole-capture modes of
@@ -67,12 +67,11 @@ def main(argv=None):
                   file=sys.stderr)
             return 2
 
-    from wenet_tpu.rx import stats as rxstats
-    from wenet_tpu.rx.router import PacketRouter, UDPEmitter
-
     from ..ops import fsk
+    from ..rx import stats as rxstats
     from ..rx.pipeline import (INPUT_CONVERTERS, MODE_CONFIGS, Receiver,
                                receiver_stats_record)
+    from ..rx.router import PacketRouter, UDPEmitter
 
     cfg = MODE_CONFIGS[args.mode]
     if args.fs or args.rs:

@@ -239,7 +239,7 @@ class Receiver:
 
 def receiver_stats_record(rx: Receiver) -> dict:
     """fsk_demod-style stats record (`--stats` JSON fields) from a live
-    Receiver, for `wenet_tpu.rx.stats.FSKDemodStats`; the state tensors are
+    Receiver, for `rx.stats.FSKDemodStats`; the state tensors are
     copied to the host here.  No eye diagram."""
     st = rx.state
     if st is None:
