@@ -5,13 +5,18 @@
 Builds the CUDA kernels from wenet_tpu_torch/csrc with nvcc (one process
 per source, all at once) and holds each against its plain PyTorch version
 on the card: the sum-product BP kernel, its min-sum variant and the one-hot
-tensor-core BP kernel, at B = 16, 32, 70 and 128.  Kernel times are
-CUDA-event times: `ms` over replays of a CUDA graph of many launches (the
-kernel alone), `call_ms` over many eager calls (the wrapper's host work
+tensor-core BP kernel, at B = 16, 32, 70 and 128 (and the one-hot kernel
+at B = 7), printing the one-hot kernel's launch shape (cluster, blocks,
+shared memory per block) at each batch.  Kernel times are CUDA-event
+times: `ms` over replays of a CUDA graph of many launches (the kernel
+alone), `call_ms` over many eager calls (the wrapper's host work
 included); the plain versions are timed over eager calls.  Each time is
 printed beside its bound (the larger of bytes at 3.35 TB/s and float32
-operations at 67 TFLOP/s, from this run's iterations) and the card's name
-and power limit.  Then it drives the port's paths: the streaming receiver
+operations at 67 TFLOP/s, from this run's iterations; the same work for
+all three BP kernels) and the card's name and power limit.  The gather
+probes' counterpart (the var -> edge gather inside the BP kernel) gets its
+own bound and the time of torch.index_select at the probes' shape.  Then
+it drives the port's paths: the streaming receiver
 at the v2 and v1 flight geometries on synthetic captures (printing the
 decode batch of each push), a negative probe below the decode cliff and
 the `python -m wenet_tpu_torch rx` CLI; the decoder-throughput stage of
@@ -47,6 +52,9 @@ BP_CASES = ((16, 2.5), (32, 2.5), (70, 2.5), (128, 2.5), (128, 3.0),
 MAIN_CASE = (128, 2.5)        # the v2 push's bucketed batch, slow codewords
 STAGE_BATCH = 2048            # bench.py stage_ldpc
 STAGE_EBNO_DB = 7.5
+STAGE_BATCH_TILE = 64         # bench.py's decode_pallas(..., batch_tile=64)
+PROBE_SHAPE = (8, 256, 512)   # tools/pallas_gather_probe.py: X (8, 256) f32,
+#                               IDX (512,) i32
 SWEEP_EBNO_DB = (1.5, 2.5, 3.5, 5.0)
 ACQ_PACKETS = 4
 ACQ_SHIFT_HZ = 300e3
@@ -284,6 +292,18 @@ def main() -> int:
                 for b in (1, 16, 40, 70, 128, 2048)},
         minsum_shapes={b: bp_decode.launch_shape(b, sms, per_sm, True)
                        for b in (1, 70, 2048)})
+    region = ldpc_onehot.kernel_tables(dev).shape[1]
+    clusters = bp_onehot.card_clusters(dev, region)
+    onehot_shapes = {b: tuple(bp_onehot.launch_shape(b, clusters, region))
+                     for b in (1, 7, 16, 32, 70, 128, STAGE_BATCH)}
+    require(bp_onehot._lib().bp_onehot_smem_bytes(region)
+            == bp_onehot.smem_bytes(region), "bp_onehot smem accounting")
+    require(onehot_shapes[128][1] >= 100,
+            f"bp_onehot runs B=128 on {onehot_shapes[128][1]} SMs")
+    say("onehot_launch", clusters_on_card=clusters,
+        cluster_size=bp_onehot.CLUSTER, threads=bp_onehot.THREADS,
+        table_region_bytes=2 * region,
+        shapes_cluster_blocks_smem=onehot_shapes)
 
     def nbytes(tensors):
         return sum(t.numel() * t.element_size() for t in tensors)
@@ -296,9 +316,10 @@ def main() -> int:
          nbytes(bp_decode._tables(dev))),
         ("bp_minsum", ldpc.decode_minsum, ldpc.decode_minsum_reference, 10,
          True, nbytes(bp_decode._tables(dev))),
+        # the same work as bp_decode's: its tables, not this kernel's lists
         ("bp_onehot", ldpc_onehot.decode_onehot,
          ldpc_onehot.decode_onehot_reference, 3, False,
-         nbytes(ldpc_onehot.kernel_tables(dev))),
+         nbytes(bp_decode._tables(dev))),
     ]
     rng = np.random.default_rng(SEED)
     max_err = {name: 0 for name, *_ in decoders}
@@ -351,11 +372,26 @@ def main() -> int:
             show("bp_vs_plain", name, B, snr, m,
                  converged=int(got[2].sum()), bit_mismatch=bit_mis,
                  iters_mismatch=it_mis, parity_mismatch=ok_mis)
+    # the gather probes' counterpart: X[:, IDX], (8, 256) f32 by (512,)
+    # i32; bound: bytes in and out once; library: torch.index_select
+    rows, cols, n_idx = PROBE_SHAPE
+    xg = torch.randn(rows, cols, device=dev)
+    idx = torch.randint(0, cols, (n_idx,), device=dev, dtype=torch.int32)
+    require(torch.equal(torch.index_select(xg, 1, idx), xg[:, idx.long()]),
+            "gather probe: index_select")
+    probe_bytes = 4 * (rows * cols + n_idx + rows * n_idx)
+    say("gather_probe", shape=PROBE_SHAPE, bytes=probe_bytes,
+        bound_ms=f"{probe_bytes / HBM_BYTES_PER_S * 1e3:.6f}", bound_by="bytes",
+        library="torch.index_select",
+        library_ms=f"{graph_ms(lambda: torch.index_select(xg, 1, idx)):.6f}",
+        card=repr(smi))
     llr7 = noisy_llrs(7, 3.0, np.random.default_rng(SEED + 7),
                       dev)                          # a ragged batch tile
     got7 = ldpc_onehot.decode_onehot(llr7)
     mis7 = mismatches(got7, ldpc_onehot.decode_onehot_reference(llr7))
     require(mis7[:3] == (0, 0, 0), f"bp_onehot B=7: mismatches {mis7[:3]}")
+    require(mismatches(got7, ldpc.decode_reference(llr7))[:3] == (0, 0, 0),
+            "bp_onehot B=7 differs from decode_reference")
     say("bp_vs_plain", kernel="bp_onehot", snr_db=3.0, batch=7,
         converged=int(got7[2].sum()), bit_mismatch=mis7[0],
         iters_mismatch=mis7[1], parity_mismatch=mis7[2])
@@ -437,6 +473,9 @@ def main() -> int:
                                              device=dev))
         stage = {}
         for name, op, plain, reps, minsum, table_bytes in decoders:
+            if name == "bp_onehot":        # as bench.py calls decode_pallas
+                op = lambda x: ldpc_onehot.decode_onehot(
+                    x, batch_tile=STAGE_BATCH_TILE)
             bp_decode.launches = bp_decode.minsum_launches = 0
             bp_onehot.launches = 0
             got = op(llr)
@@ -447,6 +486,9 @@ def main() -> int:
                     f"ldpc_stage {name}: launches {counts}")
             if name == "bp_onehot":
                 main_launches[name] = counts[name]
+                sp = mismatches(got, ldpc.decode_reference(llr))
+                require(sp[:3] == (0, 0, 0),
+                        f"ldpc_stage bp_onehot differs from decode_reference")
             mis = mismatches(got, plain(llr))
             require(mis[:3] == (0, 0, 0),
                     f"ldpc_stage {name}: mismatches {mis[:3]}")

@@ -76,7 +76,7 @@ def test_decode_windows_matches_jax(mode):
     wins += list(rng.normal(0, 1, (2, syms)).astype(np.float32))
     wins = np.stack(wins).astype(np.float64)
     pj, okj, itj = jdeframe.decode_windows(wins, mode)
-    pt, okt, itt = deframe.decode_windows(wins, mode)
+    pt, okt, itt = deframe.decode_windows(wins, mode, device="cpu")
     np.testing.assert_array_equal(pt, pj)
     np.testing.assert_array_equal(okt, okj)
     np.testing.assert_array_equal(itt, itj)
@@ -109,7 +109,8 @@ def test_deframe_soft_matches_jax(mode):
     soft, payloads = _soft_stream(mode, 4, 0.5, 10 + len(mode))
     for acq in ("fsm", "all"):
         rj = jdeframe.deframe_soft(soft, mode, acquisition=acq)
-        rt = deframe.deframe_soft(soft, mode, acquisition=acq)
+        rt = deframe.deframe_soft(soft, mode, acquisition=acq,
+                                   device="cpu")
         assert rt.payloads == rj.payloads
         np.testing.assert_array_equal(rt.positions, rj.positions)
         np.testing.assert_array_equal(rt.crc_ok, rj.crc_ok)
@@ -120,7 +121,8 @@ def test_deframe_soft_matches_jax(mode):
 def test_stream_deframer_unaligned_chunks():
     """StreamDeframer.push over unaligned chunks equals the JAX one."""
     soft, payloads = _soft_stream("v2", 5, 0.45, 31)
-    dj, dt = jdeframe.StreamDeframer("v2"), deframe.StreamDeframer("v2")
+    dj = jdeframe.StreamDeframer("v2")
+    dt = deframe.StreamDeframer("v2", device="cpu")
     got_j, got_t = [], []
     step = 1777
     for i in range(0, len(soft), step):

@@ -95,7 +95,7 @@ def test_resume_from_jax_state():
     nf2 = jcfg.num_frames(len(iq)) - k
     _, oj = _jax_demod(jcfg, iq, nf2, final_j)
     carry = tfsk.state_from_numpy(
-        {f: np.asarray(v) for f, v in final_j._asdict().items()})
+        {f: np.asarray(v) for f, v in final_j._asdict().items()}, "cpu")
     _, ot = _torch_demod(tcfg, iq, nf2, carry)
     _assert_frames_match(oj, ot)
 
@@ -110,7 +110,7 @@ def test_chunked_equals_oneshot(name):
     _, one = tfsk.demod_stream(tcfg, torch.from_numpy(iq), nf)
     k = 13
     st1, a = tfsk.demod_stream(tcfg, torch.from_numpy(iq), k)
-    st1 = tfsk.state_from_numpy(tfsk.state_to_numpy(st1))
+    st1 = tfsk.state_from_numpy(tfsk.state_to_numpy(st1), "cpu")
     _, b = tfsk.demod_stream(tcfg, torch.from_numpy(iq), nf - k, st1)
     for field in tfsk.FrameOut._fields:
         joined = torch.cat([getattr(a, field), getattr(b, field)])

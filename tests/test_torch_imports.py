@@ -68,7 +68,8 @@ def test_receive_path_imports_nothing_of_the_jax_package(tmp_path):
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
     pat = re.compile(r"^\s*(from|import) (jax|wenet_tpu)\b", re.M)
-    sources = [os.path.join(ROOT, "chip_smoke.py")]
+    sources = [os.path.join(ROOT, f) for f in ("chip_smoke.py",
+                                                "chip_profile.py")]
     for dirpath, _, files in os.walk(PKG):
         sources += [os.path.join(dirpath, f) for f in files
                     if f.endswith(".py")]
@@ -186,3 +187,30 @@ def test_cuda_requests_raise_without_card():
                                  np.zeros(4096, np.complex64), [0.0])
     with pytest.raises(ValueError):
         ldpc_onehot.decode_onehot(torch.zeros(1, 2580, device="meta"))
+
+
+@pytest.mark.parametrize("name", ["demod_init", "state_from_numpy",
+                                  "decode_windows", "decode_candidates",
+                                  "StreamDeframer", "deframe_soft"])
+def test_public_functions_default_to_the_card(name, monkeypatch):
+    """Called without a device, the port's public demod and deframe entry
+    points ask for CUDA, and without a card they raise instead of running
+    on the CPU."""
+    from wenet_tpu_torch.ops import deframe
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tfsk.FSKConfig(Fs=96000, Rs=9600)
+    syms = framing.V2_SYMBOLS_PER_PACKET
+    calls = {
+        "demod_init": lambda: tfsk.demod_init(cfg),
+        "state_from_numpy": lambda: tfsk.state_from_numpy(
+            tfsk.state_to_numpy(tfsk.demod_init(cfg, "cpu"))),
+        "decode_windows": lambda: deframe.decode_windows(
+            np.zeros((1, syms))),
+        "decode_candidates": lambda: deframe.decode_candidates(
+            np.zeros(2 * syms, np.float32), np.array([3])),
+        "StreamDeframer": lambda: deframe.StreamDeframer("v2"),
+        "deframe_soft": lambda: deframe.deframe_soft(
+            np.zeros(100, np.float32)),
+    }
+    with pytest.raises(RuntimeError, match="is_available"):
+        calls[name]()

@@ -16,6 +16,7 @@ from wenet_tpu_torch import kernels
 from wenet_tpu_torch.core import ldpc_tables as T
 from wenet_tpu_torch.kernels import bp_decode, bp_onehot
 from wenet_tpu_torch.ops import ldpc, ldpc_onehot
+from wenet_tpu_torch.ops import ldpc_onehot as oh
 
 torch.set_num_threads(1)
 
@@ -123,6 +124,138 @@ def _emulate(llr, max_iter, minsum=False, scale=0.8):
     return bits, iters, ok
 
 
+def _unpack(region):
+    """A block's packed table region read back as the kernel reads it."""
+    a = region.astype(np.int64)
+    n = {f: int(a[f]) for f in range(15)}
+    nbt = bp_onehot.EDGES_B // 16
+    nbc, ner, nev = n[oh.H_NBC], n[oh.H_NER], n[oh.H_NEV]
+
+    def take(field, count):
+        return a[n[field]:n[field] + count]
+
+    def codes(field, count):
+        w = take(field, 16 * count).reshape(count, 8, 2)
+        kt, rows = w[:, 0, 1], w[..., 0]
+        return kt, np.concatenate([rows & 0xFF, rows >> 8], axis=1)
+    return dict(
+        c0=n[oh.H_C0], nc=n[oh.H_NC], v0=n[oh.H_V0], nv=n[oh.H_NV],
+        nl=n[oh.H_NL], n_rows=ner,
+        bc=(take(oh.H_BC_PTR, nbt + 1), take(oh.H_BC_MASK, nbt),
+            *codes(oh.H_BC_CODE, nbc)),
+        ev=(take(oh.H_EV_PTR, -(-ner // 16) + 1), None,
+            *codes(oh.H_EV_CODE, nev)),
+        ev_dest=take(oh.H_EV_DEST, ner),
+        own_hold=take(oh.H_OWN_HOLD, 3 * n[oh.H_NV]).reshape(-1, 3))
+
+
+def _product(lists, x):
+    """The tile products as the kernel runs them: x (K, B) float32, cut
+    into bf16 pieces -> (n_out, 16, B) float32, (hi + mid) + lo."""
+    ptr, _, kt, code = lists
+    src = _pieces(x)
+    V = len(kt)
+    n_out = len(ptr) - 1
+    A = torch.zeros(V, 16, 16)
+    v, row = np.nonzero(code != 0xFF)
+    A[v, row, code[v, row]] = 1.0
+    cols = torch.as_tensor(kt[:, None] * 16 + np.arange(16))      # (V, 16)
+    out_of = torch.as_tensor(np.repeat(np.arange(n_out), np.diff(ptr)))
+    d = []
+    for p in range(3):
+        prod = A @ src[p][cols]                                    # (V, 16, B)
+        d.append(torch.zeros(n_out, 16, x.shape[1]).index_add_(0, out_of,
+                                                               prod))
+    return (d[0] + d[1]) + d[2]
+
+
+def _pieces(x):
+    """float32 (K, B) -> (3, K, B): its bf16 pieces, as float32."""
+    return torch.stack([p.float() for p in oh.split3(x.contiguous())])
+
+
+def _emulate_onehot(llr, max_iter):
+    """The one-hot kernel's cluster schedule in plain torch, read from the
+    packed tables as the kernel reads them: the 8 blocks' edge phases (the
+    broadcast product, q = qi_e - r, the signed phi), check phases (slot
+    order, r as pieces), edge -> var products into the owners' sums, and
+    the owners' var phases into the holders' copies; the freeze, the votes
+    and the final parity of the output bits."""
+    CA, EP = bp_onehot.CHECKS_B, bp_onehot.EDGES_B
+    blocks = [_unpack(r) for r in oh.pack_tables()]
+    B = llr.shape[0]
+    qF = [torch.zeros(bp_onehot.LOCAL_VARS_B, B) for _ in blocks]
+    rF = [torch.zeros(EP, B) for _ in blocks]
+    G = [torch.zeros(3, bp_onehot.OWN_VARS_B, B) for _ in blocks]
+    llr_o = [llr[:, b["v0"]:b["v0"] + b["nv"]].T.clone() for b in blocks]
+    qi_o = [x.clone() for x in llr_o]
+
+    def push(o):
+        for i, hold in enumerate(blocks[o]["own_hold"]):
+            for h in hold[hold != 0xFFFF]:
+                qF[h >> 12][h & 0xFFF] = qi_o[o][i]
+
+    def edge_values(bi):
+        bl = blocks[bi]
+        x = _product(bl["bc"], qF[bi]).reshape(EP, B)
+        valid = torch.as_tensor(((bl["bc"][1][:, None] >> np.arange(16)) & 1)
+                                .reshape(-1) == 1)
+        return x, valid
+
+    for o in range(len(blocks)):
+        push(o)
+    conv = torch.zeros(B, dtype=torch.bool)
+    iters = torch.full((B,), max_iter, dtype=torch.int32)
+    for it in range(max_iter):
+        bad = torch.zeros(B, dtype=torch.bool)
+        for bi, bl in enumerate(blocks):
+            x, valid = edge_values(bi)
+            if it == 0:
+                q, neg = x, x < 0
+            else:
+                q = x - rF[bi]
+                neg = q <= 0
+            m = ldpc.phi0(q.abs())
+            M = torch.where(valid[:, None], torch.where(neg, -m, m), 0.0)
+            Ms = M[:14 * CA].reshape(14, CA, B)
+            mag, sg = Ms.abs(), torch.signbit(Ms).int()
+            acc = mag[0]
+            for s in range(1, 14):
+                acc = acc + mag[s]
+            par = sg.sum(0) & 1
+            rmag = ldpc.phi0(acc - mag)
+            r = torch.where(((par ^ sg) & 1) == 1, -rmag, rmag).reshape(-1, B)
+            v14 = valid[:14 * CA]
+            rF[bi][:14 * CA][v14] = r[v14]
+            bad |= (par[:bl["nc"]] != 0).any(0)
+        for bi, bl in enumerate(blocks):
+            g = _product(bl["ev"], rF[bi]).reshape(-1, B)
+            for row, dest in enumerate(bl["ev_dest"]):
+                G[dest >> 11][dest >> 9 & 3, dest & 0x1FF] = g[row]
+        data = torch.zeros(B, dtype=torch.bool)
+        for o, bl in enumerate(blocks):
+            nv = bl["nv"]
+            new = llr_o[o] + ((G[o][0, :nv] + G[o][1, :nv]) + G[o][2, :nv])
+            is_data = torch.arange(bl["v0"], bl["v0"] + nv) < T.N_DATA
+            data |= ((new < 0) & is_data[:, None]).any(0)
+            qi_o[o] = torch.where(conv[None], qi_o[o], new)
+            push(o)
+        upd = ~conv
+        iters = torch.where(upd, it + 1, iters).int()
+        conv = conv | (upd & (~data | ~bad))
+        if bool(conv.all()):
+            break
+    ran = max_iter > 0
+    bits = torch.cat([(qi_o[o] < 0) & ran for o in range(len(blocks))]).T
+    bad = torch.zeros(B, dtype=torch.bool)
+    for bi, bl in enumerate(blocks):
+        x, valid = edge_values(bi)
+        sg = ((x < 0) & ran & valid[:, None])[:14 * CA].reshape(14, CA, B)
+        bad |= (sg.int().sum(0) & 1 != 0).any(0)
+    return bits.to(torch.uint8).contiguous(), iters, ~bad
+
+
+
 def test_packed_tables_match_the_code():
     """Each packed check entry names the check's variable; each packed var
     entry names an edge whose check entry names that variable back."""
@@ -194,6 +327,143 @@ def test_kernel_schedule_matches_plain(minsum, B, snr_db, max_iter):
     plain = ldpc.decode_minsum_reference if minsum else ldpc.decode_reference
     got = _emulate(llr, max_iter, minsum)
     want = plain(llr, max_iter=max_iter)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _lane_fragment(code, lane):
+    """The A fragment a lane builds from a tile code (csrc/bp_onehot.cu:
+    onehot_row): four registers of two bf16 each."""
+    g, q = lane // 4, lane % 4
+
+    def row(c):
+        d = (int(c) - 2 * q) & 0xFFFFFFFF
+        d8 = (d - 8) & 0xFFFFFFFF
+        return (0x3F80 << (d << 4) if d < 2 else 0,
+                0x3F80 << (d8 << 4) if d8 < 2 else 0)
+    (a0, a2), (a1, a3) = row(code[g]), row(code[g + 8])
+    return a0, a1, a2, a3
+
+
+def _ptx_fragment(tile, lane):
+    """The A fragment of mma.m16n8k16 .bf16 (row-major 16x16) for a lane,
+    from the PTX ISA's layout: rows g, g + 8 by columns 2q, 2q + 1 and
+    2q + 8, 2q + 9, lower column in the low half."""
+    g, q = lane // 4, lane % 4
+    bf = np.where(tile != 0, 0x3F80, 0).astype(np.int64)
+    pair = [bf[r, c] | bf[r, c + 1] << 16
+            for r, c in ((g, 2 * q), (g + 8, 2 * q), (g, 2 * q + 8),
+                         (g + 8, 2 * q + 8))]
+    return tuple(int(x) for x in pair)
+
+
+def _dense(lists, n_rows, K):
+    """The 0/1 matrix a code list stands for."""
+    ptr, _, kt, code = lists
+    out = np.zeros((-(-n_rows // 16) * 16, -(-K // 16) * 16 + 16), np.uint8)
+    for t in range(len(ptr) - 1):
+        for p in range(ptr[t], ptr[t + 1]):
+            for r in np.flatnonzero(code[p] != 0xFF):
+                out[t * 16 + r, kt[p] * 16 + code[p, r]] += 1
+    return out
+
+
+def test_onehot_codes_decode_to_mma_fragments():
+    """Every packed tile code of every block gives, in every lane, the A
+    fragment of its dense 16x16 tile; the codes densify to the broadcast
+    (edges by local variables) and edge -> var ((variable, slot) rows by
+    edges) one-hot matrices of the code, one 1 per valid row."""
+    var_idx, cmask = T.check_edges()
+    vslots, vmask = T.var_edges()
+    CA, EP = bp_onehot.CHECKS_B, bp_onehot.EDGES_B
+    blocks = [_unpack(r) for r in oh.pack_tables()]
+    for bl, rt in zip(blocks, oh.cluster_tables()):
+        for lists in (bl["bc"], bl["ev"]):
+            code = lists[3]
+            for p in range(0, len(code), 7):
+                tile = np.zeros((16, 16), np.uint8)
+                rows = np.flatnonzero(code[p] != 0xFF)
+                tile[rows, code[p, rows]] = 1
+                for lane in range(32):
+                    assert (_lane_fragment(code[p], lane)
+                            == _ptx_fragment(tile, lane))
+        nl = bl["nl"]
+        want = np.zeros((EP, nl), np.uint8)
+        jmap = {v: j for j, v in enumerate(rt.loc_vars)}
+        for c in range(bl["nc"]):
+            for s in np.flatnonzero(cmask[bl["c0"] + c]):
+                want[s * CA + c, jmap[var_idx[bl["c0"] + c, s]]] = 1
+        got = _dense(bl["bc"], EP, nl)
+        np.testing.assert_array_equal(got[:EP, :nl], want)
+        assert got[:, nl:].sum() == 0
+        got = _dense(bl["ev"], bl["n_rows"], EP)
+        assert got[bl["n_rows"]:].sum() == 0 and got[:, EP:].sum() == 0
+        for row, dest in enumerate(bl["ev_dest"]):
+            k, v = dest >> 9 & 3, blocks[dest >> 11]["v0"] + (dest & 0x1FF)
+            c, s = divmod(int(vslots[v, k]), 14)
+            assert vmask[v, k] and bl["c0"] <= c < bl["c0"] + bl["nc"]
+            assert got[row].sum() == 1 and got[row, s * CA + c - bl["c0"]]
+
+
+def test_onehot_cluster_partition():
+    """The 8 blocks' edges cover each valid edge of the code exactly once;
+    each var's k-th edge is a row of exactly one block's edge -> var
+    product; each var has one owner, whose holder list names exactly the
+    blocks whose checks touch it, at the local index each gave it."""
+    var_idx, cmask = T.check_edges()
+    vslots, vmask = T.var_edges()
+    CA = bp_onehot.CHECKS_B
+    seen = np.zeros(cmask.shape, np.int64)
+    kth = np.zeros(vmask.shape, np.int64)
+    owners = np.zeros(T.CODE_LEN, np.int64)
+    blocks = [_unpack(r) for r in oh.pack_tables()]
+    ranks = oh.cluster_tables()
+    c0s = [bl["c0"] for bl in blocks]
+    for r, bl in enumerate(blocks):
+        e = np.flatnonzero(((bl["bc"][1][:, None] >> np.arange(16)) & 1)
+                           .reshape(-1))
+        np.add.at(seen, (bl["c0"] + e % CA, e // CA), 1)
+        for dest in bl["ev_dest"]:
+            kth[blocks[dest >> 11]["v0"] + (dest & 0x1FF), dest >> 9 & 3] += 1
+        owners[bl["v0"]:bl["v0"] + bl["nv"]] += 1
+        for i, hold in enumerate(bl["own_hold"]):
+            v = bl["v0"] + i
+            holders = sorted(set(np.searchsorted(
+                c0s, vslots[v][vmask[v]] // 14, side="right") - 1))
+            hs = hold[hold != 0xFFFF]
+            assert sorted(h >> 12 for h in hs) == holders
+            for h in hs:
+                assert ranks[h >> 12].loc_vars[h & 0xFFF] == v
+    np.testing.assert_array_equal(seen, cmask.astype(np.int64))
+    np.testing.assert_array_equal(kth, vmask.astype(np.int64))
+    assert (owners == 1).all()
+    assert c0s == [r * 516 // 8 for r in range(8)]
+
+
+@pytest.mark.parametrize("B,clusters", [(1, 1), (7, 1), (16, 2), (70, 9),
+                                        (128, 16), (2048, 16)])
+def test_onehot_launch_shape(B, clusters):
+    """A cluster of 8 blocks per tile of 8 codewords, up to the 16 clusters
+    an H100 holds (B = 128: 128 blocks); past that a persistent grid; the
+    shared memory of every block fits the 232,448 bytes of sm_90."""
+    region = oh.pack_tables().shape[1]
+    shape = bp_onehot.launch_shape(B, 16, region)
+    assert shape == (8, 8 * clusters, bp_onehot.smem_bytes(region))
+    assert shape.smem_bytes <= bp_onehot.SMEM_LIMIT == 232448
+    assert region % 8 == 0
+    assert bp_onehot.FIXED_SMEM % 16 == 0
+
+
+@pytest.mark.parametrize("B,snr_db,max_iter", [
+    (5, 2.5, 10), (6, 3.0, 10), (4, 6.0, 10), (9, 4.0, 10), (3, 3.0, 0),
+    (3, 3.0, 1), (3, 3.0, 3), (2, 7.5, 10)])
+def test_onehot_cluster_schedule_matches_plain(B, snr_db, max_iter):
+    """On the CPU, the one-hot kernel's cluster schedule on its packed
+    tables gives decode_reference's bits, iterations and parity flags
+    exactly."""
+    llr, _ = _llr(B, snr_db, 7 * B + int(10 * snr_db) + max_iter, "cpu")
+    got = _emulate_onehot(llr, max_iter)
+    want = ldpc.decode_reference(llr, max_iter=max_iter)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -322,5 +592,48 @@ def test_variant_wrappers_reject_bad_inputs():
             call(llr[:, :2000])
         with pytest.raises(ValueError):
             call(torch.cat([llr, llr], dim=1)[:, ::2])
-    with pytest.raises(ValueError):
-        ldpc_onehot.decode_onehot(llr, batch_tile=32)
+    for bad in (tables.cpu(), tables.int(), tables[:4], tables[:, :-8]):
+        with pytest.raises(ValueError):
+            bp_onehot.decode(llr, bad)
+
+
+@pytest.mark.cuda
+def test_onehot_batch_tile_is_a_hint():
+    """decode_onehot takes decode_pallas's batch_tile and ignores it: 8,
+    16, 32 and 64 give the same outputs, one launch each."""
+    dev = _card()
+    llr, _ = _llr(70, 3.0, 11, dev)
+    want = ldpc_onehot.decode_onehot(llr)
+    for bt in (8, 16, 32, 64):
+        before = bp_onehot.launches
+        got = ldpc_onehot.decode_onehot(llr, batch_tile=bt)
+        torch.cuda.synchronize()
+        assert bp_onehot.launches == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, 16, 70, 128, 129, 2048])
+@pytest.mark.parametrize("snr_db", [2.5, 4.0, 7.5])
+@pytest.mark.parametrize("max_iter", [0, 1, 3, 10])
+def test_variant_kernels_every_launch_shape(B, snr_db, max_iter):
+    """The one-hot kernel equals decode_onehot_reference and
+    decode_reference in bits, iterations and parity flags on every
+    codeword, in every launch shape: one cluster (B = 1, 7: ragged), 2,
+    9 and 16 clusters, and the persistent grid (B = 129: one cluster walks
+    two tiles; 2048: 16 tiles each)."""
+    dev = _card()
+    region = ldpc_onehot.kernel_tables(dev).shape[1]
+    clusters = bp_onehot.card_clusters(dev, region)
+    shape = bp_onehot.launch_shape(B, clusters, region)
+    assert shape.cluster == 8
+    assert shape.blocks == 8 * min(-(-B // 8), clusters)
+    llr, _ = _llr(B, snr_db, B + int(10 * snr_db) + 100 * max_iter, dev)
+    before = bp_onehot.launches
+    got = ldpc_onehot.decode_onehot(llr, max_iter=max_iter)
+    torch.cuda.synchronize()
+    assert bp_onehot.launches == before + 1
+    for plain in (ldpc.decode_reference, ldpc_onehot.decode_onehot_reference):
+        for a, b in zip(got, plain(llr, max_iter=max_iter)):
+            assert torch.equal(a, b)

@@ -66,8 +66,8 @@ def test_decode_onehot_iteration_cap(max_iter):
 
 
 def test_decode_onehot_ragged_batch():
-    """B = 7 is not a multiple of the 16-codeword batch tile: each row
-    decodes as it does alone."""
+    """B = 7 is not a multiple of the kernel's 8-codeword tile nor of any
+    batch_tile: each row decodes as it does alone."""
     llr, cw = _llrs(7, 10.0, 99)
     bits, iters, ok = oh.decode_onehot(torch.from_numpy(llr))
     assert bits.shape == (7, 2580) and bits.dtype == torch.uint8
@@ -75,11 +75,23 @@ def test_decode_onehot_ragged_batch():
     np.testing.assert_array_equal(bits.numpy(), cw)
     b1, i1, _ = oh.decode_onehot(torch.from_numpy(llr[3:4]))
     assert torch.equal(b1[0], bits[3]) and int(i1[0]) == int(iters[3])
-    with pytest.raises(ValueError):
-        oh.decode_onehot(torch.from_numpy(llr), batch_tile=8)
+    for bt in (0, -8, 2.5):
+        with pytest.raises(ValueError):
+            oh.decode_onehot(torch.from_numpy(llr), batch_tile=bt)
     with pytest.raises(ValueError):
         bp_onehot.decode(torch.from_numpy(llr),
                          oh.kernel_tables(torch.device("cpu")))
+
+
+@pytest.mark.parametrize("batch_tile", [8, 16, 32, 64])
+def test_decode_onehot_batch_tile_is_a_hint(batch_tile):
+    """decode_onehot takes decode_pallas's batch_tile (any positive int)
+    and its outputs do not depend on it."""
+    llr, cw = _llrs(9, 3.5, 40 + batch_tile)
+    t = torch.from_numpy(llr)
+    got = oh.decode_onehot(t, batch_tile=batch_tile)
+    _assert_same(got, ldpc.decode_reference(t))
+    assert got[2].any()
 
 
 def _reassemble(pieces):
@@ -138,28 +150,46 @@ def test_tile_lists_match_pallas_tables():
 
 
 def test_kernel_tables_layout():
-    """The kernel's tables: B fragments in mma.m16n8k16 lane order, the
-    three slot lists concatenated under one pointer array."""
-    bcast, slots = oh.tile_lists()
+    """The kernel's packed tables: one region per block of the cluster, the
+    same length (a multiple of 8 uint16, for 16-byte copies), a header of
+    offsets and counts; the codes as uint32 at even offsets, entry g of a
+    visit = k-tile << 16 | row g + 8 << 8 | row g; kernel_tables holds the
+    same bits as int16."""
+    ranks = oh.cluster_tables()
+    packed = oh.pack_tables()
+    assert packed.shape[0] == bp_onehot.CLUSTER == len(ranks)
+    assert packed.shape[1] % 8 == 0
+    assert bp_onehot.smem_bytes(packed.shape[1]) <= bp_onehot.SMEM_LIMIT
     kt = oh.kernel_tables(torch.device("cpu"))
-    frag = kt.bc_frag.float().numpy()
-    for lane in (0, 5, 31):
-        g, q = lane // 4, lane % 4
-        for j, row in enumerate((2 * q, 2 * q + 1, 2 * q + 8, 2 * q + 9)):
-            np.testing.assert_array_equal(frag[:, lane, j],
-                                          bcast.tiles[:, row, g])
-    nt = len(slots[0].ptr) - 1
-    ptr = kt.sl_ptr.numpy()
-    ktile = kt.sl_k.numpy()
-    for k, s in enumerate(slots):
-        for n in (0, 17, nt - 1):
-            lo, hi = ptr[k * nt + n], ptr[k * nt + n + 1]
-            np.testing.assert_array_equal(ktile[lo:hi],
-                                          s.ktile[s.ptr[n]:s.ptr[n + 1]])
-    assert ptr[-1] == len(ktile) == kt.sl_frag.shape[0]
-    edge_var, edge_mask, _, _ = oh.edge_layout()
-    np.testing.assert_array_equal(kt.edge_var.numpy(), edge_var)
-    np.testing.assert_array_equal(kt.emask.numpy(), edge_mask)
+    assert kt.dtype == torch.int16
+    np.testing.assert_array_equal(kt.numpy().view(np.uint16), packed)
+    for region, t in zip(packed.astype(np.int64), ranks):
+        assert region[oh.H_C0] == t.c0 and region[oh.H_NC] == t.n_checks
+        assert region[oh.H_V0] == t.v0 and region[oh.H_NV] == t.n_own
+        assert region[oh.H_NL] == len(t.loc_vars)
+        assert region[oh.H_NBC] == len(t.bc_k)
+        assert region[oh.H_NER] == len(t.ev_dest)
+        assert region[oh.H_NEV] == len(t.ev_k)
+        for field, want in ((oh.H_BC_PTR, t.bc_ptr), (oh.H_BC_MASK, t.bc_mask),
+                            (oh.H_EV_PTR, t.ev_ptr), (oh.H_EV_DEST, t.ev_dest),
+                            (oh.H_OWN_HOLD, t.own_hold.reshape(-1))):
+            off = region[field]
+            np.testing.assert_array_equal(region[off:off + len(want)], want)
+        for field, k, code in ((oh.H_BC_CODE, t.bc_k, t.bc_code),
+                               (oh.H_EV_CODE, t.ev_k, t.ev_code)):
+            off = region[field]
+            assert off % 2 == 0
+            w = region[off:off + 16 * len(k)].reshape(-1, 8, 2)
+            words = w[..., 0] | w[..., 1] << 16
+            np.testing.assert_array_equal(words >> 16,
+                                          np.repeat(k[:, None], 8, axis=1))
+            np.testing.assert_array_equal(words & 0xFF, code[:, :8])
+            np.testing.assert_array_equal(words >> 8 & 0xFF, code[:, 8:])
+        assert t.n_checks <= bp_onehot.CHECKS_B
+        assert t.n_own <= bp_onehot.OWN_VARS_B
+        assert len(t.loc_vars) <= bp_onehot.LOCAL_VARS_B
+        assert len(t.bc_ptr) == bp_onehot.EDGES_B // 16 + 1
+        assert len(t.ev_ptr) == -(-len(t.ev_dest) // 16) + 1
 
 
 def test_onehot_product_equals_gather():

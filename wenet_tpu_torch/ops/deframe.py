@@ -17,6 +17,7 @@ import torch
 
 from ..core import framing
 from ..core import ldpc_tables as T
+from ..device import resolve_device
 from . import crc as dcrc
 from . import ldpc
 
@@ -119,11 +120,13 @@ def uw_detect_positions(hard_bits: np.ndarray, mode: str = "v2",
 
 
 def decode_windows(windows: np.ndarray, mode: str = "v2",
-                   max_iter: int = T.MAX_ITER, device="cpu"):
-    """Decode pre-gathered (B, syms) soft windows in ONE device batch.
+                   max_iter: int = T.MAX_ITER, device="cuda"):
+    """Decode pre-gathered (B, syms) soft windows in ONE batch on `device`
+    (CUDA unless the caller asks for another; raises without a card).
 
     Returns (packets_raw (B, 258) uint8, crc_ok (B,) bool, iters (B,) int32).
     """
+    device = resolve_device(device)
     B = len(windows)
     if B == 0:
         return (np.zeros((0, 258), np.uint8), np.zeros(0, bool),
@@ -153,7 +156,7 @@ def decode_windows(windows: np.ndarray, mode: str = "v2",
 
 def decode_candidates(soft: np.ndarray, positions: np.ndarray,
                       mode: str = "v2", max_iter: int = T.MAX_ITER,
-                      device="cpu"):
+                      device="cuda"):
     """Batch-decode the candidate windows at `positions` (UW-end indices)."""
     _, _, syms = _mode_params(mode)
     if len(positions) == 0:
@@ -169,10 +172,10 @@ class StreamDeframer:
     stream, carrying the post-detection bit_buffer state across chunks."""
 
     def __init__(self, mode: str = "v2", max_iter: int = T.MAX_ITER,
-                 device="cpu"):
+                 device="cuda"):
         self.mode = mode
         self.max_iter = max_iter
-        self.device = device
+        self.device = resolve_device(device)
         uw, _, self._syms = _mode_params(mode)
         self._nuw = len(uw)
         self._buf = np.zeros(0, np.float32)
@@ -222,12 +225,13 @@ def correlation_candidates(hard_bits: np.ndarray, mode: str = "v2"
 
 def deframe_soft(soft: np.ndarray, mode: str = "v2",
                  max_iter: int = T.MAX_ITER, acquisition: str = "fsm",
-                 device="cpu") -> DeframeResult:
+                 device="cuda") -> DeframeResult:
     """Full deframe of a soft-decision stream -> CRC-valid payloads.
 
     acquisition="fsm" reproduces the reference deframer exactly;
     acquisition="all" decodes EVERY correlation hit and resolves
     overlapping CRC-valid windows greedily in stream order."""
+    device = resolve_device(device)
     soft = np.asarray(soft, np.float32)
     hard = (soft < 0).astype(np.uint8)
     if acquisition == "all":

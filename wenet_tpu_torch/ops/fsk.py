@@ -20,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..utils import compat
 
 TWO_PI = 2.0 * np.pi
@@ -211,7 +212,11 @@ class FrameOut(NamedTuple):
 _STATE_DTYPES = {"pos": torch.int32, "nin": torch.int32}
 
 
-def demod_init(cfg: FSKConfig, device="cpu") -> DemodState:
+def demod_init(cfg: FSKConfig, device="cuda") -> DemodState:
+    """The reference's initial demod state on `device` (CUDA unless the
+    caller asks for another; raises without a card)."""
+    device = resolve_device(device)
+
     def f(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
     return DemodState(
@@ -221,9 +226,10 @@ def demod_init(cfg: FSKConfig, device="cpu") -> DemodState:
         norm_rx_timing=f(), ppm=f(), ebno_db=f(), snr_est=f())
 
 
-def state_from_numpy(d: dict, device="cpu") -> DemodState:
+def state_from_numpy(d: dict, device="cuda") -> DemodState:
     """DemodState from {field: numpy array} — e.g. a JAX DemodState's
     `{k: np.asarray(v) for k, v in state._asdict().items()}`."""
+    device = resolve_device(device)
     return DemodState(**{
         k: torch.as_tensor(np.array(d[k]), device=device).to(
             _STATE_DTYPES.get(k, torch.float32))

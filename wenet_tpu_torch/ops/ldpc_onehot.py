@@ -4,17 +4,16 @@
 `decode_onehot` keeps `decode_pallas`'s public contract: llr (B, 2580)
 float32 in; bits (B, 2580) uint8, iters (B,) int32, parity_ok (B,) bool
 out; a ragged last batch tile does not disturb the output.  A CUDA tensor
-launches the tensor-core kernel (`wenet_tpu_torch.kernels.bp_onehot`); a
-CPU tensor takes `decode_onehot_reference`, the plain-torch emulation of
-the same tiled products.  Both equal `ops.ldpc.decode_reference` exactly.
+launches the tensor-core kernel (`wenet_tpu_torch.kernels.bp_onehot`, on
+the tables `kernel_tables` builds below); a CPU tensor takes
+`decode_onehot_reference`, the plain-torch emulation of the Pallas
+kernel's tiled products.  Both equal `ops.ldpc.decode_reference` exactly.
 
-Layout (the Pallas kernel's): edges slot-major, edge e = s * 640 + c for
-check c < 516 (padded to 640) and slot s < 14 (padded to 16), so
-EDGES_P = 10240; vars padded to VARS_P = 2688.
-
-The maps are one-hot matrices, cut into the tiles of one
-`mma.sync.m16n8k16` B operand (16 rows of K by 8 columns of N, bf16) and
-kept as lists of the nonzero tiles only:
+The plain version keeps the Pallas kernel's layout: edges slot-major,
+edge e = s * 640 + c for check c < 516 (padded to 640) and slot s < 14
+(padded to 16), so EDGES_P = 10240; vars padded to VARS_P = 2688.  Its
+maps are one-hot matrices cut into 16x8 tiles (16 rows of K by 8 columns
+of N), kept as lists of the nonzero tiles only:
 
   * var->edge broadcast: K = vars, N = edges, 5,867 nonzero tiles of
     215,040;
@@ -25,7 +24,8 @@ Every output column of each matrix has at most one 1, so a product only
 moves a value.  Tensor cores take bf16, not float32: the float32 operand is
 cut into three bf16 pieces by `split3`, each piece goes through the product
 exactly (one nonzero term per column, float32 sums), and the pieces are
-summed back in float32, exactly.
+summed back in float32, exactly.  The kernel does the same with its own
+layout (see "the kernel's tables").
 """
 from __future__ import annotations
 
@@ -37,12 +37,14 @@ import torch
 
 from ..core import ldpc_tables as T
 from ..kernels import bp_onehot
-from ..kernels.bp_onehot import BATCH_TILE, CHECKS_P, EDGES_P, VARS_P
-from ..kernels.bp_onehot import SLOTS_P as SLOTS
 from .ldpc import _parity_ok, decoder_tables, phi0
 
-TILE_K = 16               # mma.sync.m16n8k16: K depth of a B tile
-TILE_N = 8                # and its N width
+CHECKS_P = 640            # the plain version's (Pallas) layout
+SLOTS = 16
+EDGES_P = CHECKS_P * SLOTS            # e = s * 640 + c
+VARS_P = 2688
+TILE_K = 16               # a tile of the plain version: K depth
+TILE_N = 8                # and N width
 
 
 # ------------------------------------------------------------ host tables
@@ -111,16 +113,6 @@ def densify(tl: TileList) -> np.ndarray:
         k0, n0 = tl.ktile[t] * TILE_K, tl.ntile[t] * TILE_N
         out[k0:k0 + TILE_K, n0:n0 + TILE_N] |= tl.tiles[t]
     return out
-
-
-def fragment_order(tiles: np.ndarray) -> np.ndarray:
-    """(T, 16, 8) B tiles -> (T, 32, 4): for lane l = 4 g + q, the four
-    elements of its mma.m16n8k16 B fragment, rows 2q, 2q+1, 2q+8, 2q+9 of
-    column g (PTX ISA, matrix fragments for mma.m16n8k16 .bf16)."""
-    lane = np.arange(32)
-    g, q = lane // 4, lane % 4
-    rows = np.stack([2 * q, 2 * q + 1, 2 * q + 8, 2 * q + 9], axis=1)
-    return tiles[:, rows, g[:, None]]
 
 
 def split3(x: torch.Tensor):
@@ -194,38 +186,180 @@ def onehot_product_reference(x: torch.Tensor, tiles: DeviceTiles
     return (parts[0] + parts[1]) + parts[2]
 
 
+# ------------------------------------------------- the kernel's tables
+#
+# The CUDA kernel runs a tile of 8 codewords on a cluster of 8 blocks.
+# Block b owns checks [516 b / 8, 516 (b + 1) / 8) and variables
+# [2580 b / 8, 2580 (b + 1) / 8).  Its edges are slot-major over its checks,
+# e = s * 65 + c; its local variables are the variables of those edges,
+# numbered j in order of first appearance along e.  The one-hot matrices
+# take the A operand of mma.m16n8k16 (16 output rows by 16 of K) and the
+# codewords its N: per 16-row output tile, a list of visits, each the
+# k-tile and a code of 16 bytes, the column of the one in each row (0xFF:
+# none).  Each row of each matrix has at most one 1.
+#
+#   broadcast (var -> edge): rows = the block's edges e, K = its local
+#     variables j;
+#   edge -> var: rows = the block's (variable, slot) pairs (j, k), sorted,
+#     where edge e is the k-th edge (in check order) of variable j; K = e.
+#
+# Every var's k-th edge lies in exactly one block, so that block's product
+# gives the exact value, which it sends to the var's owner.
+
+
+class RankTables(NamedTuple):
+    """The tables of one block of the cluster (numpy)."""
+    c0: int                   # first check
+    n_checks: int
+    v0: int                   # first owned variable
+    n_own: int
+    loc_vars: np.ndarray      # (n_loc,) global variable of local var j
+    bc_ptr: np.ndarray        # (58,) visits of broadcast output tile t
+    bc_mask: np.ndarray       # (57,) valid rows (edges) of each tile
+    bc_k: np.ndarray          # (V_b,) k-tile (local vars) of each visit
+    bc_code: np.ndarray       # (V_b, 16) uint8 row codes
+    ev_ptr: np.ndarray        # (ceil(n_rows / 16) + 1,) n_rows: the
+    #                           block's (variable, slot) pairs, by variable
+    ev_k: np.ndarray          # (V_e,) k-tile (edges) of each visit
+    ev_code: np.ndarray       # (V_e, 16) uint8
+    ev_dest: np.ndarray       # (n_rows,) owner << 11 | k << 9 | its index
+    own_hold: np.ndarray      # (n_own, 3) holder << 12 | j there; 0xFFFF
+
+
+# header of a block's packed region: uint16 field indices
+(H_C0, H_NC, H_V0, H_NV, H_NL, H_NBC, H_BC_PTR, H_BC_MASK, H_BC_CODE,
+ H_NER, H_NEV, H_EV_PTR, H_EV_CODE, H_EV_DEST, H_OWN_HOLD) = range(15)
+
+
+def code_list(rows: np.ndarray, cols: np.ndarray, n_rows: int):
+    """The one-hot (n_rows, K) matrix with ones at (rows[i], cols[i]), at
+    most one per row, as visits per 16-row output tile: (ptr, k-tile,
+    code (V, 16) uint8, valid-row mask per output tile)."""
+    rows, cols = np.asarray(rows, np.int64), np.asarray(cols, np.int64)
+    if len(np.unique(rows)) != len(rows):
+        raise ValueError("code_list: a row holds two ones")
+    n_out = -(-n_rows // 16)
+    big = int(cols.max(initial=0)) // 16 + 1
+    uniq, inv = np.unique(rows // 16 * big + cols // 16, return_inverse=True)
+    code = np.full((len(uniq), 16), 0xFF, np.uint8)
+    code[inv, rows % 16] = cols % 16
+    ptr = np.concatenate([[0], np.cumsum(
+        np.bincount(uniq // big, minlength=n_out))]).astype(np.int64)
+    mask = np.zeros(n_out, np.int64)
+    np.bitwise_or.at(mask, rows // 16, 1 << (rows % 16))
+    return ptr, (uniq % big).astype(np.int64), code, mask
+
+
+@functools.lru_cache(maxsize=1)
+def cluster_tables() -> tuple:
+    """The RankTables of the kernel's 8 blocks."""
+    CL, CA = bp_onehot.CLUSTER, bp_onehot.CHECKS_B
+    var_idx, cmask = T.check_edges()
+    vslots, vmask = T.var_edges()
+    kth = np.full(cmask.size, -1, np.int64)          # k of each check edge
+    for k in range(T.MAX_COL_W):
+        kth[vslots[vmask[:, k], k]] = k
+    kth = kth.reshape(cmask.shape)
+    c_b = [r * T.N_PARITY // CL for r in range(CL + 1)]
+    v_b = np.array([r * T.CODE_LEN // CL for r in range(CL + 1)])
+    owner = np.searchsorted(v_b, np.arange(T.CODE_LEN), side="right") - 1
+    ranks = []
+    for r in range(CL):
+        c0, nc = c_b[r], c_b[r + 1] - c_b[r]
+        s, c = np.nonzero(cmask[c0:c0 + nc].T)     # slot-major
+        e = s * CA + c
+        v = var_idx[c0 + c, s]
+        k = kth[c0 + c, s]
+        uv, first = np.unique(v, return_index=True)
+        loc_vars = uv[np.argsort(first)]
+        jmap = np.full(T.CODE_LEN, -1, np.int64)
+        jmap[loc_vars] = np.arange(len(loc_vars))
+        j = jmap[v]
+        bc_ptr, bc_k, bc_code, bc_mask = code_list(e, j, bp_onehot.EDGES_B)
+        order = np.lexsort((k, j))
+        ev_ptr, ev_k, ev_code, _ = code_list(np.arange(len(e)), e[order],
+                                             len(e))
+        o = owner[v[order]]
+        ranks.append(dict(
+            c0=c0, n_checks=nc, v0=int(v_b[r]), n_own=int(v_b[r + 1] - v_b[r]),
+            loc_vars=loc_vars, bc_ptr=bc_ptr, bc_mask=bc_mask, bc_k=bc_k,
+            bc_code=bc_code, ev_ptr=ev_ptr, ev_k=ev_k, ev_code=ev_code,
+            ev_dest=o << 11 | k[order] << 9 | (v[order] - v_b[o])))
+    for r in range(CL):
+        hold = np.full((ranks[r]["n_own"], 3), 0xFFFF, np.int64)
+        fill = np.zeros(ranks[r]["n_own"], np.int64)
+        for h in range(CL):
+            lv = ranks[h]["loc_vars"]
+            i = lv[owner[lv] == r] - v_b[r]
+            hold[i, fill[i]] = h << 12 | np.flatnonzero(owner[lv] == r)
+            fill[i] += 1
+        ranks[r]["own_hold"] = hold
+    out = tuple(RankTables(**d) for d in ranks)
+    for t in out:
+        if (t.n_checks > CA or t.n_own > bp_onehot.OWN_VARS_B
+                or len(t.loc_vars) > bp_onehot.LOCAL_VARS_B):
+            raise ValueError("cluster_tables: a block outgrows its layout")
+    return out
+
+
+def _code_words(kt: np.ndarray, code: np.ndarray) -> np.ndarray:
+    """(V,) k-tiles, (V, 16) codes -> (V, 8) uint32 as the kernel reads
+    them: entry g = k-tile << 16 | row g + 8 << 8 | row g."""
+    return (kt[:, None] << 16 | code[:, 8:].astype(np.int64) << 8
+            | code[:, :8])
+
+
+def pack_tables(ranks=None) -> np.ndarray:
+    """(8, L) uint16: each block's region, a header (field offsets and
+    counts, `H_*`) then its arrays; the codes are uint32 (`_code_words`,
+    at even offsets, low half first).  L is a multiple of 8, the same for
+    every block."""
+    regions = []
+    for t in ranks or cluster_tables():
+        def u32(a):
+            a = np.asarray(a, np.int64).reshape(-1)
+            return np.stack([a & 0xFFFF, a >> 16], axis=1)
+        parts = {H_BC_PTR: t.bc_ptr, H_BC_MASK: t.bc_mask,
+                 H_BC_CODE: u32(_code_words(t.bc_k, t.bc_code)),
+                 H_EV_PTR: t.ev_ptr,
+                 H_EV_CODE: u32(_code_words(t.ev_k, t.ev_code)),
+                 H_EV_DEST: t.ev_dest, H_OWN_HOLD: t.own_hold}
+        head = np.zeros(bp_onehot.HEADER, np.int64)
+        head[[H_C0, H_NC, H_V0, H_NV, H_NL, H_NBC, H_NER, H_NEV]] = (
+            t.c0, t.n_checks, t.v0, t.n_own, len(t.loc_vars), len(t.bc_k),
+            len(t.ev_dest), len(t.ev_k))
+        body, off = [], bp_onehot.HEADER
+        for field, a in parts.items():
+            a = np.asarray(a, np.int64).reshape(-1)
+            if off % 2:                       # uint32 words 4-byte aligned
+                body.append(np.zeros(1, np.int64))
+                off += 1
+            head[field] = off
+            body.append(a)
+            off += a.size
+        regions.append(np.concatenate([head] + body))
+    n = -(-max(len(a) for a in regions) // 8) * 8
+    out = np.zeros((len(regions), n), np.uint16)
+    for r, a in enumerate(regions):
+        if a.max() > 0xFFFF or a.min() < 0:
+            raise ValueError("pack_tables: a field outgrows uint16")
+        out[r, :len(a)] = a
+    return out
+
+
 @functools.lru_cache(maxsize=8)
-def kernel_tables(device: torch.device) -> bp_onehot.KernelTables:
-    """The kernel's tables on `device`: tile lists with their B tiles in
-    mma fragment order, the slot lists concatenated (the entries of var
-    tile n, slot k start at sl_ptr[k * 336 + n]), and the edge layout."""
-    bcast, slots = tile_lists()
-    edge_var, edge_mask, _, _ = edge_layout()
-    offs = np.cumsum([0] + [len(s.ktile) for s in slots])
-    sl_ptr = np.concatenate([s.ptr[:-1] + o for s, o in zip(slots, offs)]
-                            + [offs[-1:]])
-
-    def put(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a)).to(
-            device=device, dtype=dtype)
-
-    def frags(tiles):
-        return put(fragment_order(tiles), torch.bfloat16)
-
-    return bp_onehot.KernelTables(
-        put(bcast.ptr, torch.int32), put(bcast.ktile, torch.int32),
-        frags(bcast.tiles), put(sl_ptr, torch.int32),
-        put(np.concatenate([s.ktile for s in slots]), torch.int32),
-        frags(np.concatenate([s.tiles for s in slots])),
-        put(edge_var, torch.int32), put(edge_mask, torch.uint8))
+def kernel_tables(device: torch.device) -> torch.Tensor:
+    """`pack_tables()` on `device` (int16 holding the uint16 bits)."""
+    return torch.from_numpy(pack_tables().view(np.int16)).to(device)
 
 
 # ------------------------------------------------------------------ decode
 
 
 def decode_onehot_reference(llr: torch.Tensor, max_iter: int = T.MAX_ITER):
-    """Plain-torch emulation of the one-hot kernel (any device): the same
-    padded slot-major layout and the same tiled products in bf16 pieces.
+    """Plain-torch version of the one-hot decoder (any device): the Pallas
+    kernel's padded slot-major layout and its tiled products in bf16
+    pieces (the CUDA kernel does the same products on its own layout).
     Returns bits (B, 2580) uint8, iters (B,) int32, parity_ok (B,) bool."""
     bcast, slots, emask = device_tables(llr.device)
     B = llr.shape[0]
@@ -281,13 +415,15 @@ def decode_onehot_reference(llr: torch.Tensor, max_iter: int = T.MAX_ITER):
 
 
 def decode_onehot(llr: torch.Tensor, max_iter: int = T.MAX_ITER,
-                  batch_tile: int = BATCH_TILE):
+                  batch_tile: int = 32):
     """One-hot BP decode: the tensor-core kernel for a CUDA tensor, the
-    plain emulation for a CPU tensor.  The batch is cut into tiles of 16
-    codewords (the mma's M); no other `batch_tile` is taken."""
-    if batch_tile != BATCH_TILE:
-        raise ValueError(f"decode_onehot: the batch tile is {BATCH_TILE}, "
-                         f"got {batch_tile}")
+    plain emulation for a CPU tensor.  `batch_tile` is `decode_pallas`'s
+    hint (any positive int); the outputs do not depend on it, and both
+    paths choose their own tiles (the kernel: 8 codewords a cluster)."""
+    if isinstance(batch_tile, bool) or not isinstance(batch_tile, int) \
+            or batch_tile < 1:
+        raise ValueError(f"decode_onehot: batch_tile must be a positive "
+                         f"int, got {batch_tile!r}")
     if llr.device.type == "cuda":
         return bp_onehot.decode(llr, kernel_tables(llr.device), max_iter)
     if llr.device.type == "cpu":
