@@ -27,7 +27,9 @@ PKG = os.path.join(ROOT, "wenet_tpu_torch")
 # the decoder and Monte-Carlo path: LDPC variants, sweeps, acquisition
 NEW_MODULES = ("wenet_tpu_torch.ops.ldpc_onehot, wenet_tpu_torch.ops.channel, "
                "wenet_tpu_torch.kernels.bp_onehot, "
-               "wenet_tpu_torch.parallel.sweep")
+               "wenet_tpu_torch.parallel.sweep, "
+               # the fused receiver and the demod frame-loop kernel
+               "wenet_tpu_torch.kernels.fsk_demod")
 
 
 def test_port_imports_no_jax():
@@ -191,12 +193,16 @@ def test_cuda_requests_raise_without_card():
 
 @pytest.mark.parametrize("name", ["demod_init", "state_from_numpy",
                                   "decode_windows", "decode_candidates",
-                                  "StreamDeframer", "deframe_soft"])
+                                  "StreamDeframer", "deframe_soft",
+                                  "deframe_topk", "decode_iq_fused",
+                                  "decode_iq_fused_overlap", "FusedReceiver",
+                                  "decode_iq_parallel"])
 def test_public_functions_default_to_the_card(name, monkeypatch):
     """Called without a device, the port's public demod and deframe entry
     points ask for CUDA, and without a card they raise instead of running
     on the CPU."""
     from wenet_tpu_torch.ops import deframe
+    from wenet_tpu_torch.rx import pipeline
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tfsk.FSKConfig(Fs=96000, Rs=9600)
     syms = framing.V2_SYMBOLS_PER_PACKET
@@ -211,6 +217,15 @@ def test_public_functions_default_to_the_card(name, monkeypatch):
         "StreamDeframer": lambda: deframe.StreamDeframer("v2"),
         "deframe_soft": lambda: deframe.deframe_soft(
             np.zeros(100, np.float32)),
+        "deframe_topk": lambda: deframe.deframe_topk(
+            np.zeros(2 * syms, np.float32)),
+        "decode_iq_fused": lambda: pipeline.decode_iq_fused(
+            np.zeros(2000, np.uint8), cfg=cfg),
+        "decode_iq_fused_overlap": lambda: pipeline.decode_iq_fused_overlap(
+            np.zeros(2000, np.uint8), cfg=cfg),
+        "FusedReceiver": lambda: pipeline.FusedReceiver(cfg=cfg),
+        "decode_iq_parallel": lambda: pipeline.decode_iq_parallel(
+            np.zeros(1000, np.complex64), cfg=cfg),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[name]()

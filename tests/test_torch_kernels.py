@@ -14,8 +14,8 @@ import torch
 
 from wenet_tpu_torch import kernels
 from wenet_tpu_torch.core import ldpc_tables as T
-from wenet_tpu_torch.kernels import bp_decode, bp_onehot
-from wenet_tpu_torch.ops import ldpc, ldpc_onehot
+from wenet_tpu_torch.kernels import bp_decode, bp_onehot, fsk_demod
+from wenet_tpu_torch.ops import channel, fsk, ldpc, ldpc_onehot
 from wenet_tpu_torch.ops import ldpc_onehot as oh
 
 torch.set_num_threads(1)
@@ -41,7 +41,7 @@ def test_build_flags_target_hopper_without_fast_math():
     flags = " ".join(kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "use_fast_math" not in flags and "-fmad=false" in flags
-    for name in ("bp_decode", "bp_onehot"):
+    for name in ("bp_decode", "bp_onehot", "fsk_demod"):
         assert os.path.isfile(os.path.join(kernels.CSRC, f"{name}.cu"))
     assert kernels.BUILD_DIR.endswith(os.path.join("build", "wenet_tpu_torch"))
 
@@ -637,3 +637,168 @@ def test_variant_kernels_every_launch_shape(B, snr_db, max_iter):
     for plain in (ldpc.decode_reference, ldpc_onehot.decode_onehot_reference):
         for a, b in zip(got, plain(llr, max_iter=max_iter)):
             assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------ demod kernel
+
+DEMOD_CFG = {"v2": fsk.V2_CONFIG, "v1": fsk.V1_CONFIG}
+# soft bits: the kernel sums the DFT, the window sums and the means in
+# another order than torch, so soft bits differ by float32 rounding; 1e-4
+# of the mean |soft| leaves about a hundred ulps of room and is far below
+# any decision.  Hard bits are compared where |soft| exceeds 1e-3 of it.
+SOFT_TOL = 1e-4
+BIT_TOL = 1e-3
+
+
+def _demod_raw(mode, fmt, n, seed):
+    """(n, 2) raw pairs of a random-bit 2FSK capture at 10 dB (numpy)."""
+    cfg = DEMOD_CFG[mode]
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, n // cfg.Ts + cfg.Nbits).astype(np.uint8)
+    sig, _ = fsk.fsk_mod_np(cfg, bits[: len(bits) // cfg.Nbits * cfg.Nbits],
+                            2 * cfg.Rs, cfg.Rs)
+    iq = channel.add_awgn(sig[:n], 10.0, cfg.Fs, cfg.Rs, rng=rng) * 0.4
+    if fmt == "cu8":
+        return fsk.iq_to_cu8(iq).reshape(-1, 2)
+    if fmt == "cs16":
+        raw = np.empty((len(iq), 2), np.int16)
+        raw[:, 0] = np.round(iq.real * 820)
+        raw[:, 1] = np.round(iq.imag * 820)
+        return raw
+    return np.ascontiguousarray(iq.astype(np.complex64).view(np.float32)
+                                .reshape(-1, 2))
+
+
+def assert_demod_close(got, want):
+    """valid and nin equal on every frame; f_est equal on valid frames; hard
+    bits equal where |soft| is clear of zero; soft bits within SOFT_TOL of
+    the mean |soft|; the final states' integer fields equal."""
+    (gs, go), (ws, wo) = got, want
+    valid = wo.valid.cpu()
+    assert torch.equal(go.valid.cpu(), valid)
+    assert torch.equal(go.nin.cpu()[valid], wo.nin.cpu()[valid])
+    assert torch.equal(go.f_est.cpu()[valid], wo.f_est.cpu()[valid])
+    soft_g, soft_w = go.soft.cpu()[valid], wo.soft.cpu()[valid]
+    scale = soft_w.abs().mean()
+    assert float((soft_g - soft_w).abs().max()) <= SOFT_TOL * float(scale)
+    clear = soft_w.abs() > BIT_TOL * scale
+    assert torch.equal(go.bits.cpu()[valid][clear], wo.bits.cpu()[valid][clear])
+    for name in ("ebno_db", "norm_rx_timing", "ppm"):
+        a, b = getattr(go, name).cpu()[valid], getattr(wo, name).cpu()[valid]
+        assert torch.allclose(a, b, rtol=1e-4, atol=1e-4), name
+    assert torch.equal(gs.pos.cpu(), ws.pos.cpu())
+    assert torch.equal(gs.nin.cpu(), ws.nin.cpu())
+    assert torch.equal(gs.f_est.cpu(), ws.f_est.cpu())
+
+
+def test_demod_wrapper_takes_only_cuda_tensors():
+    """On the CPU the kernel wrapper raises and launches nothing;
+    ops.fsk.demod_raw takes the plain loop for CPU tensors."""
+    cfg = fsk.FSKConfig(Fs=96000, Rs=9600)
+    data = torch.zeros((4 * cfg.N, 2), dtype=torch.uint8)
+    starts = torch.zeros(1, dtype=torch.int64)
+    nv = torch.full((1,), 4 * cfg.N, dtype=torch.int64)
+    before = fsk_demod.launches
+    with pytest.raises(ValueError):
+        fsk_demod.demod(cfg, data, "cu8", 3, starts, nv)
+    _, outs = fsk.demod_raw(cfg, data, "cu8", 5, starts, nv)
+    assert fsk_demod.launches == before
+    assert outs.valid.tolist() == [[True] * 4 + [False]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 3, 16])
+@pytest.mark.parametrize("fmt", ["cu8", "cs16", "c64"])
+@pytest.mark.parametrize("mode", ["v2", "v1"])
+def test_demod_kernel_matches_plain(mode, fmt, lanes):
+    """L lanes at their own starts in one buffer, overlapping, each with
+    its own n_valid, the last lane running past the buffer's end."""
+    dev = _card()
+    cfg = DEMOD_CFG[mode]
+    span = 40 * cfg.N
+    raw = _demod_raw(mode, fmt, span // 2 * (lanes + 1), 5 + lanes)
+    data = torch.from_numpy(raw).to(dev)
+    starts = torch.arange(lanes, dtype=torch.int64, device=dev) * (span // 2)
+    n_valid = span - 7 * torch.arange(lanes, dtype=torch.int64, device=dev)
+    n_valid[-1] += cfg.N                     # past the end: reads 0.0
+    nf = cfg.num_frames(span + cfg.N)
+    before = fsk_demod.launches
+    got = fsk.demod_raw(cfg, data, fmt, nf, starts, n_valid)
+    torch.cuda.synchronize()
+    assert fsk_demod.launches == before + 1
+    want = fsk.demod_raw_reference(cfg, data, fmt, nf, starts, n_valid)
+    assert_demod_close(got, want)
+    assert bool(want[1].valid[:, :30].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["v2", "v1"])
+def test_demod_kernel_carries_state(mode):
+    """Receiver-style pushes: the second push starts from the first's
+    carried state, with n_valid short of the buffer."""
+    dev = _card()
+    cfg = DEMOD_CFG[mode]
+    raw = torch.from_numpy(_demod_raw(mode, "cu8", 70 * cfg.N, 9)).to(dev)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    first = raw[: 30 * cfg.N].contiguous()
+    nv1 = torch.full((1,), 30 * cfg.N, dtype=torch.int64, device=dev)
+    nf = cfg.num_frames(30 * cfg.N)
+    got1 = fsk.demod_raw(cfg, first, "cu8", nf, zero, nv1)
+    want1 = fsk.demod_raw_reference(cfg, first, "cu8", nf, zero, nv1)
+    assert_demod_close(got1, want1)
+    state = want1[0]
+    end = int(state.pos[0])
+    keep = min(end, cfg.Nmem)
+    second = raw[end - keep:].contiguous()
+    state = state._replace(pos=torch.full((1,), keep, dtype=torch.int32,
+                                          device=dev))
+    nv2 = torch.full((1,), second.shape[0] - 5 * cfg.N, dtype=torch.int64,
+                     device=dev)
+    nf2 = cfg.num_frames(second.shape[0])
+    got2 = fsk.demod_raw(cfg, second, "cu8", nf2, zero, nv2, state)
+    want2 = fsk.demod_raw_reference(cfg, second, "cu8", nf2, zero, nv2, state)
+    assert_demod_close(got2, want2)
+    assert not bool(want2[1].valid[0, -3:].any())
+
+
+@pytest.mark.cuda
+def test_demod_stream_and_lanes_launch_the_kernel():
+    """demod_stream (one lane) and demod_lanes (L lanes) on CUDA tensors
+    go through the kernel and equal their plain versions."""
+    dev = _card()
+    cfg = fsk.V2_CONFIG
+    raw = _demod_raw("v2", "c64", 3 * 25 * cfg.N, 3)
+    iq = torch.from_numpy(raw.view(np.complex64)[:, 0].copy()).to(dev)
+    nf = cfg.num_frames(25 * cfg.N)
+    before = fsk_demod.launches
+    got = fsk.demod_stream(cfg, iq[: 25 * cfg.N], nf)
+    want = fsk.demod_stream_reference(cfg, iq[: 25 * cfg.N], nf)
+    lanes = iq.reshape(3, -1)
+    got_l = fsk.demod_lanes(cfg, lanes, nf)
+    want_l = fsk.demod_lanes_reference(cfg, lanes, nf)
+    torch.cuda.synchronize()
+    assert fsk_demod.launches == before + 2
+    lift = [tuple(t[None] for t in part) for part in (got[0], got[1],
+                                                      want[0], want[1])]
+    assert_demod_close((fsk.DemodState(*lift[0]), fsk.FrameOut(*lift[1])),
+                       (fsk.DemodState(*lift[2]), fsk.FrameOut(*lift[3])))
+    assert_demod_close(got_l, want_l)
+
+
+@pytest.mark.cuda
+def test_demod_wrapper_rejects_bad_inputs():
+    dev = _card()
+    cfg = fsk.V2_CONFIG
+    data = torch.zeros((10 * cfg.N, 2), dtype=torch.uint8, device=dev)
+    starts = torch.zeros(2, dtype=torch.int64, device=dev)
+    nv = torch.full((2,), 10 * cfg.N, dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError):
+        fsk_demod.demod(cfg, data.float(), "cu8", 3, starts, nv)
+    with pytest.raises(TypeError):
+        fsk_demod.demod(cfg, data, "cu8", 3, starts.int(), nv)
+    with pytest.raises(ValueError):
+        fsk_demod.demod(cfg, data, "cu8", 3, starts, nv[:1])
+    with pytest.raises(ValueError):
+        fsk_demod.demod(cfg, data, "s16", 3, starts, nv)
+    with pytest.raises(ValueError):
+        fsk_demod.demod(cfg, data.cpu(), "cu8", 3, starts, nv)

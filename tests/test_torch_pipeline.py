@@ -140,7 +140,7 @@ def test_cli_decodes_cu8_file(tmp_path):
 def test_cli_rejects_unported_modes(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "wenet_tpu_torch", "rx", "x.cu8",
-         "--parallel", "4", "--device", "cpu"],
+         "--channels", "4", "--device", "cpu"],
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 2

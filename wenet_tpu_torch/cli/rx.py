@@ -8,8 +8,11 @@ Payloads go through the port's own `rx.router.PacketRouter` (images, JSON
 logs, UDP side-channels).  `--acquire SECONDS` probes the head of the stream,
 searches a coarse frequency-offset grid on the device
 (`parallel.sweep.acquisition_search`) and, on a UW lock, mixes every chunk
-by the winner on the host, phase-continuously.  The whole-capture modes of
-the JAX CLI (--parallel, --slabs, --channels) are not ported yet and exit
+by the winner on the host, phase-continuously.  `--parallel N` decodes the
+whole capture in one fused device step of N overlap-save chunks
+(`rx.pipeline.decode_iq_fused`); `--slabs S` cuts it into S slabs kept in
+flight (`decode_iq_fused_overlap`) and alone implies `--parallel 4*S`.
+The wideband mode of the JAX CLI (--channels) is not ported yet and exits
 with status 2.
 """
 from __future__ import annotations
@@ -20,7 +23,7 @@ import time
 
 import numpy as np
 
-NOT_PORTED = ("parallel", "slabs", "channels")
+NOT_PORTED = ("channels",)
 
 
 def add_args(ap: argparse.ArgumentParser):
@@ -51,6 +54,14 @@ def add_args(ap: argparse.ArgumentParser):
                     help="overlap device demod of chunk k+1 with host "
                          "deframe of chunk k (payloads arrive one chunk "
                          "later)")
+    ap.add_argument("--parallel", type=int, default=0, metavar="N",
+                    help="one-shot overlap-save decode of the whole capture "
+                         "with N chunks demodulated as lanes of one device "
+                         "step (whole-file throughput mode)")
+    ap.add_argument("--slabs", type=int, default=0, metavar="S",
+                    help="with --parallel: cut the capture into S "
+                         "overlapping slabs kept 2 in flight, so the copy "
+                         "of slab s+1 overlaps the work on slab s")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without a card)")
     for name in NOT_PORTED:
@@ -87,6 +98,12 @@ def main(argv=None):
                         device=args.device)
 
     conv, dtype, width = INPUT_CONVERTERS[args.format]
+    if args.slabs > 1 and not args.parallel:
+        args.parallel = 4 * args.slabs
+        print(f"--slabs {args.slabs} implies --parallel {args.parallel} "
+              "(fused one-step mode)", file=sys.stderr)
+    if args.parallel:
+        return _fused(args, cfg, conv, dtype, width)
     bytes_per_sample = np.dtype(dtype).itemsize * width
     rx = receiver("c64")
     chunk_bytes = int(rx.cfg.Fs * args.chunk_seconds) * bytes_per_sample
@@ -165,6 +182,43 @@ def main(argv=None):
           f"crc_ok={s.crc_ok} images={router.images_decoded} "
           f"wall={dt:.2f}s ({s.samples / max(dt, 1e-9) / 1e6:.2f} Msamp/s) "
           f"device={rx.device}", file=sys.stderr)
+    return 0
+
+
+def _fused(args, cfg, conv, dtype, width) -> int:
+    """--parallel / --slabs: the whole capture through the fused step, cu8
+    and cs16 bytes converted on the device."""
+    from ..rx.pipeline import decode_iq_fused, decode_iq_fused_overlap
+    from ..rx.router import PacketRouter, UDPEmitter
+
+    fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
+    buf = np.frombuffer(fin.read(), dtype=dtype)
+    if fin is not sys.stdin.buffer:
+        fin.close()
+    native = args.format in ("cu8", "cs16")
+    data = buf if native else conv(buf)
+    fmt = args.format if native else "c64"
+    router = PacketRouter(image_dir=args.image_dir, log_dir=args.log_dir,
+                          emitter=UDPEmitter(enabled=not args.no_udp))
+    t0 = time.time()
+    if args.slabs > 1:
+        payloads = decode_iq_fused_overlap(
+            data, mode=args.mode, cfg=cfg, n_slabs=args.slabs,
+            chunks_per_slab=max(args.parallel // args.slabs, 1),
+            input_format=fmt, device=args.device)
+    else:
+        payloads = decode_iq_fused(data, mode=args.mode, cfg=cfg,
+                                   n_chunks=args.parallel, input_format=fmt,
+                                   device=args.device)
+    for payload in payloads:
+        router.handle_packet(payload)
+    router.flush()
+    dt = time.time() - t0
+    n_samp = len(buf) // width
+    print(f"parallel x{args.parallel}: samples={n_samp} "
+          f"crc_ok={len(payloads)} images={router.images_decoded} "
+          f"wall={dt:.2f}s ({n_samp / max(dt, 1e-9) / 1e6:.2f} Msamp/s) "
+          f"device={args.device}", file=sys.stderr)
     return 0
 
 

@@ -6,7 +6,8 @@ UW acquisition is the numpy emulation of the reference's C FSM
 decode as one batch on the device: descramble or RS232 strip on the host,
 then `sd_to_llr`, the BP decode (the CUDA kernel on a CUDA device), the CRC
 gate and byte packing on the device, with one device-to-host copy of the
-packed result.
+packed result.  `deframe_topk` is the variant of the fused paths that runs
+wholly on the device: k strongest UW picks per stream, one decode batch.
 """
 from __future__ import annotations
 
@@ -207,6 +208,110 @@ class StreamDeframer:
                     [self._state[cut - self._nuw:], hard[:cut]]).astype(np.int8)
             self._buf = self._buf[cut:]
         return out
+
+
+def descramble_or_strip(wins: torch.Tensor, mode: str) -> torch.Tensor:
+    """(B, syms) soft windows -> (B, CODE_LEN) soft decisions: the v2 +/-1
+    descramble or the v1 RS232 strip (`core.framing`) on the device."""
+    if mode == "v2":
+        code = torch.as_tensor(np.resize(framing.SCRAMBLE_PM1, wins.shape[1]),
+                               device=wins.device)
+        sd = wins * code
+    else:                      # symbols 8, 7, ..., 1 of each 10-bit word
+        sd = wins.reshape(wins.shape[0], -1, 10)[:, :, 1:9].flip(-1)
+        sd = sd.reshape(wins.shape[0], -1)
+    return sd[:, : T.CODE_LEN].contiguous()
+
+
+def deframe_topk(soft, mode: str = "v2", k: int = 8,
+                 max_iter: int = T.MAX_ITER, device="cuda"):
+    """Deframe up to k packets from each of C soft streams on the device.
+
+    soft: (C, n) or (n,) float32 (a tensor, or numpy moved to `device`,
+    CUDA unless the caller asks for another; raises without a card).  Per
+    stream: the +/-1 UW correlation, k rounds of first-maximum pick with
+    every start whose window would overlap the pick blanked to -inf, the
+    windows gathered (a pick past the placeable windows gives position -1
+    and a zeroed, CRC-failing window), descramble or RS232 strip,
+    `sd_to_llr`, one BP decode of all C * k windows, CRC and byte packing.
+
+    Returns (payload bytes (C, k, 258) uint8, crc_ok (C, k) bool,
+    iters (C, k) int32, positions (C, k) int32), without the C axis for a
+    1-d input — `wenet_tpu/ops/deframe.py::deframe_topk` with the chunk
+    axis its callers vmap.
+    """
+    if isinstance(soft, torch.Tensor):
+        soft = soft.to(torch.float32)
+    else:
+        soft = torch.as_tensor(np.asarray(soft, np.float32),
+                               device=resolve_device(device))
+    flat = soft.dim() == 1
+    soft = soft.reshape(1, -1) if flat else soft
+    uw, _, syms = _mode_params(mode)
+    C, n = soft.shape
+    nuw = len(uw)
+    dev = soft.device
+    hard_pm = torch.where(soft < 0, -1.0, 1.0)
+    kern = torch.as_tensor(1.0 - 2.0 * uw.astype(np.float32), device=dev)
+    # exact: +/-1 operands, integer sums, TF32 off (`device`)
+    scores = torch.nn.functional.conv1d(hard_pm[:, None, :],
+                                        kern[None, None, :])[:, 0]
+    idx = torch.arange(scores.shape[1], dtype=torch.int64, device=dev)
+    # the full packet window [s + nuw, s + nuw + syms) must be in-stream
+    scores = torch.where(idx <= n - syms - nuw, scores, -torch.inf)
+    starts, exhausted = [], []
+    for _ in range(k):
+        s = torch.argmax(scores, dim=1)                 # first maximum
+        dead = ~torch.isfinite(scores.gather(1, s[:, None])[:, 0])
+        s = torch.where(dead, 0, s)
+        blank = ((idx[None] > (s - (nuw + syms))[:, None])
+                 & (idx[None] < (s + nuw + syms)[:, None]))
+        scores = torch.where(blank, -torch.inf, scores)
+        starts.append(s)
+        exhausted.append(dead)
+    starts = torch.stack(starts, 1)                     # (C, k)
+    exhausted = torch.stack(exhausted, 1)
+    # exhausted picks (s = 0) may reach past a short stream: clamp, then zero
+    cols = (starts[..., None] + nuw
+            + torch.arange(syms, device=dev)).clamp(max=n - 1)
+    wins = soft[:, None, :].expand(C, k, n).gather(2, cols)
+    wins = torch.where(exhausted[..., None], 0.0, wins)
+    positions = torch.where(exhausted, -1, starts).to(torch.int32)
+    sd = descramble_or_strip(wins.reshape(C * k, syms), mode)
+    bits, iters, _ = ldpc.decode(ldpc.sd_to_llr(sd), max_iter=max_iter)
+    ok = dcrc.packet_crc_ok(bits).reshape(C, k)
+    pbytes = dcrc.bits_to_bytes(bits[:, : 258 * 8]).to(torch.uint8).reshape(
+        C, k, 258)
+    # an exhausted pick's zero window has NaN LLRs, which stop the plain
+    # decoder after one iteration (no data bit is < 0); the JAX package,
+    # compiled by XLA, reports the full max_iter for it: so does the port
+    iters = torch.where(exhausted, max_iter, iters.reshape(C, k)).to(
+        torch.int32)
+    out = (pbytes, ok, iters, positions)
+    return tuple(t[0] for t in out) if flat else out
+
+
+def pack_decode_results(pb: torch.Tensor, ok: torch.Tensor,
+                        pos: torch.Tensor) -> torch.Tensor:
+    """deframe_topk's results -> ONE uint8 tensor (..., k, 263): payload
+    bytes, the ok flag and the position as little-endian 32 bits, so a whole
+    step's packet output is a single device-to-host copy."""
+    pu = pos.to(torch.int64) & 0xFFFFFFFF
+    pos_b = torch.stack([((pu >> s) & 0xFF).to(torch.uint8)
+                         for s in (0, 8, 16, 24)], dim=-1)
+    return torch.cat([pb.to(torch.uint8), ok[..., None].to(torch.uint8),
+                      pos_b], dim=-1)
+
+
+def unpack_decode_results(packed: np.ndarray):
+    """Host-side inverse of pack_decode_results:
+    (..., 263) uint8 -> (payload_bytes (..., 258), ok bool, pos int32)."""
+    pb = packed[..., :258]
+    ok = packed[..., 258].astype(bool)
+    pu = packed[..., 259:263].astype(np.uint32)
+    pos = (pu[..., 0] | (pu[..., 1] << 8) | (pu[..., 2] << 16)
+           | (pu[..., 3] << 24)).view(np.int32)
+    return pb, ok, pos
 
 
 def correlation_candidates(hard_bits: np.ndarray, mode: str = "v2"

@@ -5,11 +5,16 @@ copies of the reference.  The demodulator runs the same per-frame algebra
 as the reference's scan body — Hann-windowed DFT tone estimate with a slow
 EMA and first-max peak picks, phase-continuous downconvert, integrate-and-
 dump at P phases as a banded matmul, timing from the spectral line at Rs,
-elastic nin, interpolated symbol decisions, soft bits and Eb/N0 — as a
-Python loop over frames.  The read pointer `pos` stays a device tensor and
-each frame's window is a device-side gather, so the loop never syncs with
-the host, and the loop has no data-dependent Python control flow: that is
-what lets `demod_lanes` run many captures at once under `torch.func.vmap`.
+elastic nin, interpolated symbol decisions, soft bits and Eb/N0.
+
+Two versions compute it.  The plain one, `demod_stream_reference` (and
+`demod_lanes_reference`, its `torch.func.vmap` over lanes), is a Python
+loop over frames whose read pointer stays a tensor, with no data-dependent
+control flow.  On a CUDA tensor every entry point (`demod_raw`,
+`demod_stream`, `demod_lanes`) launches the persistent frame-loop kernel
+instead (`kernels.fsk_demod`, one block per lane walking its frames with
+the state on chip); the plain loop runs for CPU tensors and in the
+comparisons with the kernel.
 """
 from __future__ import annotations
 
@@ -445,9 +450,9 @@ def _demod_frame(cfg: FSKConfig, state: DemodState, stream, new_blocks,
 # ------------------------------------------------------------ stream demod
 
 
-def demod_stream(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
-                 state: DemodState | None = None, n_valid=None):
-    """Demodulate a capture: iq (n,) complex64 -> (final state, FrameOut
+def demod_stream_reference(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
+                           state: DemodState | None = None, n_valid=None):
+    """The plain frame loop: iq (n,) complex64 -> (final state, FrameOut
     with every field stacked over `num_frames` frames).
 
     Frame k reads the Nmem samples ending at pos + nin (history plus its
@@ -482,13 +487,127 @@ def demod_stream(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
     return st, FrameOut(*(torch.stack(f) for f in zip(*outs)))
 
 
+def lane_state(state: DemodState, lanes: int) -> DemodState:
+    """An unbatched state repeated over a leading lane axis."""
+    return DemodState(*(t.expand(lanes, *t.shape).contiguous()
+                        for t in state))
+
+
+def demod_lanes_reference(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
+                          state: DemodState | None = None, n_valid=None):
+    """The plain frame loop over L lanes: iq (L, n) complex64, state and
+    n_valid (L,) with a leading lane axis (default: the initial state and
+    n) -> (final state, FrameOut), every field with a leading lane axis.
+
+    `torch.func.vmap` of `demod_stream_reference` (the JAX sweeps vmap the
+    demod over trials and offsets the same way): each lane computes what
+    an unbatched call computes.
+    """
+    L, n = iq.shape
+    if state is None:
+        state = lane_state(demod_init(cfg, iq.device), L)
+    if n_valid is None:
+        n_valid = torch.full((L,), n, dtype=torch.int64, device=iq.device)
+    return torch.func.vmap(
+        lambda x, s, nv: demod_stream_reference(cfg, x, num_frames, s, nv))(
+            iq, state, n_valid)
+
+
+def to_iq(data: torch.Tensor, fmt: str) -> torch.Tensor:
+    """(n, 2) raw pairs -> (n,) complex64: cu8 (x - 127) / 128, cs16
+    x / FDMDV_SCALE, c64 float32 (re, im) as they are."""
+    if fmt == "cu8":
+        x = (data.float() - 127.0) * (1.0 / 128.0)
+    elif fmt == "cs16":
+        x = data.float() * np.float32(1.0 / FDMDV_SCALE)
+    elif fmt == "c64":
+        x = data
+    else:
+        raise ValueError(f"unknown sample format {fmt!r}")
+    return torch.complex(x[:, 0].contiguous(), x[:, 1].contiguous())
+
+
+def demod_raw(cfg: FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
+              starts: torch.Tensor, n_valid: torch.Tensor,
+              state: DemodState | None = None):
+    """Demodulate L lanes of one raw buffer: the entry point of every demod.
+
+    data: (n, 2) raw pairs (uint8 cu8, int16 cs16 or float32 c64);
+    lane l's sample i is data[starts[l] + i], converted as `to_iq` does,
+    and frames are valid while pos + nin <= n_valid[l]; samples before the
+    lane's start or past the buffer read as 0.0.  state: lane-stacked, or
+    None for the initial state.  Returns (final state, FrameOut) with a
+    leading lane axis.
+
+    On a CUDA tensor this launches the persistent frame-loop kernel
+    (`kernels.fsk_demod`); on a CPU tensor it runs the plain loop.
+    """
+    if data.device.type == "cuda":
+        from ..kernels import fsk_demod
+        return fsk_demod.demod(cfg, data, fmt, num_frames, starts, n_valid,
+                               state)
+    return demod_raw_reference(cfg, data, fmt, num_frames, starts, n_valid,
+                               state)
+
+
+def demod_raw_reference(cfg: FSKConfig, data: torch.Tensor, fmt: str,
+                        num_frames: int, starts: torch.Tensor,
+                        n_valid: torch.Tensor,
+                        state: DemodState | None = None):
+    """The plain version of `demod_raw`, on any device: the lanes gathered
+    into (L, max n_valid) complex64 and run through the plain loop (the
+    unbatched loop for one lane)."""
+    iq = to_iq(data, fmt)
+    n, dev = iq.shape[0], iq.device
+    width = int(n_valid.max()) if n_valid.numel() else 0
+    col = torch.arange(width, dtype=torch.int64, device=dev)
+    idx = starts[:, None] + col
+    inside = (idx >= 0) & (idx < n) & (col < n_valid[:, None])
+    padded = torch.cat([iq, torch.zeros(1, dtype=torch.complex64,
+                                        device=dev)])
+    lanes = padded[torch.where(inside, idx, n)]       # index n reads 0.0
+    if starts.shape[0] != 1:
+        return demod_lanes_reference(cfg, lanes, num_frames, state, n_valid)
+    final, outs = demod_stream_reference(     # one lane: the unbatched loop
+        cfg, lanes[0], num_frames,
+        None if state is None else DemodState(*(t[0] for t in state)),
+        n_valid[0])
+    return (DemodState(*(t[None] for t in final)),
+            FrameOut(*(t[None] for t in outs)))
+
+
+def _as_pairs(iq: torch.Tensor) -> torch.Tensor:
+    return torch.view_as_real(iq.to(torch.complex64).contiguous()).reshape(
+        -1, 2)
+
+
+def demod_stream(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
+                 state: DemodState | None = None, n_valid=None):
+    """Demodulate a capture: iq (n,) complex64 -> (final state, FrameOut
+    stacked over frames), as `demod_stream_reference` computes it.  On a
+    CUDA tensor the frame-loop kernel runs it as one lane."""
+    if iq.device.type != "cuda":
+        return demod_stream_reference(cfg, iq, num_frames, state, n_valid)
+    n = iq.shape[0] if n_valid is None else int(n_valid)
+    dev = iq.device
+    final, outs = demod_raw(
+        cfg, _as_pairs(iq), "c64", num_frames,
+        torch.zeros(1, dtype=torch.int64, device=dev),
+        torch.full((1,), n, dtype=torch.int64, device=dev),
+        None if state is None else lane_state(state, 1))
+    return (DemodState(*(t[0] for t in final)),
+            FrameOut(*(t[0] for t in outs)))
+
+
 def demod_lanes(cfg: FSKConfig, iq: torch.Tensor, num_frames: int):
     """Demodulate L captures of one length at once: iq (L, n) complex64 ->
-    (final state, FrameOut), every field with a leading lane axis.
-
-    `torch.func.vmap` of `demod_stream` over the lanes (the JAX sweeps
-    vmap the demod over trials and offsets the same way); each lane
-    computes what an unbatched `demod_stream` call computes, and the
-    unbatched path is untouched.
-    """
-    return torch.func.vmap(lambda x: demod_stream(cfg, x, num_frames))(iq)
+    (final state, FrameOut), every field with a leading lane axis, as
+    `demod_lanes_reference` computes it.  On a CUDA tensor the frame-loop
+    kernel runs the lanes, one block each, straight out of one buffer."""
+    if iq.device.type != "cuda":
+        return demod_lanes_reference(cfg, iq, num_frames)
+    L, n = iq.shape
+    dev = iq.device
+    return demod_raw(cfg, _as_pairs(iq), "c64", num_frames,
+                     torch.arange(L, dtype=torch.int64, device=dev) * n,
+                     torch.full((L,), n, dtype=torch.int64, device=dev))

@@ -3,8 +3,9 @@
 
 Trials run as a batch axis: codeword trials are rows of one decode batch
 (the BP kernel, or its min-sum variant, on a CUDA device), full-chain
-trials and candidate offsets are lanes of one vmapped demod
-(`ops.fsk.demod_lanes`) followed by one batched UW search and decode.
+trials and candidate offsets are lanes of one demod call
+(`ops.fsk.demod_lanes`: the frame-loop kernel, one block a lane, on a CUDA
+device) followed by one batched UW search and decode.
 Random bits and noise come from an explicit `torch.Generator`, so a sweep
 is reproducible from its seed (not bit-for-bit the JAX package's draws).
 The device-mesh option of the JAX sweeps (`mesh=`) is not ported yet.
@@ -21,7 +22,7 @@ import torch
 from ..core import framing
 from ..core import ldpc_tables as T
 from ..device import resolve_device
-from ..ops import channel, fsk, ldpc
+from ..ops import channel, deframe, fsk, ldpc
 from ..ops import crc as dcrc
 
 ALGOS = ("sum-product", "min-sum")
@@ -131,7 +132,7 @@ def _uw_window_decode(cfg: fsk.FSKConfig, soft: torch.Tensor, mode: str,
     iters (L,) int32.  Greedy acquisition: the first strongest correlation
     peak whose packet window fits in the stream."""
     uw, syms = _uw_params(mode)
-    L, n = soft.shape
+    n = soft.shape[1]
     nuw = len(uw)
     hard_pm = torch.where(soft < 0, -1.0, 1.0)
     if valid is not None:
@@ -143,16 +144,8 @@ def _uw_window_decode(cfg: fsk.FSKConfig, soft: torch.Tensor, mode: str,
     t = torch.argmax(scores, dim=1) + nuw - 1        # first maximum
     win = torch.gather(soft, 1, t[:, None] + 1 + torch.arange(
         syms, device=soft.device))
-    if mode == "v2":
-        code = torch.as_tensor(np.resize(framing.SCRAMBLE_PM1, syms),
-                               dtype=torch.float32, device=soft.device)
-        sd = (win * code)[:, : T.CODE_LEN]
-    else:
-        # RS232 strip: bits 8..1 of each 10-bit character, MSB first
-        sd = win.reshape(L, -1, 10)[:, :, 1:9].flip(-1).reshape(L, -1)
-        sd = sd[:, : T.CODE_LEN]
-    bits, iters, _ = ldpc.decode(ldpc.sd_to_llr(sd.contiguous()),
-                                 max_iter=max_iter)
+    sd = deframe.descramble_or_strip(win, mode)
+    bits, iters, _ = ldpc.decode(ldpc.sd_to_llr(sd), max_iter=max_iter)
     return dcrc.packet_crc_ok(bits), iters
 
 
