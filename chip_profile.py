@@ -1,15 +1,28 @@
-"""Phase clocks of the one-hot BP kernel on one NVIDIA GPU.
+"""Phase clocks of a hand-written kernel on one NVIDIA GPU.
 
     python3 chip_profile.py [--batch 70] [--snr 2.5] [--seed 5]
+    python3 chip_profile.py --kernel fsk_demod [--source FILE]
 
-Builds wenet_tpu_torch/csrc/bp_onehot.cu a second time with
--DBP_ONEHOT_PHASES, which makes thread 0 of each of the first 64 blocks
-keep clock64 at the end of every phase of its first 16 iterations, decodes
-one batch of random codewords at the given SNR (10 iterations at most),
-checks the outputs against ops.ldpc.decode_reference, and prints for each
-phase the median over iterations 1..8 of the slowest block's SM cycles,
-with the card's name, power limit and SM clock.  Without a CUDA device it
-fails at once.
+bp_onehot (the default): builds wenet_tpu_torch/csrc/bp_onehot.cu a second
+time with -DBP_ONEHOT_PHASES, which makes thread 0 of each of the first 64
+blocks keep clock64 at the end of every phase of its first 16 iterations,
+decodes one batch of random codewords at the given SNR (10 iterations at
+most), checks the outputs against ops.ldpc.decode_reference, and prints for
+each phase the median over iterations 1..8 of the slowest block's SM
+cycles.
+
+fsk_demod: builds the demod frame-loop kernel (csrc/fsk_demod.cu, or
+--source, e.g. an earlier revision of it) a second time with
+-DFSK_DEMOD_PHASES, which makes thread 0 of lane 0 keep clock64 at the end
+of each phase of its first 64 frames; a source without those clocks (the
+first revision, whose frame loop marks its phases "// 1." to "// 8.") gets
+them inserted at its phase marks.  It demodulates one lane of a v2
+flight-geometry cu8 capture (random bits at 12 dB), checks valid, nin and
+f_est against ops.fsk.demod_raw_reference, and prints the median over
+frames 1..63 of each phase's SM cycles and of the whole frame's.
+
+Each prints the card's name, power limit and SM clock.  Without a CUDA
+device it fails at once.
 """
 from __future__ import annotations
 
@@ -25,18 +38,171 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("edge", "check", "edge_to_var", "cluster_sync_1", "var",
           "cluster_sync_2")
+DEMOD_PHASES = ("window", "dft", "peak_pick", "downconvert", "integrate",
+                "timing", "decisions", "ebno_state")
+DEMOD_FRAMES = 64             # the frames whose clocks the kernel keeps
+DEMOD_PRELUDE = r"""
+#ifdef FSK_DEMOD_PHASES
+__device__ long long fsk_demod_phases[64 * 16];
+extern "C" int fsk_demod_read_phases(long long* host) {
+    return (int)cudaMemcpyFromSymbol(host, fsk_demod_phases,
+                                     sizeof(fsk_demod_phases));
+}
+#define PHASE(k)                                                       \
+    if (threadIdx.x == 0 && blockIdx.x == 0 && f < 64)                 \
+    fsk_demod_phases[f * 16 + (k)] = clock64()
+#else
+#define PHASE(k)
+#endif
+"""
+
+
+def smi_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def instrument_demod(src: str) -> str:
+    """Phase clocks for a demod source that has none: PHASE(k - 1) before
+    the frame loop's "// k." marks (k = 1..8) and PHASE(8) at the end of
+    the loop body."""
+    import re
+    src = src.replace("#include <stdint.h>\n",
+                      "#include <stdint.h>\n" + DEMOD_PRELUDE, 1)
+    body = src.index("fsk_demod_kernel(")
+    head, tail = src[:body], src[body:]
+    for k in range(1, 9):
+        m = re.search(rf"^( *)// {k}\. ", tail, re.M)
+        if m is None:
+            raise RuntimeError(f"no phase mark {k} in the demod source")
+        tail = (tail[:m.start()] + f"{m.group(1)}PHASE({k - 1});\n"
+                + tail[m.start():])
+    end = "        __syncthreads();\n    }\n\n    // frames past"
+    if end not in tail:
+        raise RuntimeError("no end of the frame loop in the demod source")
+    tail = tail.replace(end, "        __syncthreads();\n        PHASE(8);\n"
+                        "    }\n\n    // frames past", 1)
+    return head + tail
+
+
+def profile_demod(args) -> int:
+    import ctypes as C
+    import hashlib
+    import torch
+    from wenet_tpu_torch import kernels
+    from wenet_tpu_torch.kernels import fsk_demod
+    from wenet_tpu_torch.ops import channel, fsk
+    from wenet_tpu_torch.utils import compat
+
+    path = args.source or os.path.join(kernels.CSRC, "fsk_demod.cu")
+    with open(path) as fh:
+        src = fh.read()
+    first_revision = "FSK_DEMOD_PHASES" not in src    # no clocks of its own
+    if first_revision:
+        src = instrument_demod(src)
+    tag = hashlib.sha1(src.encode()).hexdigest()[:12]
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    cu = os.path.join(kernels.BUILD_DIR, f"fsk_demod_phases_{tag}.cu")
+    out = cu[:-3] + ".so"
+    with open(cu, "w") as fh:
+        fh.write(src)
+    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS,
+                    "-DFSK_DEMOD_PHASES", "-o", out, cu], check=True,
+                   capture_output=True)
+    lib = C.CDLL(out)
+    lib.fsk_demod_launch.restype = C.c_int
+    lib.fsk_demod_launch.argtypes = [C.c_void_p, C.c_void_p, C.c_void_p]
+    lib.fsk_demod_read_phases.restype = C.c_int
+    lib.fsk_demod_read_phases.argtypes = [C.c_void_p]
+
+    dev = torch.device("cuda")
+    cfg = fsk.V2_CONFIG
+    nf = DEMOD_FRAMES
+    rng = np.random.default_rng(args.seed)
+    bits = rng.integers(0, 2, cfg.Nbits * (nf + 4)).astype(np.uint8)
+    sig, _ = fsk.fsk_mod_np(cfg, bits, 2 * cfg.Rs, cfg.Rs)
+    raw = fsk.iq_to_cu8(channel.add_awgn(sig, 12.0, cfg.Fs, cfg.Rs,
+                                         rng=rng)).reshape(-1, 2)
+    data = torch.from_numpy(raw).to(dev)
+    starts = torch.zeros(1, dtype=torch.int64, device=dev)
+    n_valid = torch.full((1,), data.shape[0], dtype=torch.int64, device=dev)
+    state = fsk.lane_state(fsk.demod_init(cfg, dev), 1)
+    final = [torch.empty_like(t) for t in state]
+    outs = fsk.FrameOut(
+        soft=torch.empty((1, nf, cfg.Nbits), device=dev),
+        bits=torch.empty((1, nf, cfg.Nbits), dtype=torch.uint8, device=dev),
+        valid=torch.empty((1, nf), dtype=torch.bool, device=dev),
+        f_est=torch.empty((1, nf, cfg.M), device=dev),
+        ebno_db=torch.empty((1, nf), device=dev),
+        norm_rx_timing=torch.empty((1, nf), device=dev),
+        ppm=torch.empty((1, nf), device=dev),
+        nin=torch.empty((1, nf), dtype=torch.int32, device=dev))
+    consts = fsk._constants(cfg, dev)
+    if not first_revision:
+        tables = fsk_demod._tables(cfg, dev)
+        ptr_type = fsk_demod.Ptrs
+    else:                 # the first revision: the full DFT matrix
+        tables = (consts["hann"], compat._dft_matrix(cfg.Ndft, cfg.Ndft // 2,
+                                                     dev),
+                  consts["spin_re"], consts["spin_im"])
+        names = ("data", "starts", "n_valid", "hann", "dft", "spin_re",
+                 "spin_im", *fsk_demod._STATE_IN, *fsk_demod._STATE_OUT,
+                 *fsk_demod._FRAME_OUT)
+        ptr_type = type("Ptrs1", (C.Structure,),
+                        {"_fields_": [(f, C.c_void_p) for f in names]})
+    ptrs = ptr_type(*(t.data_ptr() for t in (
+        data, starts, n_valid, *tables, *state, *final, *outs)))
+    geom = fsk_demod.geometry(cfg, "cu8", 1, nf, data.shape[0])
+    for _ in range(3):                    # the last run's clocks are kept
+        rc = lib.fsk_demod_launch(C.addressof(geom), C.addressof(ptrs),
+                                  torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"launch failed: cudaError_t {rc}")
+    torch.cuda.synchronize()
+    _, want = fsk.demod_raw_reference(cfg, data, "cu8", nf, starts, n_valid)
+    v = want.valid
+    if not (torch.equal(outs.valid, v) and torch.equal(outs.nin[v], want.nin[v])
+            and torch.equal(outs.f_est[v], want.f_est[v])):
+        raise RuntimeError("the phase build differs from the plain loop")
+    clocks = np.zeros(64 * 16, np.int64)
+    rc = lib.fsk_demod_read_phases(clocks.ctypes.data_as(C.c_void_p))
+    if rc:
+        raise RuntimeError(f"reading the phase clocks: cudaError_t {rc}")
+    frames = min(nf, 64)
+    stamps = clocks.reshape(64, 16)[:frames]
+    span = np.diff(stamps[:, :9], axis=1)[1:]            # frames 1.., 8
+    kept = [k for k in range(16) if stamps[1:, k].all()]
+    print(json.dumps({
+        "kernel": "fsk_demod", "source": os.path.relpath(path, ROOT),
+        "geometry": "v2", "lanes": 1, "frames": frames,
+        "sm_cycles": {p: float(np.median(span[:, k]))
+                      for k, p in enumerate(DEMOD_PHASES)},
+        "frame_sm_cycles": float(np.median(np.diff(stamps[:, 0])[1:])),
+        # every stamp the source keeps, as cycles after the frame's start
+        "stamps": {k: float(np.median(stamps[1:, k] - stamps[1:, 0]))
+                   for k in kept},
+        "card": smi_line()}))
+    return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", choices=["bp_onehot", "fsk_demod"],
+                    default="bp_onehot")
     ap.add_argument("--batch", type=int, default=70)
     ap.add_argument("--snr", type=float, default=2.5)
     ap.add_argument("--seed", type=int, default=5)
+    ap.add_argument("--source", default=None,
+                    help="fsk_demod: the kernel source to profile")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: torch.cuda.is_available() is False")
     sys.path.insert(0, ROOT)
+    if args.kernel == "fsk_demod":
+        return profile_demod(args)
     from wenet_tpu_torch import kernels
     from wenet_tpu_torch.kernels import bp_onehot
     from wenet_tpu_torch.ops import ldpc, ldpc_onehot
@@ -88,10 +254,7 @@ def main() -> int:
     if iters < 10:
         raise RuntimeError(f"only {iters} iterations: lower --snr")
     span = np.diff(clocks[:, 1:9, :7], axis=2)           # blocks, iters, 6
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     print(json.dumps({
         "batch": B, "snr_db": args.snr, "blocks": shape.blocks,
         "sm_cycles": {p: float(np.median(span[:, :, k].max(axis=0)))

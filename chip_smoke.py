@@ -10,19 +10,25 @@ at B = 7), printing the one-hot kernel's launch shape (cluster, blocks,
 shared memory per block) at each batch; and the demod frame-loop kernel
 against its plain loop (valid, nin and f_est exact, hard bits where the
 soft bit is clear of zero, soft bits within DEMOD_SOFT_TOL of the mean
-|soft|) on 600 frames of one lane and 120 frames of 16 lanes.  Kernel
+|soft|; with the eye probe, high_sample exact and f_int within the same
+share of its mean magnitude) on 600 frames of one lane and 120 frames of
+16 lanes.  Kernel
 times are CUDA-event times: for the BP kernels `ms` over replays of a
 CUDA graph of many launches (the kernel alone) and `call_ms` over many
 eager calls (the wrapper's host work included); for the demod kernel and
 all plain versions, over eager calls.  Each time is printed beside its
 bound (the larger of bytes at 3.35 TB/s and operations at 67 TFLOP/s,
-counted from this run's data) and the card's name and power limit.  The
+counted from this run's data; for the demod kernel also a one-SM bound,
+the operations at 67/132 TFLOP/s on each lane's SM, since a lane's frames
+are serial) and the card's name and power limit.  The
 gather probes' counterpart (the var -> edge gather inside the BP kernel)
 gets its own bound and the time of torch.index_select at the probes'
 shape.  Then it drives the port's paths, each with the launch counts set
 to 0 just before it and read just after: the streaming receiver at the v2
 and v1 flight geometries on synthetic captures (printing the decode batch
-of each push), a negative probe below the decode cliff, the fused paths
+of each push), the v2 receiver again with the eye probe on (as the CLI
+builds it unless --no-udp) and its stats record's eye diagram, a negative
+probe below the decode cliff, the fused paths
 (decode_iq_fused on both captures, decode_iq_fused_overlap, FusedReceiver
 on the v2 capture three times over; one fused step's stages timed and
 the device's busy share of a step and of a Receiver run from
@@ -77,6 +83,7 @@ OVERLAP_SLABS, OVERLAP_CHUNKS = 4, 4
 RX_TILES = 3                  # FusedReceiver: the v2 capture three times over
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 rate; FP32 peak below
 FP32_OPS_PER_S = 67e12
+SMS = 132
 VALID_EDGES = 7223            # of the 516 x 14 edge slots of H2064_516
 
 
@@ -235,12 +242,13 @@ def noisy_llrs(n, snr_db, rng, dev):
                                           device=dev))
 
 
-def run_receiver(cfg, mode, raw, pipelined=False, chunk_seconds=2.0):
+def run_receiver(cfg, mode, raw, pipelined=False, chunk_seconds=2.0,
+                 with_eye=False):
     from wenet_tpu_torch.rx.pipeline import Receiver
     import torch
 
     rx = Receiver(mode=mode, cfg=cfg, input_format="cu8", device="cuda",
-                  pipelined=pipelined)
+                  pipelined=pipelined, with_eye=with_eye)
     step = 2 * int(cfg.Fs * chunk_seconds)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -272,32 +280,45 @@ def demod_compare(got, want):
     """Mismatches of the demod kernel against its plain loop: frames whose
     valid flag differs, valid frames whose nin or f_est differs, hard bits
     that differ where |soft| > DEMOD_BIT_TOL of the mean |soft|; max |d
-    soft| and its share of the mean |soft| on valid frames."""
-    (_, go), (_, wo) = got, want
+    soft| and its share of the mean |soft| on valid frames; with eye
+    probes, lanes whose ok or high_sample differs and the largest |d f_int|
+    as a share of the mean |f_int|."""
+    (_, go), (_, wo) = got[:2], want[:2]
     g = {k: v.cpu().numpy() for k, v in go._asdict().items()}
     w = {k: v.cpu().numpy() for k, v in wo._asdict().items()}
     v = w["valid"]
     scale = float(np.abs(w["soft"][v]).mean())
     clear = np.abs(w["soft"][v]) > DEMOD_BIT_TOL * scale
     err = float(np.abs(g["soft"][v] - w["soft"][v]).max())
-    return {"valid": int((g["valid"] != v).sum()),
-            "nin": int((g["nin"][v] != w["nin"][v]).sum()),
-            "f_est": int((g["f_est"][v] != w["f_est"][v]).any(-1).sum()),
-            "bits": int((g["bits"][v][clear] != w["bits"][v][clear]).sum()),
-            "max_abs_err": err, "rel_err": err / scale,
-            "frames": int(v.sum())}
+    out = {"valid": int((g["valid"] != v).sum()),
+           "nin": int((g["nin"][v] != w["nin"][v]).sum()),
+           "f_est": int((g["f_est"][v] != w["f_est"][v]).any(-1).sum()),
+           "bits": int((g["bits"][v][clear] != w["bits"][v][clear]).sum()),
+           "max_abs_err": err, "rel_err": err / scale,
+           "frames": int(v.sum())}
+    if len(got) == 3:
+        ge, we = got[2], want[2]
+        fw = we.f_int.cpu().numpy()
+        out["eye"] = int((ge.ok.cpu() != we.ok.cpu()).sum()
+                         + (ge.high_sample.cpu() != we.high_sample.cpu()).sum())
+        out["eye_rel_err"] = float(np.abs(ge.f_int.cpu().numpy() - fw).max()
+                                   / np.abs(fw).mean())
+    return out
 
 
 def demod_bound(cfg, outs, n_samples, bytes_per_sample):
-    """(bound ms, 'bytes' or 'operations') of one frame-loop call from the
-    frames this run's data made valid.  Bytes: the lanes' raw samples read
-    once, the frame outputs and the states written once.  Operations
-    (float32 and float64 alike, at FP32_OPS_PER_S): per estimator block
-    used, the Hann window (2 a sample), the DFT (8 a sample and bin) and
-    the magnitude and EMA (6 a bin); M peak picks over the bins; per tone
-    and window sample the angle (6), cos and sin (1 each) and the mix (6);
-    the window sums (2 a sample and integrator); the timing line (3 a tone
-    and integrator, 4 an integrator); the decisions (8 a tone and symbol)."""
+    """(bound ms, 'bytes' or 'operations', one-SM bound ms) of one
+    frame-loop call from the frames this run's data made valid.  Bytes:
+    the lanes' raw samples read once, the frame outputs and the states
+    written once.  Operations (float32 and float64 alike, at
+    FP32_OPS_PER_S): per estimator block used, the Hann window (2 a
+    sample), the DFT (8 a sample and bin) and the magnitude and EMA (6 a
+    bin); M peak picks over the bins; per tone and window sample the angle
+    (6), cos and sin (1 each) and the mix (6); the window sums (2 a sample
+    and integrator); the timing line (3 a tone and integrator, 4 an
+    integrator); the decisions (8 a tone and symbol).  A lane's frames are
+    serial, so the one-SM bound is the operations at FP32_OPS_PER_S / SMS
+    on each of min(lanes, SMS) SMs."""
     valid = outs.valid.cpu().numpy()
     nins = outs.nin.cpu().numpy()[valid]
     half, M, Nmem = cfg.Ndft // 2, cfg.M, cfg.Nmem
@@ -315,8 +336,9 @@ def demod_bound(cfg, outs, n_samples, bytes_per_sample):
               + L * nf * (5 * cfg.Nbits + 4 * M + 13)
               + 2 * L * (4 * half + 8 * M + 24))
     t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    one_sm = ops / (FP32_OPS_PER_S / SMS * min(L, SMS))
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+            "operations" if t_ops >= t_bytes else "bytes", one_sm * 1e3)
 
 
 def device_busy(fn):
@@ -488,6 +510,11 @@ def main() -> int:
     # 4. the demod frame-loop kernel vs its plain loop, v2 flight geometry,
     # cu8: 600 frames on one lane, 16 overlapping lanes of 120 frames
     cfg2 = fsk.V2_CONFIG
+    for cfg_m in (fsk.V1_CONFIG, cfg2):
+        for fmt in fsk_demod.FORMATS:
+            gm = fsk_demod.geometry(cfg_m, fmt, 1, 1, 1 << 20)
+            require(fsk_demod.smem_bytes(gm) == fsk_demod.smem_layout_bytes(gm),
+                    f"fsk_demod smem accounting ({fmt})")
     raw_d = make_capture(cfg2, "v2", [text_message(f"demod {i}", i)
                                       for i in range(8)], EBNO_DB,
                          np.random.default_rng(SEED + 600))
@@ -500,29 +527,36 @@ def main() -> int:
                              device=dev)
         args = (cfg2, data_d, "cu8", frames + 2, starts, n_valid)
         fsk_demod.launches = 0
-        got = fsk.demod_raw(*args)
+        got = fsk.demod_raw(*args, with_eye=True)
         torch.cuda.synchronize()
         require(fsk_demod.launches == 1, "demod_vs_plain: no kernel launch")
-        want = fsk.demod_raw_reference(*args)
+        want = fsk.demod_raw_reference(*args, with_eye=True)
         cmp = demod_compare(got, want)
         require(cmp["valid"] == cmp["nin"] == cmp["f_est"] == cmp["bits"] == 0
-                and cmp["rel_err"] <= DEMOD_SOFT_TOL,
+                and cmp["rel_err"] <= DEMOD_SOFT_TOL and cmp["eye"] == 0
+                and cmp["eye_rel_err"] <= DEMOD_SOFT_TOL,
                 f"demod_vs_plain L={lanes}: {cmp}")
         ms = event_ms(lambda: fsk.demod_raw(*args), 5)
         plain_ms = event_ms(lambda: fsk.demod_raw_reference(*args), 1)
-        bound, by = demod_bound(cfg2, want[1], lanes * frames * cfg2.N, 2)
+        bound, by, bound_sm = demod_bound(cfg2, want[1],
+                                          lanes * frames * cfg2.N, 2)
         demod_times[lanes] = dict(cmp, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound, bound_by=by)
+                                  bound_ms=bound, bound_by=by,
+                                  bound_one_sm_ms=bound_sm)
         say("demod_vs_plain", kernel="fsk_demod", lanes=lanes,
             frames=cmp["frames"], valid_mismatch=cmp["valid"],
             nin_mismatch=cmp["nin"], f_est_mismatch=cmp["f_est"],
             bit_mismatch=cmp["bits"], max_abs_err=f"{cmp['max_abs_err']:.3e}",
             rel_err=f"{cmp['rel_err']:.3e}", tol=DEMOD_SOFT_TOL,
+            eye_mismatch=cmp["eye"], eye_rel_err=f"{cmp['eye_rel_err']:.3e}",
             kernel_ms=f"{ms:.4f}",
             kernel_ms_per_frame=f"{ms / (cmp['frames'] / lanes):.5f}",
             plain_ms=f"{plain_ms:.2f}",
             plain_ms_per_frame=f"{plain_ms / (cmp['frames'] / lanes):.4f}",
             bound_ms=f"{bound:.6f}", bound_by=by,
+            share_of_bound=f"{bound / ms:.5f}",
+            bound_one_sm_ms=f"{bound_sm:.6f}",
+            share_of_one_sm_bound=f"{bound_sm / ms:.5f}",
             smem_bytes=fsk_demod.smem_bytes(fsk_demod.geometry(
                 cfg2, "cu8", lanes, frames, data_d.shape[0])),
             card=repr(smi))
@@ -579,6 +613,23 @@ def main() -> int:
         realtime_msps=f"{cfg1.Fs / 1e6:.3f}",
         demod_share=f"{rx1.seconds['demod'] / dt1:.3f}",
         deframe_share=f"{rx1.seconds['deframe'] / dt1:.3f}", card=repr(smi))
+
+    # 6b. the v2 receiver with the eye probe on, as the CLI builds it
+    # unless --no-udp: the same payloads, and a stats record whose eye
+    # diagram is finite, of the reference's shape, normalised to 1
+    fsk_demod.launches = 0
+    got2e, dt2e, rx2e = run_receiver(cfg2, "v2", raw2, with_eye=True)
+    require(fsk_demod.launches > 0, "v2 eye path never launched fsk_demod")
+    require(got2e == got2, "v2 with the eye probe: payloads differ")
+    rec = pipeline.receiver_stats_record(rx2e)
+    eye = np.array(rec.get("eye_diagram", []))
+    require(eye.shape == (8, 2 * cfg2.P) and np.isfinite(eye).all()
+            and eye.max() == 1.0, f"v2 eye diagram: shape {eye.shape}")
+    say("v2_stream_eye", packets=f"{len(got2e)}/{len(sent2)}",
+        wall_s=f"{dt2e:.3f}", msps=f"{n2 / dt2e / 1e6:.4f}",
+        demod_share=f"{rx2e.seconds['demod'] / dt2e:.3f}",
+        eye_shape=eye.shape, high_sample=rx2e.last_eye[1],
+        demod_launches=fsk_demod.launches, card=repr(smi))
 
     # 7. negative probe far below the cliff
     raw_neg = make_capture(cfg2, "v2", sent2[:8], -6.0, rng)
@@ -849,10 +900,11 @@ def main() -> int:
                     "call_ms": m["call_ms"],
                     "batch": MAIN_CASE[0], "snr_db": MAIN_CASE[1]})
     # the demod loop was an XLA scan, not a Pallas kernel: `replaces` names
-    # the scan body; no single PyTorch call computes it (library_ms null)
+    # the scan (demod_stream); no single PyTorch call computes it
+    # (library_ms null)
     out.append({"name": "fsk_demod", "route": "cuda",
                 "source": "wenet_tpu_torch/csrc/fsk_demod.cu",
-                "replaces": "wenet_tpu/ops/fsk.py:570",
+                "replaces": "wenet_tpu/ops/fsk.py:505",
                 "launches": main_launches["fsk_demod"],
                 "max_abs_err": max(d1["max_abs_err"], d16["max_abs_err"]),
                 "ms": d1["ms"], "plain_ms": d1["plain_ms"],
@@ -860,8 +912,11 @@ def main() -> int:
                 "library_ms": None, "lanes": lanes1,
                 "frames": d1["frames"],
                 "ms_per_frame": d1["ms"] / d1["frames"],
+                "bound_one_sm_ms": d1["bound_one_sm_ms"],
+                "eye_rel_err": max(d1["eye_rel_err"], d16["eye_rel_err"]),
                 "lanes16_ms": d16["ms"], "lanes16_plain_ms": d16["plain_ms"],
                 "lanes16_bound_ms": d16["bound_ms"],
+                "lanes16_bound_one_sm_ms": d16["bound_one_sm_ms"],
                 "lanes16_ms_per_frame": d16["ms"] / (d16["frames"] / 16)})
     print(json.dumps({"kernels": out}))
     print(smi)

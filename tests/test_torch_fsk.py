@@ -115,3 +115,39 @@ def test_chunked_equals_oneshot(name):
     for field in tfsk.FrameOut._fields:
         joined = torch.cat([getattr(a, field), getattr(b, field)])
         assert torch.equal(joined, getattr(one, field)), field
+
+
+@pytest.mark.parametrize("name", ["v2_scaled", "v1_scaled"])
+def test_eye_probe_matches_jax(name):
+    """demod_stream(with_eye=True): the last valid frame's integrators and
+    high sample as JAX carries them; high_sample exact, |f_int| (what the
+    soft bits and the eye read) within the soft-bit tolerance, the eye
+    diagram within 1e-5.  The phase of f_int carries the carrier phase's
+    float32 rounding (angles up to ~1500 rad, where one ulp is 1.2e-4 rad),
+    so its parts are held to 1e-3 of the mean |f_int|.  A capture with no
+    valid frame gives zeros and ok False."""
+    jcfg, tcfg = _configs(name)
+    iq = _capture(jcfg, seed=len(name) + 40)
+    nf = jcfg.num_frames(len(iq))
+    _, oj, (fj, hj) = jfsk.demod_stream(jcfg, jcompat.put_complex(iq), nf,
+                                         with_eye=True)
+    fj = np.asarray(jcompat.get_complex(fj))
+    _, ot, eye = tfsk.demod_stream(tcfg, torch.from_numpy(iq), nf,
+                                   with_eye=True)
+    _assert_frames_match(jax.tree.map(np.asarray, oj),
+                         jfsk.FrameOut(**{k: v.numpy() for k, v in
+                                          ot._asdict().items()}))
+    assert bool(eye.ok)
+    assert int(eye.high_sample) == int(hj)
+    ft = eye.f_int.numpy()
+    assert ft.shape == fj.shape
+    scale = np.abs(fj).mean()
+    assert np.abs(np.abs(ft) - np.abs(fj)).max() <= 1e-4 * scale
+    assert np.abs(ft - fj).max() <= 1e-3 * scale
+    ej = jfsk.eye_diagram(fj, jcfg.P, int(hj), jcfg.M)
+    et = tfsk.eye_diagram(ft, tcfg.P, int(eye.high_sample), tcfg.M)
+    np.testing.assert_allclose(et, ej, rtol=0, atol=1e-5)
+    _, outs, none = tfsk.demod_stream(tcfg, torch.from_numpy(iq[:100]), 3,
+                                      with_eye=True)
+    assert not bool(outs.valid.any()) and not bool(none.ok)
+    assert not bool(none.f_int.abs().any()) and int(none.high_sample) == 0

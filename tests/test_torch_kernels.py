@@ -672,8 +672,10 @@ def _demod_raw(mode, fmt, n, seed):
 def assert_demod_close(got, want):
     """valid and nin equal on every frame; f_est equal on valid frames; hard
     bits equal where |soft| is clear of zero; soft bits within SOFT_TOL of
-    the mean |soft|; the final states' integer fields equal."""
-    (gs, go), (ws, wo) = got, want
+    the mean |soft|; the final states' integer fields equal.  With an eye
+    probe: ok and high_sample equal, f_int within SOFT_TOL of its mean
+    magnitude."""
+    (gs, go), (ws, wo) = got[:2], want[:2]
     valid = wo.valid.cpu()
     assert torch.equal(go.valid.cpu(), valid)
     assert torch.equal(go.nin.cpu()[valid], wo.nin.cpu()[valid])
@@ -689,6 +691,13 @@ def assert_demod_close(got, want):
     assert torch.equal(gs.pos.cpu(), ws.pos.cpu())
     assert torch.equal(gs.nin.cpu(), ws.nin.cpu())
     assert torch.equal(gs.f_est.cpu(), ws.f_est.cpu())
+    if len(want) == 3:
+        ge, we = got[2], want[2]
+        assert torch.equal(ge.ok.cpu(), we.ok.cpu())
+        assert torch.equal(ge.high_sample.cpu(), we.high_sample.cpu())
+        fg, fw = ge.f_int.cpu(), we.f_int.cpu()
+        tol = SOFT_TOL * float(fw.abs().mean())
+        assert float((fg - fw).abs().max()) <= tol
 
 
 def test_demod_wrapper_takes_only_cuda_tensors():
@@ -707,35 +716,43 @@ def test_demod_wrapper_takes_only_cuda_tensors():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_eye", [False, True], ids=["", "eye"])
 @pytest.mark.parametrize("lanes", [1, 3, 16])
 @pytest.mark.parametrize("fmt", ["cu8", "cs16", "c64"])
 @pytest.mark.parametrize("mode", ["v2", "v1"])
-def test_demod_kernel_matches_plain(mode, fmt, lanes):
+def test_demod_kernel_matches_plain(mode, fmt, lanes, with_eye):
     """L lanes at their own starts in one buffer, overlapping, each with
-    its own n_valid, the last lane running past the buffer's end."""
+    its own n_valid, the first lane starting before sample 0 and the last
+    running past the buffer's end."""
     dev = _card()
     cfg = DEMOD_CFG[mode]
     span = 40 * cfg.N
     raw = _demod_raw(mode, fmt, span // 2 * (lanes + 1), 5 + lanes)
     data = torch.from_numpy(raw).to(dev)
     starts = torch.arange(lanes, dtype=torch.int64, device=dev) * (span // 2)
+    starts[0] -= 3 * cfg.N + 5               # before sample 0: reads 0.0
     n_valid = span - 7 * torch.arange(lanes, dtype=torch.int64, device=dev)
     n_valid[-1] += cfg.N                     # past the end: reads 0.0
     nf = cfg.num_frames(span + cfg.N)
     before = fsk_demod.launches
-    got = fsk.demod_raw(cfg, data, fmt, nf, starts, n_valid)
+    got = fsk.demod_raw(cfg, data, fmt, nf, starts, n_valid,
+                        with_eye=with_eye)
     torch.cuda.synchronize()
     assert fsk_demod.launches == before + 1
-    want = fsk.demod_raw_reference(cfg, data, fmt, nf, starts, n_valid)
+    want = fsk.demod_raw_reference(cfg, data, fmt, nf, starts, n_valid,
+                                   with_eye=with_eye)
     assert_demod_close(got, want)
     assert bool(want[1].valid[:, :30].all())
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_eye", [False, True], ids=["", "eye"])
 @pytest.mark.parametrize("mode", ["v2", "v1"])
-def test_demod_kernel_carries_state(mode):
+def test_demod_kernel_carries_state(mode, with_eye):
     """Receiver-style pushes: the second push starts from the first's
-    carried state, with n_valid short of the buffer."""
+    carried state, with n_valid short of the buffer (and its buffer a view
+    that does not start on 16 bytes); a third push too short for a frame
+    gives an eye probe with ok False."""
     dev = _card()
     cfg = DEMOD_CFG[mode]
     raw = torch.from_numpy(_demod_raw(mode, "cu8", 70 * cfg.N, 9)).to(dev)
@@ -743,22 +760,30 @@ def test_demod_kernel_carries_state(mode):
     first = raw[: 30 * cfg.N].contiguous()
     nv1 = torch.full((1,), 30 * cfg.N, dtype=torch.int64, device=dev)
     nf = cfg.num_frames(30 * cfg.N)
-    got1 = fsk.demod_raw(cfg, first, "cu8", nf, zero, nv1)
-    want1 = fsk.demod_raw_reference(cfg, first, "cu8", nf, zero, nv1)
+    got1 = fsk.demod_raw(cfg, first, "cu8", nf, zero, nv1, None, with_eye)
+    want1 = fsk.demod_raw_reference(cfg, first, "cu8", nf, zero, nv1, None,
+                                    with_eye)
     assert_demod_close(got1, want1)
     state = want1[0]
     end = int(state.pos[0])
     keep = min(end, cfg.Nmem)
-    second = raw[end - keep:].contiguous()
+    second = raw[end - keep:]                 # a view at 2 (end - keep) bytes
     state = state._replace(pos=torch.full((1,), keep, dtype=torch.int32,
                                           device=dev))
     nv2 = torch.full((1,), second.shape[0] - 5 * cfg.N, dtype=torch.int64,
                      device=dev)
     nf2 = cfg.num_frames(second.shape[0])
-    got2 = fsk.demod_raw(cfg, second, "cu8", nf2, zero, nv2, state)
-    want2 = fsk.demod_raw_reference(cfg, second, "cu8", nf2, zero, nv2, state)
+    got2 = fsk.demod_raw(cfg, second, "cu8", nf2, zero, nv2, state,
+                         with_eye)
+    want2 = fsk.demod_raw_reference(cfg, second, "cu8", nf2, zero, nv2, state,
+                                    with_eye)
     assert_demod_close(got2, want2)
     assert not bool(want2[1].valid[0, -3:].any())
+    if with_eye:
+        short = torch.full((1,), 10, dtype=torch.int64, device=dev)
+        got3 = fsk.demod_raw(cfg, second, "cu8", 2, zero, short, state, True)
+        assert not bool(got3[2].ok.any())
+        assert not bool(got3[2].f_int.abs().any())
 
 
 @pytest.mark.cuda
@@ -802,3 +827,32 @@ def test_demod_wrapper_rejects_bad_inputs():
         fsk_demod.demod(cfg, data, "s16", 3, starts, nv)
     with pytest.raises(ValueError):
         fsk_demod.demod(cfg, data.cpu(), "cu8", 3, starts, nv)
+
+
+@pytest.mark.cuda
+def test_demod_kernel_second_estimator_block():
+    """Ts = 5, Nsym = 51: N = 255 and Ndft = 128, so frames with nin = 257
+    window a second estimator block, which the kernel sums in the frame
+    (the first block's DFT is summed the frame before)."""
+    dev = _card()
+    cfg = fsk.FSKConfig(Fs=48000, Rs=9600, Nsym=51)
+    rng = np.random.default_rng(13)
+    bits = rng.integers(0, 2, cfg.Nbits * 60).astype(np.uint8)
+    sig, _ = fsk.fsk_mod_np(cfg, bits, 2 * cfg.Rs, cfg.Rs)
+    half = len(sig) // 2
+    sig = np.concatenate([channel.resample_linear(sig[:half], 1.004),
+                          channel.resample_linear(sig[half:], 0.996)])
+    iq = channel.add_awgn(sig, 8.0, cfg.Fs, cfg.Rs, rng=rng)
+    raw = np.ascontiguousarray(iq.astype(np.complex64).view(np.float32)
+                               .reshape(-1, 2))
+    data = torch.from_numpy(raw).to(dev)
+    starts = torch.zeros(1, dtype=torch.int64, device=dev)
+    n_valid = torch.full((1,), data.shape[0], dtype=torch.int64, device=dev)
+    nf = cfg.num_frames(data.shape[0])
+    got = fsk.demod_raw(cfg, data, "c64", nf, starts, n_valid, with_eye=True)
+    want = fsk.demod_raw_reference(cfg, data, "c64", nf, starts, n_valid,
+                                   with_eye=True)
+    torch.cuda.synchronize()
+    assert_demod_close(got, want)
+    nins = want[1].nin[want[1].valid]
+    assert bool((nins >= 2 * cfg.Ndft).any())

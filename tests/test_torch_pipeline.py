@@ -15,6 +15,7 @@ from wenet_tpu.core import framing
 from wenet_tpu.ops import channel
 from wenet_tpu.ops import fsk as jfsk
 from wenet_tpu.rx.pipeline import Receiver as JaxReceiver
+from wenet_tpu.rx.stats import receiver_stats_record as jax_stats_record
 from wenet_tpu_torch.ops import fsk as tfsk
 from wenet_tpu_torch.ops import ldpc
 from wenet_tpu_torch.rx.pipeline import Receiver, receiver_stats_record
@@ -145,3 +146,89 @@ def test_cli_rejects_unported_modes(tmp_path):
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 2
     assert "not yet ported to wenet_tpu_torch" in proc.stderr
+
+
+@pytest.mark.parametrize("mode", ["v2", "v1"])
+def test_stats_record_with_eye_matches_jax(mode):
+    """A with_eye receiver's stats record has JAX's keys, and its eye
+    diagram (the last valid frame's) is within 1e-5 of JAX's; chunked
+    pushes keep the eye of the last push that had a valid frame."""
+    iq, _ = _capture(mode)
+    rj = JaxReceiver(mode=mode, cfg=jfsk.FSKConfig(**GEOM[mode]),
+                     with_eye=True)
+    chunk = 29 * rj.cfg.N + 7
+    _push_all(rj, iq, chunk)
+    rt = _port(mode, with_eye=True)
+    _push_all(rt, iq, chunk)
+    rec_j, rec_t = jax_stats_record(rj), receiver_stats_record(rt)
+    assert set(rec_t) == set(rec_j) and "eye_diagram" in rec_t
+    assert rt.last_eye[1] == rj.last_eye[1]
+    np.testing.assert_allclose(np.array(rec_t["eye_diagram"]),
+                               np.array(rec_j["eye_diagram"]),
+                               rtol=0, atol=1e-5)
+    last = rt.last_eye
+    rt.push(np.zeros(rt.cfg.N // 2, np.complex64))    # no valid frame
+    assert rt.last_eye is last
+    assert "eye_diagram" not in receiver_stats_record(_port(mode))
+
+
+def _s16_capture(tmp_path):
+    """Three v2 packets as real s16 samples: real FSK (2 cos) plus real
+    noise at 15 dB."""
+    cfg = jfsk.FSKConfig(**GEOM["v2"])
+    rng = np.random.default_rng(16)
+    payloads, bits = [], [rng.integers(0, 2, 1000).astype(np.uint8)]
+    for _ in range(3):
+        p = rng.integers(0, 256, 256, dtype=np.uint8).tobytes()
+        payloads.append(p)
+        bits.append(framing.frame_to_bits(
+            framing.frame_packet(p, ldpc.encode_bytes, mode="v2"), "v2"))
+        bits.append(rng.integers(0, 2, 300).astype(np.uint8))
+    stream = np.concatenate(bits)
+    stream = np.concatenate(
+        [stream, np.zeros((-len(stream)) % cfg.Nbits, np.uint8)])
+    sig, _ = jfsk.fsk_mod_np(cfg, stream, 2 * cfg.Rs, cfg.Rs,
+                             complex_out=False)
+    sigma = np.sqrt(2.0 * cfg.Fs / cfg.Rs / 10 ** 1.5)
+    x = sig + rng.normal(0, sigma, sig.shape)
+    path = tmp_path / "cap.s16"
+    np.round(x * 820).astype(np.int16).tofile(path)
+    return path, payloads
+
+
+def _s16_args(path, image_dir):
+    return [str(path), "--format", "s16", "--mode", "v2", "--fs", "96000",
+            "--rs", "9600", "--no-udp", "--image-dir", str(image_dir),
+            "--chunk-seconds", "0.5"]
+
+
+def _crc_ok(stderr):
+    return int(stderr.strip().splitlines()[-1].split("crc_ok=")[1].split()[0])
+
+
+def test_cli_s16_matches_jax(tmp_path, capsys):
+    """--format s16 (real samples, converted on the host) gives the JAX
+    CLI's crc_ok; both Receivers' decode_file(path, "s16") give the same
+    payloads; the flags the JAX CLI takes parse."""
+    from wenet_tpu.cli.rx import main as jax_rx_main
+    path, payloads = _s16_capture(tmp_path)
+    want = JaxReceiver(mode="v2", cfg=jfsk.FSKConfig(**GEOM["v2"])
+                       ).decode_file(str(path), "s16")
+    got = _port("v2").decode_file(str(path), "s16")
+    assert got == want == payloads
+    assert jax_rx_main(_s16_args(path, tmp_path / "jax")) == 0
+    crc_jax = _crc_ok(capsys.readouterr().err)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "wenet_tpu_torch", "rx",
+         *_s16_args(path, tmp_path / "port"), "--device", "cpu",
+         "--partialupdate", "5", "--headless", "--throttle",
+         "--channel-select", "1"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    assert _crc_ok(proc.stderr) == crc_jax == len(want)
+
+
+def test_receiver_rejects_s16_input():
+    with pytest.raises(ValueError):
+        _port("v2", input_format="s16")

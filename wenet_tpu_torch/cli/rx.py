@@ -12,8 +12,11 @@ by the winner on the host, phase-continuously.  `--parallel N` decodes the
 whole capture in one fused device step of N overlap-save chunks
 (`rx.pipeline.decode_iq_fused`); `--slabs S` cuts it into S slabs kept in
 flight (`decode_iq_fused_overlap`) and alone implies `--parallel 4*S`.
-The wideband mode of the JAX CLI (--channels) is not ported yet and exits
-with status 2.
+`--format s16` (real s16 samples) converts on the host and pushes complex
+samples.  Unless `--no-udp`, the modem-stats records carry the eye
+diagram of the last valid frame.  The wideband mode of the JAX CLI
+(--channels) is not ported yet and exits with status 2; `--channel-select`
+parses, for it.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ NOT_PORTED = ("channels",)
 
 def add_args(ap: argparse.ArgumentParser):
     ap.add_argument("input", help="IQ file path, or '-' for stdin")
-    ap.add_argument("--format", choices=["cu8", "cs16", "c64"],
+    ap.add_argument("--format", choices=["cu8", "cs16", "s16", "c64"],
                     default="cu8", help="input sample format")
     ap.add_argument("--mode", choices=["v1", "v2"], default="v2",
                     help="framing mode (baud 115177 RS232 / 96000 scrambled)")
@@ -41,6 +44,9 @@ def add_args(ap: argparse.ArgumentParser):
                     help="estimator upper limit, Hz (fsk_demod -u)")
     ap.add_argument("--image-dir", default="./rx_images")
     ap.add_argument("--log-dir", default=None)
+    ap.add_argument("--partialupdate", type=int, default=0,
+                    help="decode partial image every N packets")
+    ap.add_argument("--headless", action="store_true")
     ap.add_argument("--no-udp", action="store_true",
                     help="disable UDP side-channel emission")
     ap.add_argument("--stats-rate", type=float, default=1.0,
@@ -50,6 +56,8 @@ def add_args(ap: argparse.ArgumentParser):
                     help="probe this many seconds first and search a coarse "
                          "frequency-offset grid (parallel on the device) "
                          "when the SDR tuning is unknown; 0 = off")
+    ap.add_argument("--throttle", action="store_true",
+                    help="pace file input at real time")
     ap.add_argument("--pipelined", action="store_true",
                     help="overlap device demod of chunk k+1 with host "
                          "deframe of chunk k (payloads arrive one chunk "
@@ -66,6 +74,8 @@ def add_args(ap: argparse.ArgumentParser):
                     help="torch device (default cuda; raises without a card)")
     for name in NOT_PORTED:
         ap.add_argument(f"--{name}", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--channel-select", default=None, metavar="K[,K...]",
+                    help="with --channels: only decode these channel indices")
 
 
 def main(argv=None):
@@ -95,7 +105,7 @@ def main(argv=None):
     def receiver(input_format):
         return Receiver(mode=args.mode, cfg=cfg, estimator_limits=limits,
                         pipelined=args.pipelined, input_format=input_format,
-                        device=args.device)
+                        with_eye=not args.no_udp, device=args.device)
 
     conv, dtype, width = INPUT_CONVERTERS[args.format]
     if args.slabs > 1 and not args.parallel:
@@ -136,31 +146,40 @@ def main(argv=None):
                   file=sys.stderr)
 
     # without mixing, push the raw rtl_sdr / pcmcat bytes and convert on
-    # the device; mixing converts and mixes on the host
-    if not mix_frac and args.format != "c64":
+    # the device; mixing (and s16) converts on the host
+    raw_push = args.format in ("cu8", "cs16") and not mix_frac
+    if raw_push:
         rx = receiver(args.format)
     emitter = UDPEmitter(enabled=not args.no_udp)
     router = PacketRouter(image_dir=args.image_dir, log_dir=args.log_dir,
-                          emitter=emitter)
+                          partial_update=args.partialupdate,
+                          headless=args.headless, emitter=emitter)
     stats_acc = rxstats.FSKDemodStats(
         averaging_time=max(1.0 / args.stats_rate, 0.5), peak_hold=True,
         sample_rate=rx.cfg.Fs)
 
     last_stats = 0.0
     t0 = time.time()
+    next_deadline = t0
     try:
         while True:
             raw = pending + fin.read(chunk_bytes)
             pending = b""
             if not raw:
                 break
+            if args.throttle:
+                next_deadline += args.chunk_seconds
+                delay = next_deadline - time.time()
+                if delay > 0:
+                    time.sleep(delay)
             buf = np.frombuffer(raw, dtype=dtype)
+            if not raw_push:
+                buf = conv(buf)
             if mix_frac:
-                iq = conv(buf)
-                n = mix_pos + np.arange(len(iq), dtype=np.float64)
-                buf = (iq * np.exp(-2j * np.pi * np.mod(n * mix_frac, 1.0))
+                n = mix_pos + np.arange(len(buf), dtype=np.float64)
+                buf = (buf * np.exp(-2j * np.pi * np.mod(n * mix_frac, 1.0))
                        ).astype(np.complex64)
-                mix_pos += len(iq)
+                mix_pos += len(buf)
             for payload in rx.push(buf):
                 router.handle_packet(payload)
             now = time.time()
@@ -199,6 +218,8 @@ def _fused(args, cfg, conv, dtype, width) -> int:
     data = buf if native else conv(buf)
     fmt = args.format if native else "c64"
     router = PacketRouter(image_dir=args.image_dir, log_dir=args.log_dir,
+                          partial_update=args.partialupdate,
+                          headless=args.headless,
                           emitter=UDPEmitter(enabled=not args.no_udp))
     t0 = time.time()
     if args.slabs > 1:

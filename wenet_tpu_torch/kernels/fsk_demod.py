@@ -10,9 +10,10 @@ the kernel or raises.
 One block per lane walks the lane's frames with the demod state in shared
 memory.  The lanes read one raw buffer (cu8 or cs16 pairs, or float32
 pairs) at their own start offsets, so a fused slab's chunks need no copy.
-The kernel reads the plain version's own tables (Hann window, the float64
--built DFT matrix, the timing spin) from `ops.fsk._constants` and
-`utils.compat._dft_matrix`.
+The kernel reads the plain version's Hann window and timing spin
+(`ops.fsk._constants`) and rebuilds the float64-built DFT matrix of
+`utils.compat._dft_matrix` bit for bit from small tables
+(`twiddle_tables`, laid out for shared memory by `dft_tables`).
 """
 from __future__ import annotations
 
@@ -41,6 +42,14 @@ _STATE_IN = ("pos_in", "nin_in", "fft_in", "fest_in", "phi_in", "norm_in",
 _STATE_OUT = tuple(f.replace("_in", "_out") for f in _STATE_IN)
 _FRAME_OUT = ("soft", "bits", "valid", "o_fest", "o_ebno", "o_norm", "o_ppm",
               "o_nin")
+_EYE_OUT = ("eye_re", "eye_im", "eye_high", "eye_ok")
+_EXTRA_FIELDS = ("ring", "ahead", "max_blocks", "n_tab", "idx_smem",
+                 "fs_common", "span_common", "tail_len")
+SMEM_LIMIT = 232448                   # a block's shared memory on Hopper
+SAMPLE_BYTES = {"c64": 8, "cu8": 2, "cs16": 4}
+SAMPLE_BYTES_BY_FMT = {FORMATS[f]: b for f, b in SAMPLE_BYTES.items()}
+THREADS = 512                          # csrc/fsk_demod.cu
+DFT_THREADS = 384
 
 
 class Geom(ctypes.Structure):
@@ -48,14 +57,15 @@ class Geom(ctypes.Structure):
     _fields_ = ([("n_total", ctypes.c_longlong)]
                 + [(f, ctypes.c_int) for f in _INT_FIELDS]
                 + [(f, ctypes.c_float) for f in _FLOAT_FIELDS]
-                + [("atan_c", ctypes.c_float * 9)])
+                + [("atan_c", ctypes.c_float * 9)]
+                + [(f, ctypes.c_int) for f in _EXTRA_FIELDS])
 
 
 class Ptrs(ctypes.Structure):
     """`DemodPtrs` of csrc/fsk_demod.cu."""
     _fields_ = [(f, ctypes.c_void_p) for f in (
-        "data", "starts", "n_valid", "hann", "dft", "spin_re", "spin_im",
-        *_STATE_IN, *_STATE_OUT, *_FRAME_OUT)]
+        "data", "starts", "n_valid", "hann", "tw_tab", "tw_idx", "spin_re",
+        "spin_im", *_STATE_IN, *_STATE_OUT, *_FRAME_OUT, *_EYE_OUT)]
 
 
 @functools.lru_cache(maxsize=1)
@@ -93,10 +103,137 @@ def geometry(cfg: fsk.FSKConfig, fmt: str, lanes: int, num_frames: int,
                   two_pi=two_pi, two_pi_fs=two_pi * inv_fs,
                   cs16_scale=np.float32(1.0 / fsk.FDMDV_SCALE),
                   half_pi=np.float32(np.pi / 2), pi=np.float32(np.pi))
+    nin_max = cfg.N + cfg.Ts // 2
+    ahead = 2 * nin_max                   # the ring runs two frames ahead
+    ring = 1 << int(cfg.Nmem + ahead + 2 * 8 - 1).bit_length()
     g = Geom(n_total=n_total, **ints,
-             **{k: float(v) for k, v in floats.items()})
+             **{k: float(v) for k, v in floats.items()}, ring=ring,
+             ahead=ahead, max_blocks=cfg.max_fft_blocks,
+             n_tab=len(dft_tables(cfg.Ndft)[0]), idx_smem=1,
+             fs_common=fs_common(cfg), span_common=span_common(cfg),
+             tail_len=tail_len(cfg))
     g.atan_c[:] = [float(np.float32(c)) for c in compat._atan_coeffs()]
+    # the index table goes to shared memory where it fits (Ndft <= 256),
+    # else the kernel reads it from global memory
+    g.idx_smem = int(smem_layout_bytes(g) <= SMEM_LIMIT)
     return g
+
+
+def fs_common(cfg: fsk.FSKConfig) -> int:
+    """Samples of a frame's first estimator block that are windowed
+    whatever the frame's nin (a multiple of 4): the kernel sums their DFT
+    during the frame before."""
+    return min(max(min(cfg.nin_choices) - cfg.Ndft, 0), cfg.Ndft) // 4 * 4
+
+
+def tail_len(cfg: fsk.FSKConfig) -> int:
+    """Samples from fs_common to the largest fs, rounded up to a multiple
+    of 4: the length of each of the three tails the kernel sums."""
+    fs_max = min(max(max(cfg.nin_choices) - cfg.Ndft, 0), cfg.Ndft)
+    return (fs_max - fs_common(cfg) + 3) // 4 * 4
+
+
+def span_common(cfg: fsk.FSKConfig) -> int:
+    """Samples of each of the common part's sample groups (a multiple of
+    4)."""
+    half = cfg.Ndft // 2
+    groups = 1 if half >= DFT_THREADS else DFT_THREADS // half
+    return (-(-fs_common(cfg) // groups) + 3) // 4 * 4
+
+
+def smem_layout_bytes(g: Geom) -> int:
+    """Dynamic shared memory of one block (`layout` of csrc/fsk_demod.cu,
+    mirrored so that the geometry can be sized without the card)."""
+    at = 0
+
+    def take(nbytes):
+        nonlocal at
+        at = (at + nbytes + 15) // 16 * 16
+    G = 1 if g.half >= THREADS else THREADS // g.half
+    Gc = 1 if g.half >= DFT_THREADS else DFT_THREADS // g.half
+    for nbytes in (2 * (THREADS // 32) * 8, g.ring * SAMPLE_BYTES_BY_FMT[g.fmt],
+                   g.n_tab * 8,
+                   (g.Ndft // 4 + 1) * g.half * 8 if g.idx_smem else 0,
+                   g.Ndft * 4, 2 * g.NP * 4, g.Nmem * 8,
+                   g.max_blocks * (g.Ndft + 4) * 8, g.Ndft * 8,
+                   3 * g.tail_len * 8, g.M * g.Nmem * 8, g.M * g.NP * 8,
+                   g.half * 4, 2 * G * g.half * 4, 2 * Gc * g.half * 4,
+                   3 * 2 * g.half * 4):
+        take(nbytes)
+    return at
+
+
+def n_copies(n: int) -> int:
+    """Rotated copies of the base twiddle table the kernel keeps, log2(n)
+    - 3: copy a serves the samples with a trailing zero bits (the last
+    copy those with more), so that a half-warp's bins read distinct
+    banks."""
+    return max(1, n.bit_length() - 4)
+
+
+def n_exceptions(n: int) -> int:
+    """Entries of the exception table: every product m = i k (i < n + 4:
+    the samples of the matrix and the kernel's zero padding, k < n/2) with
+    m mod (n/4) == 0, indexed by m / (n/4)."""
+    return (n + 3) * (n // 2 - 1) // (n // 4) + 1
+
+
+@functools.lru_cache(maxsize=8)
+def twiddle_tables(n: int):
+    """The two tables the kernel rebuilds `compat._dft_matrix(n, n/2)`'s
+    cos/sin rows from, bit for bit: base (n, 2) float32, (cos, sin) of
+    (-2 pi / n) m for m < n, and exc (n_exceptions(n), 2) float32, the same
+    at m = e n/4.  Entry (i, k) is exc[i k / (n/4)] where (i k) mod (n/4)
+    == 0 and base[(i k) mod n] elsewhere: only where the exact value is 0
+    does the float64 angle of i k round to another float32 than the angle
+    of (i k) mod n."""
+    q = n // 4
+    step = -2.0 * np.pi / n
+
+    def table(m):
+        ang = step * m.astype(np.float64)
+        return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+    return (table(np.arange(n)),
+            table(np.arange(n_exceptions(n), dtype=np.int64) * q))
+
+
+def copy_slot(n: int, m: np.ndarray, a: int) -> np.ndarray:
+    """Slot of (i k) mod n = m in twiddle copy a (m rotated right by a bits
+    within log2 n bits)."""
+    b = n.bit_length() - 1
+    m = np.asarray(m, np.int64) % n
+    return ((m >> a) | (m << (b - a))) & (n - 1)
+
+
+@functools.lru_cache(maxsize=8)
+def dft_tables(n: int):
+    """What the kernel's DFT reads: tab (n_copies(n) n + n_exceptions(n),
+    2) float32, the rotated copies of the base table and then the
+    exception table; idx (n/4 + 1, n/2, 4) uint16, the entry of tab for
+    sample i = 4 r + j (i < n + 4) and bin k at idx[r, k, j].  Sample i
+    reads copy a = min(ctz(i), copies - 1) at slot copy_slot(n, i k, a):
+    the 16 bins of a half-warp then read 16 distinct 8-byte banks."""
+    base, exc = twiddle_tables(n)
+    copies = n_copies(n)
+    tab = np.concatenate([base[np.argsort(copy_slot(n, np.arange(n), a))]
+                          for a in range(copies)] + [exc])
+    i = np.arange(n + 4, dtype=np.int64)[:, None]
+    k = np.arange(n // 2, dtype=np.int64)[None, :]
+    m = i * k
+    a = np.minimum(np.log2(np.maximum(i & -i, 1)), copies - 1).astype(
+        np.int64)
+    idx = np.where(m % (n // 4) == 0, copies * n + m // (n // 4),
+                   a * n + copy_slot(n, m, a))
+    idx = idx.reshape(n // 4 + 1, 4, n // 2).transpose(0, 2, 1)
+    return tab, np.ascontiguousarray(idx.astype(np.uint16))
+
+
+def twiddle(n: int, i: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """(..., 2) float32 (cos, sin) of samples i and bins k as the kernel
+    reads them, tab[idx] of `dft_tables(n)` (numpy emulation)."""
+    tab, idx = dft_tables(n)
+    i, k = np.broadcast_arrays(np.asarray(i), np.asarray(k))
+    return tab[idx[i // 4, k, i % 4].astype(np.int64)]
 
 
 def smem_bytes(geom: Geom) -> int:
@@ -104,10 +241,12 @@ def smem_bytes(geom: Geom) -> int:
     return _lib().fsk_demod_smem_bytes(ctypes.byref(geom))
 
 
+@functools.lru_cache(maxsize=16)
 def _tables(cfg: fsk.FSKConfig, device: torch.device):
     consts = fsk._constants(cfg, device)
-    dft = compat._dft_matrix(cfg.Ndft, cfg.Ndft // 2, device)
-    return consts["hann"], dft, consts["spin_re"], consts["spin_im"]
+    tab, idx = (torch.as_tensor(t, device=device)
+                for t in dft_tables(cfg.Ndft))
+    return consts["hann"], tab, idx, consts["spin_re"], consts["spin_im"]
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape):
@@ -125,15 +264,17 @@ def _check(t: torch.Tensor, name: str, dtype, shape):
 
 def demod(cfg: fsk.FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
           starts: torch.Tensor, n_valid: torch.Tensor,
-          state: fsk.DemodState | None = None):
+          state: fsk.DemodState | None = None, with_eye: bool = False):
     """Launch the frame loop on L lanes of one raw buffer.
 
     data: (n, 2) contiguous CUDA tensor of raw pairs (uint8 for cu8, int16
-    for cs16, float32 for c64).  starts, n_valid: (L,) int64 on the same
-    device: lane l reads data[starts[l] + i], zero outside [0, n_valid[l])
-    and past the buffer, and its frames are valid while pos + nin <=
-    n_valid[l].  state: lane-stacked DemodState, or None for the initial
-    one.  Returns (final DemodState, FrameOut) with a leading lane axis;
+    for cs16, float32 for c64; copied once if it does not start on 16
+    bytes, which the kernel's cp.async reads need).  starts, n_valid: (L,)
+    int64 on the same device: lane l reads data[starts[l] + i], zero
+    outside [0, n_valid[l]) and past the buffer, and its frames are valid
+    while pos + nin <= n_valid[l].  state: lane-stacked DemodState, or None
+    for the initial one.  Returns (final DemodState, FrameOut) with a
+    leading lane axis, and with_eye an `ops.fsk.EyeProbe` per lane;
     frames past a lane's end are invalid with zeroed fields.
     """
     global launches
@@ -143,6 +284,8 @@ def demod(cfg: fsk.FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
         raise ValueError("fsk_demod: data needs shape (n, 2)")
     dev = data.device
     _check(data, "data", RAW_DTYPES[fmt], (data.shape[0], 2))
+    if data.data_ptr() % 16:
+        data = data.clone()
     L = starts.shape[0]
     _check(starts, "starts", torch.int64, (L,))
     _check(n_valid, "n_valid", torch.int64, (L,))
@@ -166,12 +309,20 @@ def demod(cfg: fsk.FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
         valid=new(dtype=torch.bool), f_est=new(M), ebno_db=new(),
         norm_rx_timing=new(), ppm=new(), nin=new(dtype=torch.int32))
 
+    NP = (cfg.Nsym + 1) * cfg.P
+    eye = ((torch.empty((L, M, NP), dtype=torch.float32, device=dev),
+            torch.empty((L, M, NP), dtype=torch.float32, device=dev),
+            torch.empty((L,), dtype=torch.int32, device=dev),
+            torch.empty((L,), dtype=torch.bool, device=dev))
+           if with_eye else None)
+
     geom = geometry(cfg, fmt, L, num_frames, data.shape[0])
     tables = _tables(cfg, dev)
     ptrs = Ptrs(*(t.data_ptr() for t in (
         data, starts, n_valid, *tables, *state_in, *final,
         outs.soft, outs.bits, outs.valid, outs.f_est, outs.ebno_db,
-        outs.norm_rx_timing, outs.ppm, outs.nin)))
+        outs.norm_rx_timing, outs.ppm, outs.nin)),
+        *(t.data_ptr() for t in eye or ()))
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -181,4 +332,7 @@ def demod(cfg: fsk.FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
         raise RuntimeError(f"fsk_demod launch failed ({L} lanes, "
                            f"{num_frames} frames): cudaError_t {rc}")
     launches += L > 0
-    return final, outs
+    if not with_eye:
+        return final, outs
+    return final, outs, fsk.EyeProbe(torch.complex(eye[0], eye[1]), eye[2],
+                                      eye[3])

@@ -177,6 +177,12 @@ def iq_from_cs16(raw: np.ndarray) -> np.ndarray:
     return ((raw[0::2] + 1j * raw[1::2]) / FDMDV_SCALE).astype(np.complex64)
 
 
+def iq_from_s16_real(raw: np.ndarray) -> np.ndarray:
+    """Real s16 -> complex64 (imag 0), /FDMDV_SCALE."""
+    raw = np.asarray(raw, np.int16).astype(np.float32)
+    return (raw / FDMDV_SCALE).astype(np.complex64)
+
+
 def iq_to_cu8(iq: np.ndarray) -> np.ndarray:
     """complex64 -> interleaved u8 (inverse of iq_from_cu8, clipped)."""
     x = np.empty(2 * len(iq), np.float32)
@@ -212,6 +218,14 @@ class FrameOut(NamedTuple):
     norm_rx_timing: torch.Tensor  # f32
     ppm: torch.Tensor             # f32
     nin: torch.Tensor             # int32 (nin used for this frame)
+
+
+class EyeProbe(NamedTuple):
+    """The last valid frame's integrator outputs, which the eye diagram is
+    traced from (zeros, and ok False, when no frame was valid)."""
+    f_int: torch.Tensor           # (M, (Nsym+1)*P) complex64
+    high_sample: torch.Tensor     # int32
+    ok: torch.Tensor              # bool — some frame was valid
 
 
 _STATE_DTYPES = {"pos": torch.int32, "nin": torch.int32}
@@ -444,22 +458,47 @@ def _demod_frame(cfg: FSKConfig, state: DemodState, stream, new_blocks,
     out = FrameOut(soft=soft, bits=bits, valid=None, f_est=f_new,
                    ebno_db=ebno_db, norm_rx_timing=norm_rx_timing, ppm=ppm,
                    nin=nin)
-    return new_state, out
+    probe = (torch.complex(fi_re, fi_im), high.to(torch.int32))
+    return new_state, out, probe
+
+
+def eye_diagram(f_int: np.ndarray, P: int, high_sample: int, M: int,
+                max_ind: int = 160, et_max: int = 8,
+                normalise: bool = True) -> np.ndarray:
+    """Eye-diagram traces from the integrator outputs (fsk.c:1031-1079):
+    per tone, `et_max/M` two-symbol windows of |f_int| centred on the
+    timing estimate, decimated to fit max_ind samples, normalised to 1
+    (host numpy, as the reference)."""
+    neyesamp_dec = int(np.ceil(2 * P / max_ind))
+    neyesamp = (2 * P) // neyesamp_dec
+    offset = int(high_sample) + 1
+    traces = et_max // M
+    eye = np.zeros((traces * M, neyesamp), np.float32)
+    for i in range(traces):
+        for m in range(M):
+            idx = 2 * P * i + offset + np.arange(neyesamp) * neyesamp_dec
+            eye[i * M + m] = np.abs(f_int[m, idx])
+    if normalise and eye.max() > 0:
+        eye = eye / eye.max()
+    return eye
 
 
 # ------------------------------------------------------------ stream demod
 
 
 def demod_stream_reference(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
-                           state: DemodState | None = None, n_valid=None):
+                           state: DemodState | None = None, n_valid=None,
+                           with_eye: bool = False):
     """The plain frame loop: iq (n,) complex64 -> (final state, FrameOut
-    with every field stacked over `num_frames` frames).
+    with every field stacked over `num_frames` frames[, EyeProbe]).
 
     Frame k reads the Nmem samples ending at pos + nin (history plus its
     nin fresh samples) and the estimator block starting at pos, both as
     device-side gathers from the zero-padded capture.  Frames that would
     read past `n_valid` (default: all of iq) are marked invalid and freeze
     the state; their other outputs are garbage and must be masked.
+    with_eye: also return the last valid frame's integrator outputs and
+    high sample (`EyeProbe`), as the JAX `demod_stream(with_eye=True)`.
     """
     device = iq.device
     n = iq.shape[0] if n_valid is None else n_valid
@@ -476,15 +515,25 @@ def demod_stream_reference(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
 
     st = state
     outs = []
+    eye = EyeProbe(
+        torch.zeros((cfg.M, (cfg.Nsym + 1) * cfg.P), dtype=torch.complex64,
+                    device=device),
+        torch.zeros((), dtype=torch.int32, device=device),
+        torch.zeros((), dtype=torch.bool, device=device))
     for _ in range(num_frames):
         valid = st.pos + st.nin <= n
         end = pad + st.pos.long() + st.nin.long()
         stream = buf[end - cfg.Nmem + consts["ar_nmem"]]
         new_blocks = buf[pad + st.pos.long() + consts["ar_nb"]]
-        nst, out = _demod_frame(cfg, st, stream, new_blocks, consts)
+        nst, out, probe = _demod_frame(cfg, st, stream, new_blocks, consts)
         st = DemodState(*(torch.where(valid, a, b) for a, b in zip(nst, st)))
         outs.append(out._replace(valid=valid))
-    return st, FrameOut(*(torch.stack(f) for f in zip(*outs)))
+        if with_eye:
+            eye = EyeProbe(torch.where(valid, probe[0], eye.f_int),
+                           torch.where(valid, probe[1], eye.high_sample),
+                           eye.ok | valid)
+    outs = FrameOut(*(torch.stack(f) for f in zip(*outs)))
+    return (st, outs, eye) if with_eye else (st, outs)
 
 
 def lane_state(state: DemodState, lanes: int) -> DemodState:
@@ -494,10 +543,12 @@ def lane_state(state: DemodState, lanes: int) -> DemodState:
 
 
 def demod_lanes_reference(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
-                          state: DemodState | None = None, n_valid=None):
+                          state: DemodState | None = None, n_valid=None,
+                          with_eye: bool = False):
     """The plain frame loop over L lanes: iq (L, n) complex64, state and
     n_valid (L,) with a leading lane axis (default: the initial state and
-    n) -> (final state, FrameOut), every field with a leading lane axis.
+    n) -> (final state, FrameOut[, EyeProbe]), every field with a leading
+    lane axis.
 
     `torch.func.vmap` of `demod_stream_reference` (the JAX sweeps vmap the
     demod over trials and offsets the same way): each lane computes what
@@ -508,9 +559,12 @@ def demod_lanes_reference(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
         state = lane_state(demod_init(cfg, iq.device), L)
     if n_valid is None:
         n_valid = torch.full((L,), n, dtype=torch.int64, device=iq.device)
-    return torch.func.vmap(
-        lambda x, s, nv: demod_stream_reference(cfg, x, num_frames, s, nv))(
-            iq, state, n_valid)
+    res = torch.func.vmap(
+        lambda x, s, nv: demod_stream_reference(cfg, x, num_frames, s, nv,
+                                                with_eye))(iq, state, n_valid)
+    if with_eye:
+        return res[0], res[1], EyeProbe(*res[2])
+    return res
 
 
 def to_iq(data: torch.Tensor, fmt: str) -> torch.Tensor:
@@ -529,7 +583,7 @@ def to_iq(data: torch.Tensor, fmt: str) -> torch.Tensor:
 
 def demod_raw(cfg: FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
               starts: torch.Tensor, n_valid: torch.Tensor,
-              state: DemodState | None = None):
+              state: DemodState | None = None, with_eye: bool = False):
     """Demodulate L lanes of one raw buffer: the entry point of every demod.
 
     data: (n, 2) raw pairs (uint8 cu8, int16 cs16 or float32 c64);
@@ -537,7 +591,7 @@ def demod_raw(cfg: FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
     and frames are valid while pos + nin <= n_valid[l]; samples before the
     lane's start or past the buffer read as 0.0.  state: lane-stacked, or
     None for the initial state.  Returns (final state, FrameOut) with a
-    leading lane axis.
+    leading lane axis, and with_eye an `EyeProbe` per lane as well.
 
     On a CUDA tensor this launches the persistent frame-loop kernel
     (`kernels.fsk_demod`); on a CPU tensor it runs the plain loop.
@@ -545,15 +599,16 @@ def demod_raw(cfg: FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
     if data.device.type == "cuda":
         from ..kernels import fsk_demod
         return fsk_demod.demod(cfg, data, fmt, num_frames, starts, n_valid,
-                               state)
+                               state, with_eye)
     return demod_raw_reference(cfg, data, fmt, num_frames, starts, n_valid,
-                               state)
+                               state, with_eye)
 
 
 def demod_raw_reference(cfg: FSKConfig, data: torch.Tensor, fmt: str,
                         num_frames: int, starts: torch.Tensor,
                         n_valid: torch.Tensor,
-                        state: DemodState | None = None):
+                        state: DemodState | None = None,
+                        with_eye: bool = False):
     """The plain version of `demod_raw`, on any device: the lanes gathered
     into (L, max n_valid) complex64 and run through the plain loop (the
     unbatched loop for one lane)."""
@@ -567,13 +622,27 @@ def demod_raw_reference(cfg: FSKConfig, data: torch.Tensor, fmt: str,
                                         device=dev)])
     lanes = padded[torch.where(inside, idx, n)]       # index n reads 0.0
     if starts.shape[0] != 1:
-        return demod_lanes_reference(cfg, lanes, num_frames, state, n_valid)
-    final, outs = demod_stream_reference(     # one lane: the unbatched loop
+        return demod_lanes_reference(cfg, lanes, num_frames, state, n_valid,
+                                     with_eye)
+    res = demod_stream_reference(     # one lane: the unbatched loop
         cfg, lanes[0], num_frames,
         None if state is None else DemodState(*(t[0] for t in state)),
-        n_valid[0])
-    return (DemodState(*(t[None] for t in final)),
-            FrameOut(*(t[None] for t in outs)))
+        n_valid[0], with_eye)
+    return _lift(res)
+
+
+def _lift(res):
+    """An unbatched (state, FrameOut[, EyeProbe]) with a lane axis of 1."""
+    kinds = (DemodState, FrameOut, EyeProbe)
+    return tuple(kind(*(t[None] for t in part))
+                 for kind, part in zip(kinds, res))
+
+
+def _drop(res):
+    """(state, FrameOut[, EyeProbe]) of one lane without its lane axis."""
+    kinds = (DemodState, FrameOut, EyeProbe)
+    return tuple(kind(*(t[0] for t in part))
+                 for kind, part in zip(kinds, res))
 
 
 def _as_pairs(iq: torch.Tensor) -> torch.Tensor:
@@ -582,21 +651,21 @@ def _as_pairs(iq: torch.Tensor) -> torch.Tensor:
 
 
 def demod_stream(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
-                 state: DemodState | None = None, n_valid=None):
+                 state: DemodState | None = None, n_valid=None,
+                 with_eye: bool = False):
     """Demodulate a capture: iq (n,) complex64 -> (final state, FrameOut
-    stacked over frames), as `demod_stream_reference` computes it.  On a
-    CUDA tensor the frame-loop kernel runs it as one lane."""
+    stacked over frames[, EyeProbe]), as `demod_stream_reference` computes
+    it.  On a CUDA tensor the frame-loop kernel runs it as one lane."""
     if iq.device.type != "cuda":
-        return demod_stream_reference(cfg, iq, num_frames, state, n_valid)
+        return demod_stream_reference(cfg, iq, num_frames, state, n_valid,
+                                      with_eye)
     n = iq.shape[0] if n_valid is None else int(n_valid)
     dev = iq.device
-    final, outs = demod_raw(
+    return _drop(demod_raw(
         cfg, _as_pairs(iq), "c64", num_frames,
         torch.zeros(1, dtype=torch.int64, device=dev),
         torch.full((1,), n, dtype=torch.int64, device=dev),
-        None if state is None else lane_state(state, 1))
-    return (DemodState(*(t[0] for t in final)),
-            FrameOut(*(t[0] for t in outs)))
+        None if state is None else lane_state(state, 1), with_eye))
 
 
 def demod_lanes(cfg: FSKConfig, iq: torch.Tensor, num_frames: int):

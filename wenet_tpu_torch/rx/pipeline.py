@@ -28,10 +28,13 @@ MODE_CONFIGS = {
 INPUT_CONVERTERS = {
     "cu8": (fsk.iq_from_cu8, np.uint8, 2),
     "cs16": (fsk.iq_from_cs16, np.int16, 2),
+    "s16": (fsk.iq_from_s16_real, np.int16, 1),    # host-side, pushes c64
     "c64": (lambda raw: np.asarray(raw, np.complex64), np.complex64, 1),
 }
 
-_RAW_DTYPES = {fmt: dtype for fmt, (_, dtype, _) in INPUT_CONVERTERS.items()}
+# what a Receiver takes (s16 is converted on the host first, as in JAX)
+_RAW_DTYPES = {fmt: INPUT_CONVERTERS[fmt][1] for fmt in ("cu8", "cs16",
+                                                          "c64")}
 _TORCH_DTYPES = {np.uint8: torch.uint8, np.int16: torch.int16,
                  np.float32: torch.float32}
 
@@ -52,21 +55,21 @@ class RxStats:
 
 
 def stream_step(cfg: fsk.FSKConfig, data: torch.Tensor, state: fsk.DemodState,
-                n_valid: int, fmt: str, nf: int):
+                n_valid: int, fmt: str, nf: int, with_eye: bool = False):
     """One push on the device: ingest conversion + demod of `nf` frames.
 
     data: (n, 2) raw pairs (uint8 cu8, int16 cs16 or float32 re/im).
     Returns (final state, packed) where packed is one float32 vector
     [soft (nf*Nbits) | valid (nf) | ebno, ppm, n_valid_frames, last, f_est]
-    — the host needs exactly one copy of it.
+    — the host needs exactly one copy of it.  with_eye appends the last
+    valid frame's eye probe: [f_int re (M*NP) | f_int im | high_sample].
     """
     dev = data.device
-    final, outs = fsk.demod_raw(
+    res = fsk._drop(fsk.demod_raw(
         cfg, data, fmt, nf, torch.zeros(1, dtype=torch.int64, device=dev),
         torch.full((1,), n_valid, dtype=torch.int64, device=dev),
-        fsk.lane_state(state, 1))
-    final = fsk.DemodState(*(t[0] for t in final))
-    outs = fsk.FrameOut(*(t[0] for t in outs))
+        fsk.lane_state(state, 1), with_eye))
+    final, outs = res[:2]
     vidx = torch.arange(nf, device=dev)
     last = torch.max(torch.where(outs.valid, vidx, -1))
     li = torch.clamp(last, min=0)
@@ -74,8 +77,12 @@ def stream_step(cfg: fsk.FSKConfig, data: torch.Tensor, state: fsk.DemodState,
         torch.stack([outs.ebno_db[li], outs.ppm[li],
                      outs.valid.float().sum(), last.float()]),
         outs.f_est[li].float()])
-    packed = torch.cat([outs.soft.reshape(-1), outs.valid.float(), stats])
-    return final, packed
+    parts = [outs.soft.reshape(-1), outs.valid.float(), stats]
+    if with_eye:
+        eye = res[2]
+        parts += [eye.f_int.real.reshape(-1), eye.f_int.imag.reshape(-1),
+                  eye.high_sample.float().reshape(1)]
+    return final, torch.cat(parts)
 
 
 class Receiver:
@@ -92,6 +99,9 @@ class Receiver:
         call flush() at the end.  Output equals the serial path.
       input_format: 'c64' (complex64 samples), 'cu8' (raw rtl_sdr bytes) or
         'cs16' (raw s16 IQ pairs); raw formats convert on the device
+      with_eye: also fetch each push's last valid frame's integrator
+        outputs (`last_eye`, kept from an earlier push when a push has no
+        valid frame) for the eye diagram of `receiver_stats_record`
       device: 'cuda' (default) or 'cpu'; CUDA without a card raises
 
     `seconds` accumulates host wall time in the demod (dispatch + carry
@@ -102,11 +112,13 @@ class Receiver:
     def __init__(self, mode: str = "v2", cfg: fsk.FSKConfig | None = None,
                  estimator_limits: tuple | None = None, max_iter: int = 10,
                  pipelined: bool = False, input_format: str = "c64",
-                 device="cuda"):
+                 with_eye: bool = False, device="cuda"):
         if input_format not in _RAW_DTYPES:
             raise ValueError("input_format must be 'c64', 'cu8' or 'cs16'")
         self.device = resolve_device(device)
         self.mode = mode
+        self.with_eye = with_eye
+        self.last_eye = None      # (f_int (M, (Nsym+1)P) complex64, high)
         self.input_format = input_format
         base = MODE_CONFIGS[mode] if cfg is None else cfg
         if estimator_limits is not None:
@@ -164,7 +176,7 @@ class Receiver:
             data = buf.reshape(-1, 2)
         data_t = torch.from_numpy(data).to(self.device)
         final, packed = stream_step(cfg, data_t, self.state, n_samples,
-                                    self.input_format, nf)
+                                    self.input_format, nf, self.with_eye)
         self.seconds["demod"] += time.perf_counter() - t0
         return final, packed, nf, buf, len(chunk) // w
 
@@ -189,9 +201,16 @@ class Receiver:
         nbits = self.cfg.Nbits
         soft = p[: nf * nbits].reshape(nf, nbits)
         valid = p[nf * nbits: nf * (nbits + 1)] > 0.5
-        stats = p[nf * (nbits + 1):]
+        cfg = self.cfg
+        stats = p[nf * (nbits + 1): nf * (nbits + 1) + 4 + cfg.M]
         soft = soft[valid].reshape(-1)
         nframes = int(stats[2])
+        if nframes and self.with_eye:     # the last valid frame's probe
+            eye = p[nf * (nbits + 1) + 4 + cfg.M:]
+            n_int = cfg.M * (cfg.Nsym + 1) * cfg.P
+            f_int = (eye[:n_int] + 1j * eye[n_int: 2 * n_int]).astype(
+                np.complex64).reshape(cfg.M, -1)
+            self.last_eye = (f_int, int(eye[2 * n_int]))
 
         self.stats.frames += nframes
         self.stats.samples += n_new
@@ -676,12 +695,13 @@ class FusedReceiver:
 def receiver_stats_record(rx: Receiver) -> dict:
     """fsk_demod-style stats record (`--stats` JSON fields) from a live
     Receiver, for `rx.stats.FSKDemodStats`; the state tensors are
-    copied to the host here.  No eye diagram."""
+    copied to the host here.  A `with_eye=True` receiver's record carries
+    the eye-diagram traces of its last valid frame (fsk_demod.c:366-377)."""
     st = rx.state
     if st is None:
         return {}
     f_est = st.f_est.cpu().numpy()
-    return {
+    rec = {
         "secs": int(time.time()),
         "EbNodB": float(st.ebno_db),
         "ppm": int(float(st.ppm)),
@@ -689,3 +709,8 @@ def receiver_stats_record(rx: Receiver) -> dict:
         "f2_est": float(f_est[1]),
         "samp_fft": [float(x) for x in st.fft_est.cpu().numpy()],
     }
+    if rx.last_eye is not None:
+        f_int, high = rx.last_eye
+        eye = fsk.eye_diagram(f_int, rx.cfg.P, high, rx.cfg.M)
+        rec["eye_diagram"] = [[float(x) for x in row] for row in eye]
+    return rec
