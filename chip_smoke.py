@@ -12,7 +12,14 @@ against its plain loop (valid, nin and f_est exact, hard bits where the
 soft bit is clear of zero, soft bits within DEMOD_SOFT_TOL of the mean
 |soft|; with the eye probe, high_sample exact and f_int within the same
 share of its mean magnitude) on 600 frames of one lane and 120 frames of
-16 lanes.  Kernel
+16 lanes; the CRC kernel (bit-exact, B = 128 and 176, the Receiver's push
+batches and the wideband fused step's 8 kk), the top-k acquisition kernel
+(positions, exhausted picks and windows exact, LLRs within rtol 1e-5, and
+the decodes of both LLRs equal) on the fused steps' soft bits (v2 and v1,
+16 streams) and on the wideband fused mode's (8 streams, kk picks), the
+channelizer kernel (within 1e-5 of the output's rms; all 8 channels and a
+selection) on an 8-channel wideband capture at 7.68 MHz, and the demod
+kernel on the channelizer's 8 c64 lanes.  Kernel
 times are CUDA-event times: for the BP kernels `ms` over replays of a
 CUDA graph of many launches (the kernel alone) and `call_ms` over many
 eager calls (the wrapper's host work included); for the demod kernel and
@@ -32,8 +39,13 @@ probe below the decode cliff, the fused paths
 (decode_iq_fused on both captures, decode_iq_fused_overlap, FusedReceiver
 on the v2 capture three times over; one fused step's stages timed and
 the device's busy share of a step and of a Receiver run from
-torch.profiler), the `python -m wenet_tpu_torch rx`
-CLI streaming and with --parallel and --slabs; the decoder-throughput
+torch.profiler, its kernels under 50), the wideband receive path
+(`demod_multichannel` on 8 channels of 12 packets each, fused, vectorized
+and per-Receiver: at least 11 packets a channel, the fused mode all 12,
+the others the same lists less the packet a false UW lock costs the
+reference's FSM; the fused call's stages timed), the
+`python -m wenet_tpu_torch rx` CLI streaming, with --parallel and
+--slabs, and with --channels 8 (and --channel-select); the decoder-throughput
 stage of bench.py (B = 2048 at 7.5 dB); LDPC BER sweeps with both
 algorithms; a full-chain PER sweep; and the coarse acquisition search,
 alone and through the CLI's --acquire, on a capture tuned 300 kHz off.
@@ -84,6 +96,20 @@ RX_TILES = 3                  # FusedReceiver: the v2 capture three times over
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 rate; FP32 peak below
 FP32_OPS_PER_S = 67e12
 SMS = 132
+CRC_BATCHES = (128, 176)      # crc_pack: the BP cases' main batch, the
+#                               fused step's C*k (the Receiver's push
+#                               batches and the wideband fused C*k are
+#                               added as the run meets them)
+WIDE_CHANNELS = 8             # wideband: 8 channels of V2_CONFIG, 7.68 MHz
+WIDE_PACKETS = 12             # a channel's packets (tools/wideband_scaling)
+WIDE_EBNO_DB = 30.0           # per channel
+WIDE_SELECT = (6, 1, 3)       # a channel selection, in this order
+# (channel, packet) that the reference's UW FSM loses to a false UW lock on
+# this capture, and top-k acquisition keeps; the JAX package does the same
+# (tests/test_torch_channelizer.py::test_false_uw_lock_matches_jax)
+WIDE_FALSE_LOCK = (6, 9)
+CHANNELIZE_TOL = 1e-5         # max |d| / rms of the channelizer's output
+TOPK_LLR_RTOL = 1e-5          # sd_to_llr's sums in another order
 VALID_EDGES = 7223            # of the 516 x 14 edge slots of H2064_516
 
 
@@ -260,7 +286,7 @@ def run_receiver(cfg, mode, raw, pipelined=False, chunk_seconds=2.0,
     return got, time.perf_counter() - t0, rx
 
 
-def run_cli(path, *args):
+def run_cli(path, *args, fmt="cu8"):
     """`python -m wenet_tpu_torch rx path ...` -> (rc, last stderr line,
     stderr, seconds)."""
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
@@ -268,7 +294,7 @@ def run_cli(path, *args):
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "wenet_tpu_torch", "rx", path, "--format",
-         "cu8", "--no-udp", *args],
+         fmt, "--no-udp", *args],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     dt = time.perf_counter() - t0
     err = proc.stderr.strip()
@@ -341,10 +367,11 @@ def demod_bound(cfg, outs, n_samples, bytes_per_sample):
             "operations" if t_ops >= t_bytes else "bytes", one_sm * 1e3)
 
 
-def device_busy(fn):
+def device_busy(fn, per_kernel=None):
     """(host wall s, device kernel ms, kernels) of one call of fn under
     torch.profiler: the summed durations of the CUDA kernels it traced
-    (None when the profiler records no device events)."""
+    (None when the profiler records no device events).  per_kernel, a
+    dict, receives each traced kernel name's summed ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -358,7 +385,43 @@ def device_busy(fn):
             if str(getattr(e, "device_type", "")).endswith("CUDA")]
     if not kern:
         return wall, None, 0
+    for e in kern if per_kernel is not None else ():
+        per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
+                              + e.time_range.elapsed_us() / 1e3)
     return wall, sum(e.time_range.elapsed_us() for e in kern) / 1e3, len(kern)
+
+
+def bound_ms(nbytes, ops):
+    """(bound ms, 'bytes' or 'operations'): the larger of nbytes at
+    HBM_BYTES_PER_S and ops at FP32_OPS_PER_S."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def crc_bound(B):
+    """One crc_pack call on B codewords with positions: the 2064 packet
+    bits and the position read once, the 263-byte row written once; per
+    codeword 7 operations a byte to pack it and 4 a byte of CRC, and the
+    trailer compare."""
+    return bound_ms(B * (2064 + 4 + 263), B * (258 * 7 + 256 * 4 + 2))
+
+
+def topk_bound(C, n, k, nlive, nuw):
+    """One acquisition call: the soft bits read once, the LLRs, positions
+    and exhausted flags written once; per placeable start the correlation
+    (nuw multiply-adds) and k compares for the picks; per window symbol
+    the gather, the descramble, |sd| and x, x^2 and the LLR (about 10)."""
+    return bound_ms(4 * C * n + C * k * (4 * 2580 + 5),
+                    C * nlive * (2 * nuw + k) + C * k * 2580 * 10)
+
+
+def channelize_bound(n, N, T, nsel):
+    """One channelizer call: the samples read once, the selected channels
+    written once; per frame the N phases' T complex-by-real multiply-adds
+    (4 each) and each selected channel's N complex multiply-adds (8)."""
+    F = n // N
+    return bound_ms(8 * n + 8 * nsel * F, F * (N * T * 4 + nsel * N * 8))
 
 
 def main() -> int:
@@ -371,6 +434,10 @@ def main() -> int:
     from wenet_tpu_torch import kernels
     from wenet_tpu_torch.core import framing
     from wenet_tpu_torch.kernels import bp_decode, bp_onehot, fsk_demod
+    from wenet_tpu_torch.kernels import channelize as kchan
+    from wenet_tpu_torch.kernels import crc_pack as kcrc
+    from wenet_tpu_torch.kernels import deframe_topk as ktopk
+    from wenet_tpu_torch.ops import channel, channelizer
     from wenet_tpu_torch.ops import crc as dcrc
     from wenet_tpu_torch.ops import deframe, fsk, ldpc, ldpc_onehot
     from wenet_tpu_torch.parallel import sweep
@@ -387,8 +454,10 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all at once
     t0 = time.perf_counter()
-    kernels.build("bp_decode", "bp_onehot", "fsk_demod")
-    say("build", kernels="bp_decode,bp_onehot,fsk_demod",
+    names = ("bp_decode", "bp_onehot", "fsk_demod", "crc_pack",
+             "deframe_topk", "channelize")
+    kernels.build(*names)
+    say("build", kernels=",".join(names),
         seconds=f"{time.perf_counter() - t0:.2f}", nvcc=kernels.nvcc_path())
     for name, log in kernels.build_logs.items():
         regs = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
@@ -403,6 +472,15 @@ def main() -> int:
                 for b in (1, 16, 40, 70, 128, 2048)},
         minsum_shapes={b: bp_decode.launch_shape(b, sms, per_sm, True)
                        for b in (1, 70, 2048)})
+    for n_t, mode_t in ((22128, "v2"), (14448, "v1"), (150000, "v2")):
+        nlive_t, nwords_t, smem_t = ktopk.geometry(n_t, mode_t)
+        require(ktopk._lib().deframe_topk_smem_bytes(nwords_t, nlive_t)
+                == smem_t, "deframe_topk smem accounting")
+    for n_ch in (4, 8, 16, 64, 256):
+        tile = kchan.tile_frames(n_ch, 12)
+        require(kchan._lib().channelize_smem_bytes(n_ch, 12, tile)
+                == kchan.smem_bytes(n_ch, 12, tile),
+                "channelize smem accounting")
     region = ldpc_onehot.kernel_tables(dev).shape[1]
     clusters = bp_onehot.card_clusters(dev, region)
     onehot_shapes = {b: tuple(bp_onehot.launch_shape(b, clusters, region))
@@ -570,13 +648,16 @@ def main() -> int:
     decode = ldpc.decode
     ldpc.decode = lambda llr, *a, **k: (batches.append(llr.shape[0]),
                                         decode(llr, *a, **k))[1]
-    bp_decode.launches = fsk_demod.launches = 0
+    bp_decode.launches = fsk_demod.launches = kcrc.launches = 0
     try:
         got2, dt2, rx2 = run_receiver(cfg2, "v2", raw2)
     finally:
         ldpc.decode = decode
     main_launches = {"bp_decode": bp_decode.launches,
                      "fsk_demod": fsk_demod.launches}
+    require(kcrc.launches == len(batches),
+            f"v2 main path: {kcrc.launches} crc_pack launches for "
+            f"{len(batches)} decode batches")
     n2 = len(raw2) // 2
     require(got2 == want2, f"v2: {len(got2)}/{len(want2)} payloads match")
     require(main_launches["bp_decode"] > 0,
@@ -590,7 +671,8 @@ def main() -> int:
         demod_share=f"{sec2['demod'] / dt2:.3f}",
         deframe_share=f"{sec2['deframe'] / dt2:.3f}",
         bp_launches=main_launches["bp_decode"],
-        demod_launches=main_launches["fsk_demod"], frames=rx2.stats.frames,
+        demod_launches=main_launches["fsk_demod"],
+        crc_launches=kcrc.launches, frames=rx2.stats.frames,
         decode_batches=batches, card=repr(smi))
 
     # 6. main path, v1 at flight rate; pipelined == serial
@@ -649,21 +731,24 @@ def main() -> int:
         walls = []
         for _ in range(2):
             fsk_demod.launches = bp_decode.launches = 0
+            ktopk.launches = kcrc.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             got = fn()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             require(got == want, f"{phase}: {len(got)}/{len(want)} payloads")
-        require(fsk_demod.launches > 0, f"{phase} never launched fsk_demod")
-        require(bp_decode.launches > 0, f"{phase} never launched bp_decode")
+        counts = {"fsk_demod": fsk_demod.launches,
+                  "deframe_topk": ktopk.launches,
+                  "bp_decode": bp_decode.launches, "crc_pack": kcrc.launches}
+        for name, count in counts.items():
+            require(count > 0, f"{phase} never launched {name}")
         dt = walls[1]
         say(phase, packets=f"{len(got)}/{len(want)}", samples=n_samples,
             first_wall_s=f"{walls[0]:.3f}", wall_s=f"{dt:.3f}",
             msps=f"{n_samples / dt / 1e6:.4f}",
             realtime_msps=f"{cfg.Fs / 1e6:.3f}",
-            demod_launches=fsk_demod.launches,
-            bp_launches=bp_decode.launches, card=repr(smi))
+            launches=counts, card=repr(smi))
 
     fused_phase("fused_v2", lambda: pipeline.decode_iq_fused(
         raw2, "v2", n_chunks=FUSED_CHUNKS, device=dev), n2, cfg2, got2)
@@ -707,14 +792,139 @@ def main() -> int:
 
     def share(busy, wall):
         return "not measured" if busy is None else f"{busy / wall / 1e3:.4f}"
+    require(busy_f is None or nk_f < 50,
+            f"fused step: {nk_f} kernels (the CRC or pick loops on the host)")
     say("fused_breakdown", chunks=FUSED_CHUNKS, frames_per_lane=fstep.nf,
         picks_per_chunk=k, step_ms=f"{t_step:.3f}",
         demod_ms=f"{t_demod:.3f}", deframe_topk_ms=f"{t_topk:.3f}",
         of_which_decode_ms=f"{t_dec:.3f}", of_which_crc_ms=f"{t_crc:.3f}",
         profiled_step_wall_ms=f"{wall_f * 1e3:.3f}",
-        step_kernels=nk_f, step_device_busy_share=share(busy_f, wall_f),
+        step_kernels=nk_f if busy_f is not None else "not measured",
+        step_device_busy_share=share(busy_f, wall_f),
         receiver_wall_s=f"{wall_r:.3f}", receiver_kernels=nk_r,
         receiver_device_busy_share=share(busy_r, wall_r), card=repr(smi))
+
+    # 8b. the CRC kernel against its plain version, bit-exact, in both row
+    # layouts and the flags alone: at B = 128 and 176 on decoded noisy
+    # codewords, and at the shapes the paths give it (the Receiver's push
+    # batches here, the wideband fused C*k below)
+    max_err.update(crc_pack=0, deframe_topk=0.0, channelize=0.0)
+    crc_times = {}
+
+    def crc_vs_plain(label, bits_b, timed_kw):
+        """The kernel against crc_pack_reference on bits_b (both layouts,
+        the flags alone); times in the layout of timed_kw."""
+        B = bits_b.shape[0]
+        for kw in ({"positions": torch.arange(B, dtype=torch.int32,
+                                              device=dev) * 2617 - 5},
+                   {"iters": torch.arange(B, dtype=torch.int32,
+                                          device=dev) % 12}, timed_kw):
+            got = dcrc.crc_pack(bits_b, **kw)
+            want = dcrc.crc_pack_reference(bits_b, **kw)
+            err = int((got.int() - want.int()).abs().max())
+            max_err["crc_pack"] = max(max_err["crc_pack"], err)
+            require(torch.equal(got, want), f"crc_pack {label} B={B} "
+                    f"{list(kw)}: max |diff| {err}")
+        ok_b = dcrc.packet_crc_ok(bits_b)
+        require(torch.equal(ok_b, dcrc.packet_crc_ok_reference(bits_b)),
+                f"crc_pack {label} B={B}: flags differ")
+        bound, by = crc_bound(B)
+        m = {"ms": graph_ms(lambda: dcrc.crc_pack(bits_b, **timed_kw)),
+             "call_ms": event_ms(lambda: dcrc.crc_pack(bits_b, **timed_kw),
+                                 20),
+             "plain_ms": event_ms(lambda: dcrc.crc_pack_reference(
+                 bits_b, **timed_kw), 3),
+             "bound_ms": bound, "bound_by": by, "batch": B}
+        crc_times[label] = m
+        say("crc_vs_plain", kernel="crc_pack", case=label, batch=B,
+            layout=list(timed_kw)[0], crc_ok=int(ok_b.sum()), mismatches=0,
+            kernel_ms=f"{m['ms']:.4f}", call_ms=f"{m['call_ms']:.4f}",
+            plain_ms=f"{m['plain_ms']:.3f}", bound_ms=f"{bound:.6f}",
+            bound_by=by, share_of_bound=f"{bound / m['ms']:.5f}",
+            card=repr(smi))
+
+    for B in CRC_BATCHES:
+        llr_b = noisy_llrs(B, 3.0, np.random.default_rng(SEED + 900 + B), dev)
+        bits_b, _, _ = ldpc.decode(llr_b)
+        crc_vs_plain(B, bits_b, {"positions": torch.arange(
+            B, dtype=torch.int32, device=dev) * 2617 - 5})
+    for B in sorted(set(batches)):         # decode_windows' (B, 260) rows
+        llr_b = noisy_llrs(B, 3.0, np.random.default_rng(SEED + 950 + B), dev)
+        bits_b, it_b, _ = ldpc.decode(llr_b)
+        crc_vs_plain(f"receiver_{B}", bits_b, {"iters": it_b})
+
+    # 8c. the acquisition kernel against its plain version on the fused
+    # steps' soft bits (v2 and v1, C = 16): positions, exhausted flags and
+    # the descrambled or stripped windows exact, LLRs within rtol 1e-5;
+    # the decodes of both LLRs' give the same rows and iterations
+    def fused_soft(cfg, mode, raw):
+        n = len(raw) // 2
+        sp, cl, st, sk = pipeline._fused_geometry(cfg, mode, n,
+                                                  FUSED_CHUNKS, 8)
+        step = pipeline._FusedStep(cfg, mode, "cu8", cl, st,
+                                   pipeline._k_default(cl, cfg, sp), 10, dev)
+        _, o = fsk.demod_raw(cfg, torch.from_numpy(raw.reshape(-1, 2)).to(
+            dev), "cu8", step.nf, step.starts, step.n_valid)
+        keep = o.valid & (step._frame[None] >= step.lanes(sk)[:, None])
+        soft = torch.where(keep[..., None], o.soft, 1.0)
+        return soft.reshape(FUSED_CHUNKS, -1).contiguous(), step.k
+
+    topk_times = {}
+
+    def topk_vs_plain(label, mode_t, soft_t, k_t):
+        """The kernel against topk_windows_reference on soft_t (C, n):
+        positions, exhausted flags and windows exact, LLRs within
+        TOPK_LLR_RTOL, both LLRs' decodes equal.  Returns the kernel's
+        (bits, positions) for the CRC check."""
+        C = soft_t.shape[0]
+        llr_g, pos_g, exh_g, sd_g = ktopk.llrs(soft_t, mode_t, k_t,
+                                               with_sd=True)
+        sd_w, pos_w, exh_w = deframe.topk_windows_reference(soft_t, mode_t,
+                                                            k_t)
+        llr_w = ldpc.sd_to_llr(sd_w)
+        require(torch.equal(pos_g, pos_w) and torch.equal(exh_g, exh_w),
+                f"deframe_topk {label}: positions differ")
+        require(torch.equal(sd_g, sd_w), f"deframe_topk {label}: windows")
+        live = ~exh_w.reshape(-1)
+        rel = float(((llr_g - llr_w).abs() / llr_w.abs().clamp(min=1e-30))
+                    [live].max()) if bool(live.any()) else 0.0
+        err = float((llr_g - llr_w)[live].abs().max()) if bool(
+            live.any()) else 0.0
+        require(rel <= TOPK_LLR_RTOL and bool(llr_g[~live].isnan().all()),
+                f"deframe_topk {label}: LLR rel err {rel}")
+        max_err["deframe_topk"] = max(max_err["deframe_topk"], err)
+        bits_g, it_g, _ = ldpc.decode(llr_g)
+        bits_w, it_w, _ = ldpc.decode(llr_w)
+        rows_g = dcrc.crc_pack(bits_g, positions=pos_g.reshape(-1))
+        rows_w = dcrc.crc_pack_reference(bits_w, positions=pos_w.reshape(-1))
+        iter_mis = int((it_g != it_w)[live].sum())
+        require(torch.equal(rows_g, rows_w) and iter_mis == 0,
+                f"deframe_topk {label}: decoded rows or {iter_mis} "
+                f"iteration counts differ")
+        nlive = ktopk.geometry(soft_t.shape[1], mode_t)[0]
+        nuw = ktopk.mode_params(mode_t)[1]
+        bound, by = topk_bound(C, soft_t.shape[1], k_t, nlive, nuw)
+        m = {"ms": graph_ms(lambda: ktopk.llrs(soft_t, mode_t, k_t)),
+             "call_ms": event_ms(lambda: ktopk.llrs(soft_t, mode_t, k_t), 20),
+             "plain_ms": event_ms(lambda: ldpc.sd_to_llr(
+                 deframe.topk_windows_reference(soft_t, mode_t, k_t)[0]), 3),
+             "bound_ms": bound, "bound_by": by, "llr_rel_err": rel,
+             "picks": k_t, "symbols": soft_t.shape[1], "streams": C}
+        topk_times[label] = m
+        say("deframe_topk_vs_plain", kernel="deframe_topk", case=label,
+            mode=mode_t, streams=C, symbols=soft_t.shape[1], picks=k_t,
+            exhausted=int(exh_w.sum()), crc_ok=int(rows_w[:, 258].sum()),
+            position_mismatch=0, llr_rel_err=f"{rel:.3e}",
+            iters_mismatch=iter_mis, kernel_ms=f"{m['ms']:.4f}",
+            call_ms=f"{m['call_ms']:.4f}",
+            plain_ms=f"{m['plain_ms']:.3f}", bound_ms=f"{bound:.6f}",
+            bound_by=by, share_of_bound=f"{bound / m['ms']:.5f}",
+            smem_bytes=ktopk.geometry(soft_t.shape[1], mode_t)[2],
+            card=repr(smi))
+        return bits_g, pos_g
+
+    topk_vs_plain("v2", "v2", soft_f.contiguous(), k)
+    topk_vs_plain("v1", "v1", *fused_soft(cfg1, "v1", raw1))
 
     raw_t = np.tile(raw2, RX_TILES)
 
@@ -732,6 +942,217 @@ def main() -> int:
     fused_phase("fused_receiver", fused_receiver, len(raw_t) // 2, cfg2,
                 want_t)
 
+    # 8d. wideband: 8 channels of the v2 flight geometry in a 7.68 MHz
+    # capture, 12 packets a channel at 30 dB.  The channelizer kernel
+    # against its plain version (all channels, and a selection in its
+    # order); at the fused mode's own shapes, the demod kernel on the
+    # channelizer's c64 lanes against its plain loop, the acquisition
+    # kernel on the demod's soft bits (8 streams, kk picks) and the CRC
+    # kernel on their decodes (8 kk codewords); then demod_multichannel in
+    # its three modes, each called twice (the counts and the time are the
+    # second call's): every channel recovers at least 11 of its 12 packets,
+    # the fused mode all 12, the vectorized and per-Receiver modes the
+    # same lists, which differ from the fused mode's only by the packet
+    # lost to the false UW lock (WIDE_FALSE_LOCK); and the fused call's
+    # stages timed with CUDA events and its kernels with torch.profiler
+    cfgw = cfg2
+    fs_w = cfgw.Fs * WIDE_CHANNELS
+    t0 = time.perf_counter()
+    wide, sent_w = channel.wideband_capture(cfgw, WIDE_CHANNELS,
+                                            WIDE_PACKETS, WIDE_EBNO_DB,
+                                            SEED + 800)
+    synth_s = time.perf_counter() - t0
+    n_w = len(wide)
+    pairs_w = torch.from_numpy(wide.view(np.float32).reshape(-1, 2)).to(dev)
+    chan_times = {}
+    for label, sel in (("all", None), ("select", WIDE_SELECT)):
+        got = channelizer.channelize_pairs(pairs_w, WIDE_CHANNELS,
+                                           channels=sel)
+        want = torch.view_as_real(channelizer.channelize_reference(
+            torch.view_as_complex(pairs_w), WIDE_CHANNELS, channels=sel)
+        ).reshape(-1, 2)
+        err = float((got - want).abs().max())
+        rms = float(want.square().sum(1).mean().sqrt())
+        require(got.shape == want.shape and err <= CHANNELIZE_TOL * rms,
+                f"channelize {label}: max |diff| {err} of rms {rms}")
+        max_err["channelize"] = max(max_err["channelize"], err)
+        nsel = WIDE_CHANNELS if sel is None else len(sel)
+        bound, by = channelize_bound(n_w, WIDE_CHANNELS, 12, nsel)
+        m = {"ms": graph_ms(lambda: channelizer.channelize_pairs(
+                 pairs_w, WIDE_CHANNELS, channels=sel)),
+             "call_ms": event_ms(lambda: channelizer.channelize_pairs(
+                 pairs_w, WIDE_CHANNELS, channels=sel), 20),
+             "plain_ms": event_ms(lambda: channelizer.channelize_reference(
+                 torch.view_as_complex(pairs_w), WIDE_CHANNELS,
+                 channels=sel), 3),
+             "bound_ms": bound, "bound_by": by, "rel_err": err / rms}
+        chan_times[label] = m
+        say("channelize_vs_plain", kernel="channelize", channels=label,
+            n_channels=WIDE_CHANNELS, selected=nsel, samples=n_w,
+            max_abs_err=f"{err:.3e}", rel_err=f"{err / rms:.3e}",
+            tol=CHANNELIZE_TOL, kernel_ms=f"{m['ms']:.4f}",
+            call_ms=f"{m['call_ms']:.4f}",
+            plain_ms=f"{m['plain_ms']:.3f}", bound_ms=f"{bound:.6f}",
+            bound_by=by, share_of_bound=f"{bound / m['ms']:.5f}",
+            tile_frames=kchan.tile_frames(WIDE_CHANNELS, 12), card=repr(smi))
+
+    # the fused mode's front end, as demod_multichannel runs it
+    F_w = n_w // WIDE_CHANNELS
+    nf_w = cfgw.num_frames(F_w)
+    kk_w = int(np.ceil(nf_w * cfgw.Nbits / framing.V2_SYMBOLS_PER_PACKET)) + 2
+    lanes_w = (cfgw, channelizer.channelize_pairs(pairs_w, WIDE_CHANNELS),
+               "c64", nf_w,
+               torch.arange(WIDE_CHANNELS, dtype=torch.int64, device=dev)
+               * F_w, torch.full((WIDE_CHANNELS,), F_w, dtype=torch.int64,
+                                 device=dev))
+    fsk_demod.launches = 0
+    got_d = fsk.demod_raw(*lanes_w)
+    torch.cuda.synchronize()
+    require(fsk_demod.launches == 1, "wide demod_vs_plain: no kernel launch")
+    t0 = time.perf_counter()
+    want_d = fsk.demod_raw_reference(*lanes_w)
+    torch.cuda.synchronize()
+    plain_ms_d = (time.perf_counter() - t0) * 1e3
+    cmp = demod_compare(got_d, want_d)
+    require(cmp["valid"] == cmp["nin"] == cmp["f_est"] == cmp["bits"] == 0
+            and cmp["rel_err"] <= DEMOD_SOFT_TOL,
+            f"demod_vs_plain wideband c64 lanes: {cmp}")
+    ms_d = event_ms(lambda: fsk.demod_raw(*lanes_w), 3)
+    bound, by, bound_sm = demod_bound(cfgw, want_d[1],
+                                      WIDE_CHANNELS * F_w, 8)
+    demod_times["wide"] = dict(cmp, ms=ms_d, plain_ms=plain_ms_d,
+                               bound_ms=bound, bound_by=by,
+                               bound_one_sm_ms=bound_sm)
+    say("demod_vs_plain", kernel="fsk_demod", case="wideband_c64",
+        lanes=WIDE_CHANNELS, frames=cmp["frames"],
+        valid_mismatch=cmp["valid"], nin_mismatch=cmp["nin"],
+        f_est_mismatch=cmp["f_est"], bit_mismatch=cmp["bits"],
+        max_abs_err=f"{cmp['max_abs_err']:.3e}",
+        rel_err=f"{cmp['rel_err']:.3e}", tol=DEMOD_SOFT_TOL,
+        kernel_ms=f"{ms_d:.4f}",
+        kernel_ms_per_frame=f"{ms_d / nf_w:.5f}",
+        plain_ms=f"{plain_ms_d:.2f}", plain_timing="host clock, one call",
+        bound_ms=f"{bound:.6f}", bound_by=by,
+        share_of_bound=f"{bound / ms_d:.5f}",
+        bound_one_sm_ms=f"{bound_sm:.6f}",
+        share_of_one_sm_bound=f"{bound_sm / ms_d:.5f}", card=repr(smi))
+    outs_w = got_d[1]
+    soft_w = torch.where(outs_w.valid[..., None], outs_w.soft,
+                         1.0).reshape(WIDE_CHANNELS, -1).contiguous()
+    bits_w, pos_w = topk_vs_plain("wideband", "v2", soft_w, kk_w)
+    crc_vs_plain("wideband", bits_w, {"positions": pos_w.reshape(-1)})
+
+    wide_counts, wide_out, wide_walls = {}, {}, {}
+    for mode_w, kw in (("fused", {"fused": True}), ("vectorized", {}),
+                       ("receiver", {"vectorized": False})):
+        walls = []
+        for _ in range(2):
+            for mod in (kchan, fsk_demod, ktopk, bp_decode, kcrc):
+                mod.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_w = channelizer.demod_multichannel(
+                wide, fs_w, WIDE_CHANNELS, cfgw, device=dev, **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wide_counts[mode_w] = {
+            "channelize": kchan.launches, "fsk_demod": fsk_demod.launches,
+            "deframe_topk": ktopk.launches, "bp_decode": bp_decode.launches,
+            "crc_pack": kcrc.launches}
+        wide_out[mode_w], wide_walls[mode_w] = out_w, walls
+        need = ("channelize", "fsk_demod", "bp_decode", "crc_pack") + (
+            ("deframe_topk",) if mode_w == "fused" else ())
+        for name in need:
+            require(wide_counts[mode_w][name] > 0,
+                    f"wideband {mode_w} never launched {name}")
+        got_n = {c: len(v) for c, v in out_w.items()}
+        for c in range(WIDE_CHANNELS):
+            require(len(out_w[c]) >= WIDE_PACKETS - 1
+                    and all(p in sent_w[c] for p in out_w[c])
+                    and out_w[c] == sorted(out_w[c], key=sent_w[c].index),
+                    f"wideband {mode_w}: channel {c} gave {len(out_w[c])} "
+                    f"packets, {got_n}")
+        msps = n_w / walls[1] / 1e6
+        say("wideband", mode=mode_w, channels=WIDE_CHANNELS,
+            band_mhz=fs_w / 1e6, samples=n_w,
+            packets=f"{sum(got_n.values())}/{WIDE_CHANNELS * WIDE_PACKETS}",
+            channels_complete=sum(v >= WIDE_PACKETS - 1
+                                  for v in got_n.values()),
+            first_wall_s=f"{walls[0]:.3f}", wall_s=f"{walls[1]:.4f}",
+            band_msps=f"{msps:.4f}",
+            x_realtime=f"{msps * 1e6 / fs_w:.3f}",
+            launches=wide_counts[mode_w], synth_s=f"{synth_s:.2f}",
+            card=repr(smi))
+    # the vectorized and per-Receiver modes run the reference's UW FSM and
+    # must agree exactly; the fused mode's top-k acquisition differs from
+    # it where the FSM locks on a false UW hit in the idle bits and its
+    # window swallows the packet after it: such packets are counted
+    require(wide_out["vectorized"] == wide_out["receiver"],
+            "wideband: the vectorized and per-Receiver lists differ")
+    require(wide_out["fused"] == sent_w,
+            f"wideband fused: {sum(map(len, wide_out['fused'].values()))} "
+            f"of {WIDE_CHANNELS * WIDE_PACKETS} packets in order")
+    lock_c, lock_p = WIDE_FALSE_LOCK
+    require(wide_out["vectorized"] == {
+        c: [p for p in sent_w[c] if (c, sent_w[c].index(p)) != (lock_c, lock_p)]
+        for c in range(WIDE_CHANNELS)},
+        "wideband vectorized: the lists differ from the fused mode's by "
+        f"more than packet {lock_p} of channel {lock_c}")
+    fsm_only = sum(len(set(wide_out["vectorized"][c])
+                       - set(wide_out["fused"][c]))
+                   for c in range(WIDE_CHANNELS))
+    topk_only = sum(len(set(wide_out["fused"][c])
+                        - set(wide_out["vectorized"][c]))
+                    for c in range(WIDE_CHANNELS))
+    say("wideband_modes", fused_equals_vectorized=(
+        wide_out["fused"] == wide_out["vectorized"]),
+        vectorized_equals_receiver=True, only_fused=topk_only,
+        only_vectorized=fsm_only, false_lock=WIDE_FALSE_LOCK)
+
+    # where the fused call's time goes: its stages as demod_multichannel
+    # runs them, each closed by a CUDA event (device time between the
+    # marks, launch gaps included), then one call under torch.profiler
+    # (each kernel's device time, the device's busy share)
+    def wide_stages():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        pairs = channelizer._pairs(wide, dev)
+        ev[1].record()
+        chans = channelizer.channelize_pairs(pairs, WIDE_CHANNELS)
+        ev[2].record()
+        _, o = fsk.demod_raw(cfgw, chans, "c64", nf_w, *lanes_w[4:])
+        ev[3].record()
+        sw = torch.where(o.valid[..., None], o.soft, 1.0).reshape(
+            WIDE_CHANNELS, -1)
+        llr, pos, _ = ktopk.llrs(sw.contiguous(), "v2", kk_w)
+        ev[4].record()
+        bits, _, _ = ldpc.decode(llr)
+        ev[5].record()
+        dcrc.crc_pack(bits, positions=pos.reshape(-1)).cpu()
+        ev[6].record()
+        ev[6].synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        return wall, [ev[i].elapsed_time(ev[i + 1]) for i in range(6)]
+    wide_stages()
+    stage_wall, stage_ms = wide_stages()
+    per_kernel = {}
+    wall_wf, busy_wf, nk_wf = device_busy(lambda: channelizer.demod_multichannel(
+        wide, fs_w, WIDE_CHANNELS, cfgw, fused=True, device=dev), per_kernel)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    say("wideband_breakdown", mode="fused", stages_wall_ms=f"{stage_wall:.3f}",
+        h2d_ms=f"{stage_ms[0]:.3f}", channelize_ms=f"{stage_ms[1]:.3f}",
+        demod_ms=f"{stage_ms[2]:.3f}", deframe_topk_ms=f"{stage_ms[3]:.3f}",
+        decode_ms=f"{stage_ms[4]:.3f}", crc_and_d2h_ms=f"{stage_ms[5]:.3f}",
+        profiled_wall_ms=f"{wall_wf * 1e3:.3f}",
+        kernels=nk_wf if busy_wf is not None else "not measured",
+        device_busy_share=share(busy_wf, wall_wf),
+        kernel_device_ms={n[:40]: round(t, 4) for n, t in top},
+        card=repr(smi))
+    for name in ("channelize", "deframe_topk", "crc_pack"):
+        main_launches[name] = wide_counts["fused"][name]
+
     with tempfile.TemporaryDirectory() as tmp:
         # 9. CLI on the v2 capture: streaming, --parallel, --slabs
         path = os.path.join(tmp, "smoke_v2.cu8")
@@ -748,6 +1169,24 @@ def main() -> int:
                                             os.path.join(tmp, phase))
             require(rc == 0, f"{phase} exit {rc}: {err}")
             require(f"crc_ok={V2_PACKETS} " in line, f"{phase}: {line}")
+            say(phase, rc=rc, wall_s=f"{dt_cli:.2f}", stderr=repr(line),
+                card=repr(smi))
+
+        # 9b. the CLI's wideband mode on the 8-channel capture (c64), then
+        # with --channel-select: exit 0, every packet routed
+        path_w = os.path.join(tmp, "wide.c64")
+        wide.tofile(path_w)
+        for phase, flag, chans in (
+                ("cli_wideband", (), range(WIDE_CHANNELS)),
+                ("cli_wideband_select", ("--channel-select", ",".join(
+                    str(c) for c in WIDE_SELECT)), WIDE_SELECT)):
+            total = sum(len(wide_out["vectorized"][c]) for c in chans)
+            rc, line, err, dt_cli = run_cli(
+                path_w, "--channels", str(WIDE_CHANNELS), *flag,
+                "--image-dir", os.path.join(tmp, phase), fmt="c64")
+            require(rc == 0, f"{phase} exit {rc}: {err}")
+            require(line.startswith(f"wideband: {WIDE_CHANNELS} channels, "
+                                    f"{total} packets"), f"{phase}: {line}")
             say(phase, rc=rc, wall_s=f"{dt_cli:.2f}", stderr=repr(line),
                 card=repr(smi))
 
@@ -890,6 +1329,7 @@ def main() -> int:
     out = []
     lanes1, frames1 = DEMOD_CASES[0]
     d1, d16 = demod_times[lanes1], demod_times[DEMOD_CASES[1][0]]
+    dw = demod_times["wide"]
     for name, (source, replaces) in sources.items():
         m = times[(name, *MAIN_CASE)]
         out.append({"name": name, "route": "cuda", "source": source,
@@ -906,7 +1346,8 @@ def main() -> int:
                 "source": "wenet_tpu_torch/csrc/fsk_demod.cu",
                 "replaces": "wenet_tpu/ops/fsk.py:505",
                 "launches": main_launches["fsk_demod"],
-                "max_abs_err": max(d1["max_abs_err"], d16["max_abs_err"]),
+                "max_abs_err": max(d1["max_abs_err"], d16["max_abs_err"],
+                                   dw["max_abs_err"]),
                 "ms": d1["ms"], "plain_ms": d1["plain_ms"],
                 "bound_ms": d1["bound_ms"], "bound_by": d1["bound_by"],
                 "library_ms": None, "lanes": lanes1,
@@ -917,7 +1358,59 @@ def main() -> int:
                 "lanes16_ms": d16["ms"], "lanes16_plain_ms": d16["plain_ms"],
                 "lanes16_bound_ms": d16["bound_ms"],
                 "lanes16_bound_one_sm_ms": d16["bound_one_sm_ms"],
-                "lanes16_ms_per_frame": d16["ms"] / (d16["frames"] / 16)})
+                "lanes16_ms_per_frame": d16["ms"] / (d16["frames"] / 16),
+                "wideband_c64_lanes": WIDE_CHANNELS,
+                "wideband_c64_ms": dw["ms"],
+                "wideband_c64_plain_ms": dw["plain_ms"],
+                "wideband_c64_bound_ms": dw["bound_ms"],
+                "wideband_c64_max_abs_err": dw["max_abs_err"]})
+    c176, c128 = crc_times[CRC_BATCHES[1]], crc_times[CRC_BATCHES[0]]
+    out.append({"name": "crc_pack", "route": "cuda",
+                "source": "wenet_tpu_torch/csrc/crc_pack.cu",
+                "replaces": "wenet_tpu/ops/crc.py:25",
+                "launches": main_launches["crc_pack"],
+                "max_abs_err": max_err["crc_pack"], "ms": c176["ms"],
+                "plain_ms": c176["plain_ms"], "bound_ms": c176["bound_ms"],
+                "bound_by": c176["bound_by"], "library_ms": None,
+                "call_ms": c176["call_ms"], "batch": CRC_BATCHES[1],
+                "batch128_ms": c128["ms"], "batch128_plain_ms":
+                c128["plain_ms"], "batch128_bound_ms": c128["bound_ms"],
+                "other_cases": {str(lb): {key: m[key] for key in (
+                    "batch", "ms", "plain_ms", "bound_ms")}
+                    for lb, m in crc_times.items()
+                    if lb not in CRC_BATCHES}})
+    t2, t1, tw = (topk_times[lb] for lb in ("v2", "v1", "wideband"))
+    out.append({"name": "deframe_topk", "route": "cuda",
+                "source": "wenet_tpu_torch/csrc/deframe_topk.cu",
+                "replaces": "wenet_tpu/ops/deframe.py:217",
+                "launches": main_launches["deframe_topk"],
+                "max_abs_err": max_err["deframe_topk"], "ms": t2["ms"],
+                "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
+                "bound_by": t2["bound_by"], "library_ms": None,
+                "streams": FUSED_CHUNKS, "picks": t2["picks"],
+                "symbols": t2["symbols"], "call_ms": t2["call_ms"],
+                "llr_rel_err": max(m["llr_rel_err"]
+                                   for m in topk_times.values()),
+                "v1_ms": t1["ms"], "v1_plain_ms": t1["plain_ms"],
+                "v1_bound_ms": t1["bound_ms"],
+                "wideband_streams": tw["streams"],
+                "wideband_symbols": tw["symbols"],
+                "wideband_picks": tw["picks"], "wideband_ms": tw["ms"],
+                "wideband_plain_ms": tw["plain_ms"],
+                "wideband_bound_ms": tw["bound_ms"]})
+    ca, cs = chan_times["all"], chan_times["select"]
+    out.append({"name": "channelize", "route": "cuda",
+                "source": "wenet_tpu_torch/csrc/channelize.cu",
+                "replaces": "wenet_tpu/ops/channelizer.py:37",
+                "launches": main_launches["channelize"],
+                "max_abs_err": max_err["channelize"], "ms": ca["ms"],
+                "plain_ms": ca["plain_ms"], "bound_ms": ca["bound_ms"],
+                "bound_by": ca["bound_by"], "library_ms": None,
+                "n_channels": WIDE_CHANNELS, "samples": n_w,
+                "call_ms": ca["call_ms"],
+                "rel_err": max(ca["rel_err"], cs["rel_err"]),
+                "select_ms": cs["ms"], "select_plain_ms": cs["plain_ms"],
+                "select_bound_ms": cs["bound_ms"]})
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

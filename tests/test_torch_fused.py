@@ -116,9 +116,11 @@ def test_deframe_topk_matches_jax(mode):
 
 
 def test_pack_decode_results_match_jax():
+    """deframe_topk(packed=True)'s rows, built by crc_pack, equal JAX's
+    pack_decode_results of its unpacked results, and unpack back."""
     soft = _soft_streams("v2")
     pb, ok, _, pos = deframe.deframe_topk(soft, "v2", k=5, device="cpu")
-    packed = deframe.pack_decode_results(pb, ok, pos)
+    packed = deframe.deframe_topk(soft, "v2", k=5, device="cpu", packed=True)
     want = jdeframe.pack_decode_results(jnp.asarray(pb.numpy()),
                                         jnp.asarray(ok.numpy()),
                                         jnp.asarray(pos.numpy()))

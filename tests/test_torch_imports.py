@@ -29,7 +29,12 @@ NEW_MODULES = ("wenet_tpu_torch.ops.ldpc_onehot, wenet_tpu_torch.ops.channel, "
                "wenet_tpu_torch.kernels.bp_onehot, "
                "wenet_tpu_torch.parallel.sweep, "
                # the fused receiver and the demod frame-loop kernel
-               "wenet_tpu_torch.kernels.fsk_demod")
+               "wenet_tpu_torch.kernels.fsk_demod, "
+               # the wideband path, the CRC and top-k acquisition kernels
+               "wenet_tpu_torch.ops.channelizer, "
+               "wenet_tpu_torch.kernels.channelize, "
+               "wenet_tpu_torch.kernels.crc_pack, "
+               "wenet_tpu_torch.kernels.deframe_topk")
 
 
 def test_port_imports_no_jax():
@@ -196,12 +201,13 @@ def test_cuda_requests_raise_without_card():
                                   "StreamDeframer", "deframe_soft",
                                   "deframe_topk", "decode_iq_fused",
                                   "decode_iq_fused_overlap", "FusedReceiver",
-                                  "decode_iq_parallel"])
+                                  "decode_iq_parallel", "channelize",
+                                  "demod_multichannel"])
 def test_public_functions_default_to_the_card(name, monkeypatch):
     """Called without a device, the port's public demod and deframe entry
     points ask for CUDA, and without a card they raise instead of running
     on the CPU."""
-    from wenet_tpu_torch.ops import deframe
+    from wenet_tpu_torch.ops import channelizer, deframe
     from wenet_tpu_torch.rx import pipeline
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tfsk.FSKConfig(Fs=96000, Rs=9600)
@@ -226,6 +232,10 @@ def test_public_functions_default_to_the_card(name, monkeypatch):
         "FusedReceiver": lambda: pipeline.FusedReceiver(cfg=cfg),
         "decode_iq_parallel": lambda: pipeline.decode_iq_parallel(
             np.zeros(1000, np.complex64), cfg=cfg),
+        "channelize": lambda: channelizer.channelize(
+            np.zeros(64, np.complex64), 8),
+        "demod_multichannel": lambda: channelizer.demod_multichannel(
+            np.zeros(8 * 4000, np.complex64), 8 * cfg.Fs, 8, cfg),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[name]()

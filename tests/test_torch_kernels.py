@@ -856,3 +856,273 @@ def test_demod_kernel_second_estimator_block():
     assert_demod_close(got, want)
     nins = want[1].nin[want[1].valid]
     assert bool((nins >= 2 * cfg.Ndft).any())
+
+
+# ---------------------------------------- CRC, top-k acquisition, channelizer
+
+def _codewords(B, seed, n_bad=0, width=2580):
+    """(B, width) uint8 codeword bits of random packets with their CRC
+    trailers, the last n_bad with one payload bit flipped."""
+    from wenet_tpu_torch.core import framing
+    rng = np.random.default_rng(seed)
+    out = np.zeros((B, width), np.uint8)
+    for i in range(B):
+        body = framing.pad_payload(rng.integers(0, 256, 256, np.uint8)
+                                   .tobytes())
+        body += int(framing.crc16_ccitt(body)).to_bytes(2, "little")
+        bits = np.unpackbits(np.frombuffer(body + ldpc.encode_bytes(body),
+                                           np.uint8))[:width]
+        if i >= B - n_bad:
+            bits[rng.integers(0, 2064)] ^= 1
+        out[i, :len(bits)] = bits
+    return out
+
+
+def _soft_train(mode, n_packets, sigma, seed, lead=500, gap=300):
+    """A soft stream of framed packets between random idle bits."""
+    from wenet_tpu_torch.core import framing
+    rng = np.random.default_rng(seed)
+    bits = [rng.integers(0, 2, lead).astype(np.uint8)]
+    for _ in range(n_packets):
+        p = rng.integers(0, 256, 256, dtype=np.uint8).tobytes()
+        bits.append(framing.frame_to_bits(
+            framing.frame_packet(p, ldpc.encode_bytes, mode=mode), mode))
+        bits.append(rng.integers(0, 2, gap).astype(np.uint8))
+    b = np.concatenate(bits)
+    return (1 - 2.0 * b + rng.normal(0, sigma, b.shape)).astype(np.float32)
+
+
+def test_new_wrappers_take_only_cuda_tensors():
+    """The CRC, acquisition and channelizer wrappers raise on CPU tensors
+    and launch nothing; their ops take the plain versions for CPU
+    tensors."""
+    from wenet_tpu_torch.kernels import channelize as kch
+    from wenet_tpu_torch.kernels import crc_pack as kcrc
+    from wenet_tpu_torch.kernels import deframe_topk as ktopk
+    from wenet_tpu_torch.ops import channelizer, crc, deframe
+    bits = torch.from_numpy(_codewords(3, 1, n_bad=1))
+    soft = torch.from_numpy(_soft_train("v2", 1, 0.3, 2))[None]
+    pairs = torch.zeros((64, 2), dtype=torch.float32)
+    counts = (kcrc.launches, ktopk.launches, kch.launches)
+    for call in (lambda: kcrc.pack(bits, iters=torch.zeros(3)),
+                 lambda: kcrc.crc_ok(bits),
+                 lambda: ktopk.llrs(soft, "v2", 2),
+                 lambda: kch.channelize(pairs, 8, 12, (0, 1))):
+        with pytest.raises(ValueError):
+            call()
+    assert crc.packet_crc_ok(bits).tolist() == [True, True, False]
+    assert crc.crc_pack(bits, positions=torch.tensor([1, 2, -1])).shape == (
+        3, 263)
+    pb, ok, _, pos = deframe.deframe_topk(soft, "v2", 2, device="cpu")
+    assert bool(ok[0, 0]) and int(pos[0, 1]) == -1
+    assert channelizer.channelize_pairs(pairs, 8).shape == (64, 2)
+    assert (kcrc.launches, ktopk.launches, kch.launches) == counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", ["none", "iters", "pos"])
+@pytest.mark.parametrize("B", [1, 7, 128, 176])
+def test_crc_pack_kernel_matches_plain(B, tail):
+    """Rows bit-exact against the plain version: valid and corrupted
+    packets, random bits, and bits that are not 0/1 (exact integer byte
+    sums, as the plain version forms them); a strided (B, 2580) view."""
+    from wenet_tpu_torch.kernels import crc_pack as kcrc
+    from wenet_tpu_torch.ops import crc
+    dev = _card()
+    rng = np.random.default_rng(B)
+    good = _codewords(B, B, n_bad=B // 3)
+    noise = rng.integers(0, 2, good.shape).astype(np.uint8)
+    odd = rng.integers(0, 4, good.shape).astype(np.uint8)
+    wide = np.concatenate([good, good], axis=1)
+    extra = torch.as_tensor(rng.integers(-300, 300, B), dtype=torch.int32,
+                            device=dev)
+    kw = {"none": None, "iters": {"iters": extra},
+          "pos": {"positions": extra}}[tail]
+    for arr in (good, noise, odd):
+        bits = torch.from_numpy(arr).to(dev)
+        before = kcrc.launches
+        ok = crc.packet_crc_ok(bits)
+        if kw is None:              # the flags alone; rows need a tail
+            with pytest.raises(ValueError):
+                crc.crc_pack(bits)
+            got = want = None
+        else:
+            got = crc.crc_pack(bits, **kw)
+            want = crc.crc_pack_reference(bits, **kw)
+        torch.cuda.synchronize()
+        assert kcrc.launches == before + 1 + (kw is not None)
+        assert got is want or torch.equal(got, want)
+        assert torch.equal(ok, crc.packet_crc_ok_reference(bits))
+    view = torch.from_numpy(wide).to(dev)[:, 2580:]
+    assert torch.equal(crc.packet_crc_ok(view),
+                       crc.packet_crc_ok_reference(view))
+    if kw is not None:
+        assert torch.equal(crc.crc_pack(view, **kw),
+                           crc.crc_pack_reference(view, **kw))
+    assert int(crc.packet_crc_ok(torch.from_numpy(good).to(dev)).sum()) \
+        == B - B // 3
+
+
+def _assert_topk_close(got, want):
+    """(llr, positions, exhausted, sd) of the kernel against the plain
+    version: positions, exhausted and sd exact; LLRs within rtol 1e-5
+    (the order of sd_to_llr's sums), NaN where the plain version has NaN."""
+    llr, pos, exh, sd = got
+    sd_w, pos_w, exh_w = want
+    llr_w = ldpc.sd_to_llr(sd_w)
+    assert torch.equal(pos.cpu(), pos_w.cpu())
+    assert torch.equal(exh.cpu(), exh_w.cpu())
+    assert torch.equal(sd.cpu(), sd_w.cpu())
+    torch.testing.assert_close(llr.cpu(), llr_w.cpu(), rtol=1e-5, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["v2", "v1"])
+def test_deframe_topk_kernel_matches_plain(mode):
+    """Three streams: a noisy packet train, its reverse (noise picks), and
+    a periodic stream whose UW hits all tie (first-maximum ties decide);
+    more picks than placeable windows (exhausted picks)."""
+    from wenet_tpu_torch.kernels import deframe_topk as ktopk
+    from wenet_tpu_torch.ops import deframe
+    dev = _card()
+    train = _soft_train(mode, 3, 0.5, 3 if mode == "v2" else 4)
+    period = _soft_train(mode, 1, 0.0, 5, lead=40, gap=40)
+    tied = np.resize(period, len(train))
+    soft = torch.from_numpy(np.stack([train, train[::-1].copy(), tied])
+                            ).to(dev)
+    k = 9
+    before = ktopk.launches
+    got = ktopk.llrs(soft, mode, k, with_sd=True)
+    torch.cuda.synchronize()
+    assert ktopk.launches == before + 1
+    want = deframe.topk_windows_reference(soft, mode, k)
+    _assert_topk_close(got, want)
+    assert bool(want[2][:, -1].all()) and not bool(want[2][:, 0].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["v2", "v1"])
+def test_deframe_topk_kernel_long_stream(mode):
+    """A stream too long for shared-memory scores (150,000 symbols) runs
+    on the global scratch buffer and equals the plain version; a stream
+    too short for one window gives only exhausted picks."""
+    from wenet_tpu_torch.kernels import deframe_topk as ktopk
+    from wenet_tpu_torch.ops import deframe
+    dev = _card()
+    n = 150_000
+    assert ktopk.geometry(n, mode)[2] > ktopk.SMEM_LIMIT
+    train = _soft_train(mode, 40, 0.6, 11, gap=400)
+    soft = torch.from_numpy(np.resize(train, (2, n)).copy()).to(dev)
+    got = ktopk.llrs(soft, mode, 12, with_sd=True)
+    _assert_topk_close(got, deframe.topk_windows_reference(soft, mode, 12))
+    short = soft[:, :2000].contiguous()
+    got = ktopk.llrs(short, mode, 3, with_sd=True)
+    want = deframe.topk_windows_reference(short, mode, 3)
+    _assert_topk_close(got, want)
+    assert bool(want[2].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["v2", "v1"])
+def test_deframe_topk_on_the_card_matches_the_cpu(mode):
+    """deframe_topk through the three kernels against the plain path on
+    the CPU: payload bytes, ok, iterations, positions and the packed rows
+    exact."""
+    from wenet_tpu_torch.kernels import crc_pack as kcrc
+    from wenet_tpu_torch.kernels import deframe_topk as ktopk
+    from wenet_tpu_torch.ops import deframe
+    dev = _card()
+    train = _soft_train(mode, 3, 0.5, 21)
+    soft = np.stack([train, train[::-1].copy()])
+    counts = (ktopk.launches, bp_decode.launches, kcrc.launches)
+    got = deframe.deframe_topk(soft, mode, 6, device=dev)
+    packed = deframe.deframe_topk(soft, mode, 6, device=dev, packed=True)
+    torch.cuda.synchronize()
+    assert (ktopk.launches, bp_decode.launches, kcrc.launches) == tuple(
+        c + 2 for c in counts)
+    want = deframe.deframe_topk(soft, mode, 6, device="cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(packed.cpu(), deframe.deframe_topk(
+        soft, mode, 6, device="cpu", packed=True))
+    assert int(want[1][0].sum()) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [None, (5, 0, 3)], ids=["all", "sel"])
+@pytest.mark.parametrize("N", [4, 8, 16])
+def test_channelize_kernel_matches_plain(N, channels):
+    """Random samples, a length that is not a multiple of N or of the
+    tile: within 1e-5 of the output's rms of the plain version."""
+    from wenet_tpu_torch.kernels import channelize as kch
+    from wenet_tpu_torch.ops import channelizer
+    dev = _card()
+    rng = np.random.default_rng(N)
+    n = N * 1000 + 3
+    x = rng.normal(size=(n, 2)).astype(np.float32)
+    pairs = torch.from_numpy(x).to(dev)
+    sel = None if channels is None else [k % N for k in channels]
+    before = kch.launches
+    got = channelizer.channelize_pairs(pairs, N, channels=sel)
+    torch.cuda.synchronize()
+    assert kch.launches == before + 1
+    want = torch.view_as_real(channelizer.channelize_reference(
+        torch.view_as_complex(pairs), N, channels=sel)).reshape(-1, 2)
+    assert got.shape == want.shape
+    rms = float(want.square().mean().sqrt())
+    assert float((got - want).abs().max()) <= 1e-5 * rms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"fused": True}, {"vectorized": False}],
+                         ids=["vectorized", "fused", "receiver"])
+def test_demod_multichannel_on_the_card_matches_the_cpu(kw):
+    """Two packets on channels 2 and 5 of an 8-channel capture (Fs 96 kHz
+    a channel): every mode's lists on the card equal the CPU's."""
+    from wenet_tpu_torch.ops import channelizer
+    dev = _card()
+    cfg = fsk.FSKConfig(Fs=96000, Rs=9600)
+    wide, sent = _wideband(cfg, 8, {2: 1, 5: 1}, 30.0, 40)
+    got = channelizer.demod_multichannel(wide, 8 * cfg.Fs, 8, cfg,
+                                         channels=[2, 5], device=dev, **kw)
+    want = channelizer.demod_multichannel(wide, 8 * cfg.Fs, 8, cfg,
+                                          channels=[2, 5], device="cpu", **kw)
+    assert got == want == {k: sent[k] for k in (2, 5)}
+
+
+def _wideband(cfg, n_ch, packets, ebno_db, seed):
+    """(capture, {channel: payloads}): each channel's packets synthesised
+    at the wideband rate and mixed to its centre, AWGN at ebno_db per
+    channel."""
+    import dataclasses
+    from wenet_tpu_torch.core import framing
+    from wenet_tpu_torch.ops import channelizer
+    rng = np.random.default_rng(seed)
+    fs_total = cfg.Fs * n_ch
+    wide_cfg = dataclasses.replace(cfg, Fs=fs_total)
+    centres = channelizer.channel_centres(fs_total, n_ch)
+    streams, sent = {}, {}
+    for k, count in packets.items():
+        bits = [rng.integers(0, 2, cfg.Nbits * 4).astype(np.uint8)]
+        sent[k] = []
+        for _ in range(count):
+            p = rng.integers(0, 256, 256, dtype=np.uint8).tobytes()
+            sent[k].append(p)
+            bits += [framing.frame_to_bits(framing.frame_packet(
+                p, ldpc.encode_bytes, "v2"), "v2"),
+                rng.integers(0, 2, 200).astype(np.uint8)]
+        streams[k] = np.concatenate(bits)
+    n_bits = max(len(b) for b in streams.values()) + 4 * cfg.Nbits
+    n_bits += (-n_bits) % cfg.Nbits
+    wide = np.zeros(n_bits * wide_cfg.Ts, np.complex64)
+    t = np.arange(len(wide), dtype=np.float64) / fs_total
+    for k, b in streams.items():
+        b = np.concatenate([b, rng.integers(0, 2, n_bits - len(b)
+                                            ).astype(np.uint8)])
+        sig, _ = fsk.fsk_mod_np(wide_cfg, b, 2 * cfg.Rs, cfg.Rs)
+        wide += (sig * np.exp(2j * np.pi * centres[k] * t)).astype(
+            np.complex64)
+    wide = channel.add_awgn(wide, ebno_db + 10 * np.log10(len(packets)),
+                            fs_total, cfg.Rs, rng=rng)
+    return wide.astype(np.complex64), sent

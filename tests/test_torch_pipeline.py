@@ -138,14 +138,65 @@ def test_cli_decodes_cu8_file(tmp_path):
     assert "crc_ok=5 " in proc.stderr.strip().splitlines()[-1]
 
 
-def test_cli_rejects_unported_modes(tmp_path):
-    proc = subprocess.run(
-        [sys.executable, "-m", "wenet_tpu_torch", "rx", "x.cu8",
-         "--channels", "4", "--device", "cpu"],
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
-        capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 2
-    assert "not yet ported to wenet_tpu_torch" in proc.stderr
+def _wideband_capture(cfg, n_ch, channel_k, message, seed):
+    """One text packet on channel `channel_k` of an n_ch-channel wideband
+    capture at 30 dB (tests/test_channelizer.py::test_wideband_cli)."""
+    from wenet_tpu.core import packets as wp
+    rng = np.random.default_rng(seed)
+    frame = framing.frame_packet(wp.encode_text_message(message, 7),
+                                 ldpc.encode_bytes, mode="v2")
+    bits = np.concatenate([
+        rng.integers(0, 2, cfg.Nbits * 3).astype(np.uint8),
+        framing.frame_to_bits(frame, "v2"),
+        rng.integers(0, 2, cfg.Nbits * 3).astype(np.uint8)])
+    bits = np.concatenate([bits, np.zeros((-len(bits)) % cfg.Nbits,
+                                          np.uint8)])
+    sig = jfsk.fsk_mod_np(cfg, bits, 2 * cfg.Rs, cfg.Rs)[0].astype(
+        np.complex64)
+    fs_total = cfg.Fs * n_ch
+    n = len(sig)
+    t = np.arange(n * n_ch) / fs_total
+    dst_t = np.arange(n * n_ch) / n_ch
+    i0 = np.minimum(dst_t.astype(np.int64), n - 2)
+    fr = dst_t - i0
+    nb = (1 - fr) * sig[i0] + fr * sig[i0 + 1]
+    wide = (nb * np.exp(2j * np.pi * (channel_k * fs_total / n_ch) * t)
+            ).astype(np.complex64)
+    return channel.add_awgn(wide, 30.0, fs_total, cfg.Rs,
+                            rng=np.random.default_rng(seed + 1))
+
+
+def _text_logs(log_dir):
+    return sorted(p.read_text() for p in log_dir.glob("*text*"))
+
+
+def test_cli_wideband_matches_jax(tmp_path, capsys):
+    """`rx --channels 8 --channel-select 3` through both CLIs on the CPU
+    (the port with --device cpu): exit 0, one packet each, the same text
+    log; and without --channel-select the port routes it too."""
+    from wenet_tpu.cli import rx as jax_cli
+    from wenet_tpu_torch.cli import rx as port_cli
+    cfg = jfsk.FSKConfig(**GEOM["v2"])
+    cap = tmp_path / "wide.c64"
+    _wideband_capture(cfg, 8, 3, "wideband channel three", 60).tofile(cap)
+    common = [str(cap), "--format", "c64", "--channels", "8", "--mode", "v2",
+              "--fs", str(cfg.Fs), "--rs", str(cfg.Rs), "--no-udp"]
+    logs, lines = {}, {}
+    for name, cli, extra in (
+            ("jax", jax_cli, ["--channel-select", "3"]),
+            ("port", port_cli, ["--channel-select", "3", "--device", "cpu"]),
+            ("port_all", port_cli, ["--device", "cpu"])):
+        out = tmp_path / name
+        assert cli.main(common + extra + [
+            "--image-dir", str(out / "img"), "--log-dir",
+            str(out / "logs")]) == 0
+        logs[name] = _text_logs(out / "logs")
+        lines[name] = capsys.readouterr().err.strip().splitlines()[-1]
+    assert logs["port"] == logs["jax"] == logs["port_all"]
+    assert len(logs["jax"]) == 1 and "wideband channel three" in logs["jax"][0]
+    for name in lines:
+        assert lines[name].startswith("wideband: 8 channels, 1 packets, "), \
+            lines[name]
 
 
 @pytest.mark.parametrize("mode", ["v2", "v1"])

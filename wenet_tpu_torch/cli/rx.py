@@ -14,9 +14,11 @@ whole capture in one fused device step of N overlap-save chunks
 flight (`decode_iq_fused_overlap`) and alone implies `--parallel 4*S`.
 `--format s16` (real s16 samples) converts on the host and pushes complex
 samples.  Unless `--no-udp`, the modem-stats records carry the eye
-diagram of the last valid frame.  The wideband mode of the JAX CLI
-(--channels) is not ported yet and exits with status 2; `--channel-select`
-parses, for it.
+diagram of the last valid frame.  `--channels N` reads the whole capture
+as one wideband stream at N times the mode's rate, channelizes it into N
+channels on the device and decodes them all
+(`ops.channelizer.demod_multichannel`); `--channel-select` keeps only the
+channels it names.
 """
 from __future__ import annotations
 
@@ -25,8 +27,6 @@ import sys
 import time
 
 import numpy as np
-
-NOT_PORTED = ("channels",)
 
 
 def add_args(ap: argparse.ArgumentParser):
@@ -72,8 +72,10 @@ def add_args(ap: argparse.ArgumentParser):
                          "of slab s+1 overlaps the work on slab s")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without a card)")
-    for name in NOT_PORTED:
-        ap.add_argument(f"--{name}", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--channels", type=int, default=0, metavar="N",
+                    help="wideband mode: polyphase-channelize the capture "
+                         "into N channels of --fs each and demodulate them "
+                         "all as lanes of one device call")
     ap.add_argument("--channel-select", default=None, metavar="K[,K...]",
                     help="with --channels: only decode these channel indices")
 
@@ -82,11 +84,6 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     add_args(ap)
     args = ap.parse_args(argv)
-    for name in NOT_PORTED:
-        if getattr(args, name) is not None:
-            print(f"--{name} is not yet ported to wenet_tpu_torch",
-                  file=sys.stderr)
-            return 2
 
     from ..ops import fsk
     from ..rx import stats as rxstats
@@ -108,6 +105,8 @@ def main(argv=None):
                         with_eye=not args.no_udp, device=args.device)
 
     conv, dtype, width = INPUT_CONVERTERS[args.format]
+    if args.channels:
+        return _wideband(args, cfg, conv, dtype)
     if args.slabs > 1 and not args.parallel:
         args.parallel = 4 * args.slabs
         print(f"--slabs {args.slabs} implies --parallel {args.parallel} "
@@ -201,6 +200,42 @@ def main(argv=None):
           f"crc_ok={s.crc_ok} images={router.images_decoded} "
           f"wall={dt:.2f}s ({s.samples / max(dt, 1e-9) / 1e6:.2f} Msamp/s) "
           f"device={rx.device}", file=sys.stderr)
+    return 0
+
+
+def _wideband(args, cfg, conv, dtype) -> int:
+    """--channels N: the whole capture, converted on the host, through the
+    channelizer and the per-channel decode; payloads routed in channel
+    order."""
+    from ..ops.channelizer import demod_multichannel
+    from ..rx.router import PacketRouter, UDPEmitter
+
+    fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
+    iq = conv(np.frombuffer(fin.read(), dtype=dtype))
+    if fin is not sys.stdin.buffer:
+        fin.close()
+    sel = ([int(k) for k in args.channel_select.split(",")]
+           if args.channel_select else None)
+    router = PacketRouter(image_dir=args.image_dir, log_dir=args.log_dir,
+                          partial_update=args.partialupdate,
+                          headless=args.headless,
+                          emitter=UDPEmitter(enabled=not args.no_udp))
+    t0 = time.time()
+    per_channel = demod_multichannel(
+        iq, Fs_total=cfg.Fs * args.channels, n_channels=args.channels,
+        cfg=cfg, mode=args.mode, channels=sel, device=args.device)
+    n = 0
+    for k in sorted(per_channel):
+        for payload in per_channel[k]:
+            router.handle_packet(payload)
+            n += 1
+    router.flush()
+    dt = time.time() - t0
+    # iq is at the full wideband rate Fs_total = cfg.Fs * channels
+    print(f"wideband: {args.channels} channels, {n} packets, "
+          f"images={router.images_decoded} wall={dt:.2f}s "
+          f"({len(iq) / max(dt, 1e-9) / 1e6:.2f} Msamp/s)",
+          file=sys.stderr)
     return 0
 
 

@@ -1,6 +1,7 @@
 """Channel models for self-contained Monte-Carlo testing (counterpart of
 wenet_tpu/ops/channel.py): calibrated AWGN at a target Eb/N0, a complex
-frequency shift, and a linear-interpolation resampler.
+frequency shift, a linear-interpolation resampler, and a synthetic
+multi-channel wideband capture.
 
 numpy host versions for making captures, and torch versions for sweeps on
 the device, which draw their noise from an explicit `torch.Generator`.
@@ -86,3 +87,45 @@ def freq_shift_torch(iq: torch.Tensor, shift_hz, Fs: int) -> torch.Tensor:
     else:
         ang = 2 * np.pi * float(shift_hz) * n / Fs
     return iq * torch.complex(torch.cos(ang), torch.sin(ang))
+
+
+def wideband_capture(cfg, n_channels: int, packets: int, ebno_db: float,
+                     seed: int):
+    """A synthetic wideband capture at n_channels * cfg.Fs, after
+    tools/wideband_scaling.py: on channel k (its bits from
+    `np.random.default_rng(seed + k)`) 8 frames of random bits, then
+    `packets` random-payload v2 packets with 512 random bits after each,
+    FSK-modulated at the wideband rate and mixed to the channel's centre
+    (`channelizer.channel_centres`); then AWGN at ebno_db per channel (from
+    `default_rng(seed + n_channels)`).  Returns (complex64 capture,
+    {channel: [payloads]})."""
+    import dataclasses
+
+    from ..core import framing
+    from . import channelizer, fsk, ldpc
+
+    fs_total = cfg.Fs * n_channels
+    wide_cfg = dataclasses.replace(cfg, Fs=fs_total)
+    centres = channelizer.channel_centres(fs_total, n_channels)
+    wide, sent = None, {}
+    for k in range(n_channels):
+        r = np.random.default_rng(seed + k)
+        bits, sent[k] = [r.integers(0, 2, cfg.Nbits * 8).astype(np.uint8)], []
+        for _ in range(packets):
+            p = r.integers(0, 256, 256, dtype=np.uint8).tobytes()
+            sent[k].append(p)
+            bits += [framing.frame_to_bits(framing.frame_packet(
+                p, ldpc.encode_bytes, "v2"), "v2"),
+                r.integers(0, 2, 512).astype(np.uint8)]
+        bits = np.concatenate(bits)
+        bits = np.concatenate([bits, np.zeros((-len(bits)) % cfg.Nbits,
+                                              np.uint8)])
+        sig, _ = fsk.fsk_mod_np(wide_cfg, bits, 2 * cfg.Rs, cfg.Rs)
+        if wide is None:             # all channels share one length
+            wide = np.zeros(len(sig), np.complex64)
+            t = np.arange(len(sig), dtype=np.float64) / fs_total
+        wide += (sig * np.exp(2j * np.pi * centres[k] * t)).astype(
+            np.complex64)
+    wide = add_awgn(wide, ebno_db + 10 * np.log10(n_channels), fs_total,
+                    cfg.Rs, rng=np.random.default_rng(seed + n_channels))
+    return wide.astype(np.complex64), sent

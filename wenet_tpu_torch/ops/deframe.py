@@ -4,10 +4,11 @@
 UW acquisition is the numpy emulation of the reference's C FSM
 (`wenet_ldpc.c` / `drs232_ldpc.c`) on the host.  The candidate windows then
 decode as one batch on the device: descramble or RS232 strip on the host,
-then `sd_to_llr`, the BP decode (the CUDA kernel on a CUDA device), the CRC
-gate and byte packing on the device, with one device-to-host copy of the
+then `sd_to_llr`, the BP decode and the CRC gate with byte packing (on a
+CUDA device the BP and CRC kernels), with one device-to-host copy of the
 packed result.  `deframe_topk` is the variant of the fused paths that runs
-wholly on the device: k strongest UW picks per stream, one decode batch.
+wholly on the device: k strongest UW picks per stream (on a CUDA device
+the acquisition kernel), one decode batch.
 """
 from __future__ import annotations
 
@@ -146,11 +147,7 @@ def decode_windows(windows: np.ndarray, mode: str = "v2",
     sd_t = torch.from_numpy(sd).to(device)
     llr = ldpc.sd_to_llr(sd_t)
     bits, iters, _ = ldpc.decode(llr, max_iter=max_iter)
-    ok = dcrc.packet_crc_ok(bits)
-    pbytes = dcrc.bits_to_bytes(bits[:, : 258 * 8]).to(torch.uint8)
-    packed = torch.cat([pbytes, ok[:, None].to(torch.uint8),
-                        torch.clamp(iters, 0, 255)[:, None].to(torch.uint8)],
-                       dim=1).cpu().numpy()[:B]
+    packed = dcrc.crc_pack(bits, iters=iters).cpu().numpy()[:B]
     return (packed[:, :258].copy(), packed[:, 258].astype(bool),
             packed[:, 259].astype(np.int32))
 
@@ -223,30 +220,16 @@ def descramble_or_strip(wins: torch.Tensor, mode: str) -> torch.Tensor:
     return sd[:, : T.CODE_LEN].contiguous()
 
 
-def deframe_topk(soft, mode: str = "v2", k: int = 8,
-                 max_iter: int = T.MAX_ITER, device="cuda"):
-    """Deframe up to k packets from each of C soft streams on the device.
+def topk_windows_reference(soft: torch.Tensor, mode: str, k: int):
+    """The plain version of the top-k acquisition kernel
+    (`kernels.deframe_topk`), on any device: soft (C, n) float32 ->
+    (sd (C k, 2580) descrambled or stripped windows, positions (C, k)
+    int32, exhausted (C, k) bool).
 
-    soft: (C, n) or (n,) float32 (a tensor, or numpy moved to `device`,
-    CUDA unless the caller asks for another; raises without a card).  Per
-    stream: the +/-1 UW correlation, k rounds of first-maximum pick with
-    every start whose window would overlap the pick blanked to -inf, the
-    windows gathered (a pick past the placeable windows gives position -1
-    and a zeroed, CRC-failing window), descramble or RS232 strip,
-    `sd_to_llr`, one BP decode of all C * k windows, CRC and byte packing.
-
-    Returns (payload bytes (C, k, 258) uint8, crc_ok (C, k) bool,
-    iters (C, k) int32, positions (C, k) int32), without the C axis for a
-    1-d input — `wenet_tpu/ops/deframe.py::deframe_topk` with the chunk
-    axis its callers vmap.
-    """
-    if isinstance(soft, torch.Tensor):
-        soft = soft.to(torch.float32)
-    else:
-        soft = torch.as_tensor(np.asarray(soft, np.float32),
-                               device=resolve_device(device))
-    flat = soft.dim() == 1
-    soft = soft.reshape(1, -1) if flat else soft
+    Per stream: the +/-1 UW correlation, k rounds of first-maximum pick
+    with every start whose window would overlap the pick blanked to -inf,
+    and the windows gathered (a pick past the placeable windows gives
+    position -1 and a zero window)."""
     uw, _, syms = _mode_params(mode)
     C, n = soft.shape
     nuw = len(uw)
@@ -277,11 +260,55 @@ def deframe_topk(soft, mode: str = "v2", k: int = 8,
     wins = soft[:, None, :].expand(C, k, n).gather(2, cols)
     wins = torch.where(exhausted[..., None], 0.0, wins)
     positions = torch.where(exhausted, -1, starts).to(torch.int32)
-    sd = descramble_or_strip(wins.reshape(C * k, syms), mode)
-    bits, iters, _ = ldpc.decode(ldpc.sd_to_llr(sd), max_iter=max_iter)
-    ok = dcrc.packet_crc_ok(bits).reshape(C, k)
-    pbytes = dcrc.bits_to_bytes(bits[:, : 258 * 8]).to(torch.uint8).reshape(
-        C, k, 258)
+    return descramble_or_strip(wins.reshape(C * k, syms), mode), positions, \
+        exhausted
+
+
+def deframe_topk(soft, mode: str = "v2", k: int = 8,
+                 max_iter: int = T.MAX_ITER, device="cuda",
+                 packed: bool = False):
+    """Deframe up to k packets from each of C soft streams on the device.
+
+    soft: (C, n) or (n,) float32 (a tensor, or numpy moved to `device`,
+    CUDA unless the caller asks for another; raises without a card).  Per
+    stream: the +/-1 UW correlation, k rounds of first-maximum pick with
+    every start whose window would overlap the pick blanked to -inf, the
+    windows gathered (a pick past the placeable windows gives position -1
+    and a zeroed, CRC-failing window), descramble or RS232 strip,
+    `sd_to_llr`, one BP decode of all C * k windows, CRC and byte packing.
+    On a CUDA tensor that is three launches: the acquisition kernel
+    (`kernels.deframe_topk`, up to the LLRs), the BP kernel and the CRC
+    kernel (`ops.crc.crc_pack`); on a CPU tensor the plain versions.
+
+    Returns (payload bytes (C, k, 258) uint8, crc_ok (C, k) bool,
+    iters (C, k) int32, positions (C, k) int32), without the C axis for a
+    1-d input — `wenet_tpu/ops/deframe.py::deframe_topk` with the chunk
+    axis its callers vmap.  packed=True returns instead one uint8 tensor
+    (C, k, 263) for a single device-to-host copy, the rows of
+    `wenet_tpu/ops/deframe.py::pack_decode_results` built by the CRC
+    kernel: payload bytes, the ok flag and the position as little-endian
+    32 bits (`unpack_decode_results` reads them).
+    """
+    if isinstance(soft, torch.Tensor):
+        soft = soft.to(torch.float32)
+    else:
+        soft = torch.as_tensor(np.asarray(soft, np.float32),
+                               device=resolve_device(device))
+    flat = soft.dim() == 1
+    soft = soft.reshape(1, -1) if flat else soft
+    C = soft.shape[0]
+    if soft.device.type == "cuda":
+        from ..kernels import deframe_topk as kernel
+        llr, positions, exhausted = kernel.llrs(soft.contiguous(), mode, k)
+    else:
+        sd, positions, exhausted = topk_windows_reference(soft, mode, k)
+        llr = ldpc.sd_to_llr(sd)
+    bits, iters, _ = ldpc.decode(llr, max_iter=max_iter)
+    rows = dcrc.crc_pack(bits, positions=positions.reshape(-1)).reshape(
+        C, k, -1)
+    if packed:
+        return rows[0] if flat else rows
+    pbytes, ok = rows[..., :258], rows[..., 258].bool()
     # an exhausted pick's zero window has NaN LLRs, which stop the plain
     # decoder after one iteration (no data bit is < 0); the JAX package,
     # compiled by XLA, reports the full max_iter for it: so does the port
@@ -291,20 +318,8 @@ def deframe_topk(soft, mode: str = "v2", k: int = 8,
     return tuple(t[0] for t in out) if flat else out
 
 
-def pack_decode_results(pb: torch.Tensor, ok: torch.Tensor,
-                        pos: torch.Tensor) -> torch.Tensor:
-    """deframe_topk's results -> ONE uint8 tensor (..., k, 263): payload
-    bytes, the ok flag and the position as little-endian 32 bits, so a whole
-    step's packet output is a single device-to-host copy."""
-    pu = pos.to(torch.int64) & 0xFFFFFFFF
-    pos_b = torch.stack([((pu >> s) & 0xFF).to(torch.uint8)
-                         for s in (0, 8, 16, 24)], dim=-1)
-    return torch.cat([pb.to(torch.uint8), ok[..., None].to(torch.uint8),
-                      pos_b], dim=-1)
-
-
 def unpack_decode_results(packed: np.ndarray):
-    """Host-side inverse of pack_decode_results:
+    """Host-side reading of `deframe_topk(packed=True)`'s rows:
     (..., 263) uint8 -> (payload_bytes (..., 258), ok bool, pos int32)."""
     pb = packed[..., :258]
     ok = packed[..., 258].astype(bool)

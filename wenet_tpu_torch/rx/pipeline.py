@@ -435,10 +435,9 @@ class _FusedStep:
                                 self.starts, self.n_valid)
         keep = outs.valid & (self._frame[None] >= skips[:, None])
         soft = torch.where(keep[..., None], outs.soft, 1.0)
-        pb, ok, _, pos = deframe.deframe_topk(
-            soft.reshape(soft.shape[0], -1), self.mode, self.k,
-            self.max_iter)
-        return deframe.pack_decode_results(pb, ok, pos)
+        return deframe.deframe_topk(soft.reshape(soft.shape[0], -1),
+                                    self.mode, self.k, self.max_iter,
+                                    packed=True)
 
 
 class _SlabPipe:
