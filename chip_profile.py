@@ -2,6 +2,7 @@
 
     python3 chip_profile.py [--batch 70] [--snr 2.5] [--seed 5]
     python3 chip_profile.py --kernel fsk_demod [--source FILE]
+    python3 chip_profile.py --kernel deframe_topk [--source FILE]
 
 bp_onehot (the default): builds wenet_tpu_torch/csrc/bp_onehot.cu a second
 time with -DBP_ONEHOT_PHASES, which makes thread 0 of each of the first 64
@@ -20,6 +21,20 @@ them inserted at its phase marks.  It demodulates one lane of a v2
 flight-geometry cu8 capture (random bits at 12 dB), checks valid, nin and
 f_est against ops.fsk.demod_raw_reference, and prints the median over
 frames 1..63 of each phase's SM cycles and of the whole frame's.
+
+deframe_topk: builds the top-k acquisition kernel (csrc/deframe_topk.cu,
+or --source, e.g. its first revision) a second time with
+-DDEFRAME_TOPK_PHASES, which makes thread 0 of each block keep clock64 at
+the end of each phase; the first revision (one block a stream, no clocks
+of its own) gets them inserted at its phase marks and is called through
+its own argument struct.  It acquires k = 11 picks on 16 streams of
+22,128 symbols (the fused v2 step's shape: packet trains at 0.5 noise),
+checks positions, exhausted flags and windows against
+ops.deframe.topk_windows_reference, and prints the slowest block's SM
+cycles of each phase: hard bits, scores, each pick round's argmax and
+blanking, each window's gather and sd_to_llr (the new kernel's windows run
+in parallel, one block a pick: their slowest block), beside the CUDA-event
+time of a call of the phase build.
 
 Each prints the card's name, power limit and SM clock.  Without a CUDA
 device it fails at once.
@@ -55,6 +70,37 @@ extern "C" int fsk_demod_read_phases(long long* host) {
 #define PHASE(k)
 #endif
 """
+
+
+TOPK_PRELUDE = r"""
+#ifdef DEFRAME_TOPK_PHASES
+__device__ long long deframe_topk_phases[3 * 1024 * 64];
+extern "C" int deframe_topk_read_phases(long long* host) {
+    return (int)cudaMemcpyFromSymbol(host, deframe_topk_phases,
+                                     sizeof(deframe_topk_phases));
+}
+#define PHASE(kind, blk, slot)                                         \
+    if (threadIdx.x == 0 && (blk) < 1024 && (slot) < 64)               \
+    deframe_topk_phases[((kind) * 1024 + (blk)) * 64 + (slot)] = clock64()
+#else
+#define PHASE(kind, blk, slot)
+#endif
+"""
+# the first revision's phase marks: (line, clock inserted before it or after)
+TOPK_MARKS = (
+    ("    // 1. hard bits, 32 to a word\n", "    PHASE(1, c, 0);\n", True),
+    ("    // 2. exact correlation scores", "    PHASE(1, c, 1);\n", True),
+    ("    const int reach = g.nuw + g.syms;\n", "    PHASE(1, c, 2);\n", True),
+    ("        const int s = pick_s, dead = pick_dead;\n",
+     "        PHASE(1, c, 3 + 4 * r);\n", True),
+    ("        // 4. the window, descrambled or stripped, and its LLRs\n",
+     "        PHASE(1, c, 4 + 4 * r);\n", True),
+    ("        block_sum2(sabs, unused, red_f);\n",
+     "        PHASE(1, c, 5 + 4 * r);\n", True),
+    ("        __syncthreads();            // blanking done before the next "
+     "scan\n", "        PHASE(1, c, 6 + 4 * r);\n", False),
+)
+TOPK_SHAPE = (16, 22128, 11)  # the fused v2 step: streams, symbols, picks
 
 
 def smi_line():
@@ -187,15 +233,175 @@ def profile_demod(args) -> int:
     return 0
 
 
+def instrument_topk(src: str) -> str:
+    """Phase clocks for the first revision of the acquisition kernel (one
+    block a stream): TOPK_PRELUDE after its defines, and a clock at each
+    of TOPK_MARKS (kernel 1, block = the stream)."""
+    src = src.replace("#define FULL 0xFFFFFFFFu\n",
+                      "#define FULL 0xFFFFFFFFu\n" + TOPK_PRELUDE, 1)
+    for line, clock, before in TOPK_MARKS:
+        if src.count(line) != 1:
+            raise RuntimeError(f"no single mark {line.strip()!r} in the "
+                               "acquisition source")
+        src = src.replace(line, clock + line if before else line + clock)
+    return src
+
+
+def topk_soft(rng, C, n):
+    """(C, n) float32 soft bits: v2 packet trains (random payloads, random
+    gaps) at noise 0.5."""
+    from wenet_tpu_torch.core import framing
+    from wenet_tpu_torch.ops import ldpc
+    rows = []
+    for _ in range(C):
+        bits = [rng.integers(0, 2, int(rng.integers(100, 2000)))]
+        while sum(map(len, bits)) < n:
+            p = rng.integers(0, 256, 256, dtype=np.uint8).tobytes()
+            bits.append(framing.frame_to_bits(framing.frame_packet(
+                p, ldpc.encode_bytes, mode="v2"), "v2"))
+            bits.append(rng.integers(0, 2, int(rng.integers(50, 600))))
+        b = np.concatenate(bits)[:n].astype(np.float32)
+        rows.append(1.0 - 2.0 * b + rng.normal(0, 0.5, n))
+    return np.stack(rows).astype(np.float32)
+
+
+def profile_topk(args) -> int:
+    import ctypes as C
+    import hashlib
+    import torch
+    from wenet_tpu_torch import kernels
+    from wenet_tpu_torch.kernels import deframe_topk as ktopk
+    from wenet_tpu_torch.ops import deframe
+
+    path = args.source or os.path.join(kernels.CSRC, "deframe_topk.cu")
+    with open(path) as fh:
+        src = fh.read()
+    first_revision = "DEFRAME_TOPK_PHASES" not in src
+    if first_revision:
+        src = instrument_topk(src)
+    tag = hashlib.sha1(src.encode()).hexdigest()[:12]
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    cu = os.path.join(kernels.BUILD_DIR, f"deframe_topk_phases_{tag}.cu")
+    out = cu[:-3] + ".so"
+    with open(cu, "w") as fh:
+        fh.write(src)
+    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS,
+                    "-DDEFRAME_TOPK_PHASES", "-o", out, cu], check=True,
+                   capture_output=True)
+    lib = C.CDLL(out)
+    lib.deframe_topk_launch.restype = C.c_int
+    lib.deframe_topk_launch.argtypes = [C.c_void_p, C.c_void_p]
+    lib.deframe_topk_read_phases.restype = C.c_int
+    lib.deframe_topk_read_phases.argtypes = [C.c_void_p]
+
+    dev = torch.device("cuda")
+    nC, n, k = TOPK_SHAPE
+    soft = torch.from_numpy(topk_soft(np.random.default_rng(args.seed), nC,
+                                      n)).to(dev)
+    uw, nuw, syms = ktopk.mode_params("v2")
+    llr = torch.empty((nC * k, 2580), device=dev)
+    sd = torch.empty_like(llr)
+    pos = torch.empty((nC, k), dtype=torch.int32, device=dev)
+    exh = torch.empty((nC, k), dtype=torch.bool, device=dev)
+    code = ktopk._code(dev)
+    nlive = max(n - syms - nuw + 1, 0)
+    if first_revision:           # its TopkArgs: words and scores on chip
+        fields = ([(f, C.c_void_p) for f in (
+            "soft", "code", "llr", "sd_out", "pos", "exhausted", "g_words",
+            "g_scores")] + [("n", C.c_longlong), ("uw", C.c_ulonglong)]
+            + [(f, C.c_int) for f in ("C", "k", "nuw", "syms", "v2", "nlive",
+                                      "nwords")])
+        argt = type("Args1", (C.Structure,), {"_fields_": fields})
+        a = argt(soft.data_ptr(), code.data_ptr(), llr.data_ptr(),
+                 sd.data_ptr(), pos.data_ptr(), exh.data_ptr(), None, None,
+                 n, uw, nC, k, nuw, syms, 1, nlive, -(-n // 32) + 2)
+        keep = None
+    else:
+        lib.deframe_topk_init.restype = C.c_int
+        if lib.deframe_topk_init():
+            raise RuntimeError("deframe_topk_init failed")
+        _, ntiles, scratch_bytes, _ = ktopk.geometry(n, "v2", nC)
+        keep = torch.empty((scratch_bytes,), dtype=torch.uint8, device=dev)
+        a = ktopk.Args(soft.data_ptr(), code.data_ptr(), llr.data_ptr(),
+                       sd.data_ptr(), pos.data_ptr(), exh.data_ptr(),
+                       keep.data_ptr(), scratch_bytes, n, uw, nC, k, nuw,
+                       syms, 1, nlive, ntiles)
+
+    def launch():
+        rc = lib.deframe_topk_launch(C.addressof(a),
+                                     torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"launch failed: cudaError_t {rc}")
+    for _ in range(3):
+        launch()
+    torch.cuda.synchronize()
+    clocks = np.zeros(3 * 1024 * 64, np.int64)
+    rc = lib.deframe_topk_read_phases(clocks.ctypes.data_as(C.c_void_p))
+    if rc:
+        raise RuntimeError(f"reading the phase clocks: cudaError_t {rc}")
+    sd_w, pos_w, exh_w = deframe.topk_windows_reference(soft, "v2", k)
+    if not (torch.equal(pos, pos_w) and torch.equal(exh, exh_w)
+            and torch.equal(sd, sd_w)):
+        raise RuntimeError("the phase build differs from the plain version")
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(20):
+        launch()
+    t1.record()
+    t1.synchronize()
+    st = clocks.reshape(3, 1024, 64)
+
+    def slowest(kind, blocks, hi, lo):
+        d = st[kind, :blocks, hi] - st[kind, :blocks, lo]
+        ok = (st[kind, :blocks, hi] != 0) & (st[kind, :blocks, lo] != 0)
+        return float(d[ok].max()) if ok.any() else None
+
+    rounds = []
+    if first_revision:
+        for r in range(k):
+            prev = 2 if r == 0 else 6 + 4 * (r - 1)
+            rounds.append({"argmax": slowest(1, nC, 3 + 4 * r, prev),
+                           "blank": slowest(1, nC, 4 + 4 * r, 3 + 4 * r),
+                           "gather": slowest(1, nC, 5 + 4 * r, 4 + 4 * r),
+                           "sd_to_llr": slowest(1, nC, 6 + 4 * r,
+                                                5 + 4 * r)})
+        phases = {"hard_bits": slowest(1, nC, 1, 0),
+                  "scores": slowest(1, nC, 2, 1),
+                  "block_total": slowest(1, nC, 2 + 4 * k, 0)}
+    else:
+        blocks = min(-(-nlive // 1024) * nC, 1024)
+        for r in range(k):
+            prev = 1 if r == 0 else 3 + 2 * (r - 1)
+            rounds.append({"argmax": slowest(1, nC, 2 + 2 * r, prev),
+                           "blank": slowest(1, nC, 3 + 2 * r, 2 + 2 * r)})
+        rows = min(nC * k, 1024)
+        phases = {"hard_bits": slowest(0, blocks, 1, 0),
+                  "scores": slowest(0, blocks, 2, 1),
+                  "tile_copy": slowest(1, nC, 1, 0),
+                  "window_gather": slowest(2, rows, 1, 0),
+                  "window_sd_to_llr": slowest(2, rows, 2, 1)}
+    print(json.dumps({
+        "kernel": "deframe_topk", "source": os.path.relpath(path, ROOT),
+        "first_revision": first_revision, "streams": nC, "symbols": n,
+        "picks": k, "exhausted": int(exh_w.sum()),
+        "call_ms_phase_build": t0.elapsed_time(t1) / 20,
+        "sm_cycles": phases, "rounds_sm_cycles": rounds,
+        "card": smi_line()}))
+    del keep
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=["bp_onehot", "fsk_demod"],
+    ap.add_argument("--kernel", choices=["bp_onehot", "fsk_demod",
+                                         "deframe_topk"],
                     default="bp_onehot")
     ap.add_argument("--batch", type=int, default=70)
     ap.add_argument("--snr", type=float, default=2.5)
     ap.add_argument("--seed", type=int, default=5)
     ap.add_argument("--source", default=None,
-                    help="fsk_demod: the kernel source to profile")
+                    help="fsk_demod, deframe_topk: the kernel "
+                    "source to profile")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -203,6 +409,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if args.kernel == "fsk_demod":
         return profile_demod(args)
+    if args.kernel == "deframe_topk":
+        return profile_topk(args)
     from wenet_tpu_torch import kernels
     from wenet_tpu_torch.kernels import bp_onehot
     from wenet_tpu_torch.ops import ldpc, ldpc_onehot

@@ -110,6 +110,8 @@ WIDE_SELECT = (6, 1, 3)       # a channel selection, in this order
 WIDE_FALSE_LOCK = (6, 9)
 CHANNELIZE_TOL = 1e-5         # max |d| / rms of the channelizer's output
 TOPK_LLR_RTOL = 1e-5          # sd_to_llr's sums in another order
+CALL_REPS = 200               # eager calls behind the CRC and acquisition
+#                               kernels' call_ms (the host's share is noisy)
 VALID_EDGES = 7223            # of the 516 x 14 edge slots of H2064_516
 
 
@@ -472,10 +474,15 @@ def main() -> int:
                 for b in (1, 16, 40, 70, 128, 2048)},
         minsum_shapes={b: bp_decode.launch_shape(b, sms, per_sm, True)
                        for b in (1, 70, 2048)})
-    for n_t, mode_t in ((22128, "v2"), (14448, "v1"), (150000, "v2")):
-        nlive_t, nwords_t, smem_t = ktopk.geometry(n_t, mode_t)
-        require(ktopk._lib().deframe_topk_smem_bytes(nwords_t, nlive_t)
-                == smem_t, "deframe_topk smem accounting")
+    for n_t, mode_t, c_t in ((22128, "v2", 16), (14448, "v1", 16),
+                             (39888, "v2", 8), (150_000, "v1", 2)):
+        nlive_t, ntiles_t, scratch_t, smem_t = ktopk.geometry(n_t, mode_t,
+                                                              c_t)
+        lib_t = ktopk._lib()
+        require(lib_t.deframe_topk_scratch_bytes(c_t, nlive_t, ntiles_t)
+                == scratch_t
+                and lib_t.deframe_topk_pick_smem_bytes(nlive_t, ntiles_t)
+                == smem_t, "deframe_topk scratch accounting")
     for n_ch in (4, 8, 16, 64, 256):
         tile = kchan.tile_frames(n_ch, 12)
         require(kchan._lib().channelize_smem_bytes(n_ch, 12, tile)
@@ -801,6 +808,8 @@ def main() -> int:
         profiled_step_wall_ms=f"{wall_f * 1e3:.3f}",
         step_kernels=nk_f if busy_f is not None else "not measured",
         step_device_busy_share=share(busy_f, wall_f),
+        step_device_ms=("not measured" if busy_f is None
+                        else f"{busy_f:.4f}"),
         receiver_wall_s=f"{wall_r:.3f}", receiver_kernels=nk_r,
         receiver_device_busy_share=share(busy_r, wall_r), card=repr(smi))
 
@@ -831,7 +840,7 @@ def main() -> int:
         bound, by = crc_bound(B)
         m = {"ms": graph_ms(lambda: dcrc.crc_pack(bits_b, **timed_kw)),
              "call_ms": event_ms(lambda: dcrc.crc_pack(bits_b, **timed_kw),
-                                 20),
+                                 CALL_REPS),
              "plain_ms": event_ms(lambda: dcrc.crc_pack_reference(
                  bits_b, **timed_kw), 3),
              "bound_ms": bound, "bound_by": by, "batch": B}
@@ -905,7 +914,8 @@ def main() -> int:
         nuw = ktopk.mode_params(mode_t)[1]
         bound, by = topk_bound(C, soft_t.shape[1], k_t, nlive, nuw)
         m = {"ms": graph_ms(lambda: ktopk.llrs(soft_t, mode_t, k_t)),
-             "call_ms": event_ms(lambda: ktopk.llrs(soft_t, mode_t, k_t), 20),
+             "call_ms": event_ms(lambda: ktopk.llrs(soft_t, mode_t, k_t),
+                                 CALL_REPS),
              "plain_ms": event_ms(lambda: ldpc.sd_to_llr(
                  deframe.topk_windows_reference(soft_t, mode_t, k_t)[0]), 3),
              "bound_ms": bound, "bound_by": by, "llr_rel_err": rel,
@@ -919,7 +929,8 @@ def main() -> int:
             call_ms=f"{m['call_ms']:.4f}",
             plain_ms=f"{m['plain_ms']:.3f}", bound_ms=f"{bound:.6f}",
             bound_by=by, share_of_bound=f"{bound / m['ms']:.5f}",
-            smem_bytes=ktopk.geometry(soft_t.shape[1], mode_t)[2],
+            scratch_bytes=ktopk.geometry(soft_t.shape[1], mode_t, C)[2],
+            pick_smem_bytes=ktopk.geometry(soft_t.shape[1], mode_t)[3],
             card=repr(smi))
         return bits_g, pos_g
 

@@ -175,13 +175,15 @@ def test_crc_pack_layouts(tail):
 
 def _emulate_topk_scores(soft, mode):
     """The acquisition kernel's scores (csrc/deframe_topk.cu), in numpy: the
-    hard bits packed 32 to a word as one ballot packs them, 64 bits from
-    each start t funnel-shifted out of words t/32 .. t/32 + 2, and
-    nuw - 2 popcount((bits ^ UW) & mask)."""
+    hard bits packed 32 to a word as one ballot packs them (a score block
+    of 1024 starts packs the words from its first start, which are these
+    words), 64 bits from each start t funnel-shifted out of words t/32 ..
+    t/32 + 2, and nuw - 2 popcount((bits ^ UW) & mask)."""
     from wenet_tpu_torch.kernels import deframe_topk as ktopk
     uw, nuw, _ = ktopk.mode_params(mode)
     n = len(soft)
-    nlive, nwords, _ = ktopk.geometry(n, mode)
+    nlive = ktopk.geometry(n, mode)[0]
+    nwords = -(-n // 32) + 2
     hard = np.zeros(nwords * 32, np.uint64)
     hard[:n] = soft < 0
     words = (hard.reshape(nwords, 32)
@@ -196,22 +198,177 @@ def _emulate_topk_scores(soft, mode):
     return nuw - 2 * pop
 
 
-def _emulate_block_argmax(scores, threads=512):
-    """The kernel's pick: each thread keeps the first maximum of its
-    strided slice (strictly greater replaces), then a tree of (value,
-    index) pairs where the larger value wins and a tie goes to the smaller
-    index; -32768 (blank) everywhere gives (blank, INT_MAX)."""
-    best = []
-    for tid in range(threads):
-        v, i = -32768, 2**31 - 1
-        for t in range(tid, len(scores), threads):
-            if scores[t] > v:
-                v, i = int(scores[t]), t
-        best.append((v, i))
-    while len(best) > 1:
-        best = [max(best[j], best[j + 1], key=lambda p: (p[0], -p[1]))
-                for j in range(0, len(best), 2)]
-    return best[0]
+SENT, TILE_MASK = -32768, 0xFFFFFF
+
+
+def _tile_key(scores, tile):
+    """The kernel's key of one tile of 64 scores and its first maximum's
+    offset: a start's key is (score + 64) << 8 | (255 - offset), 0 where
+    blanked; the tile's is (best >> 8) << 24 | (0xFFFFFF - tile)."""
+    from wenet_tpu_torch.kernels import deframe_topk as ktopk
+    v = scores[tile * ktopk.TILE:(tile + 1) * ktopk.TILE].astype(np.int64)
+    off = np.arange(len(v))
+    keys = np.where(v == SENT, 0, ((v + 64) << 8) | (255 - off))
+    best = int(keys.max())
+    if best == 0:
+        return 0, 255
+    return ((best >> 8) << 24) | (TILE_MASK - tile), 255 - (best & 255)
+
+
+def _emulate_tile_picks(scores, mode, k):
+    """The pick kernel in numpy: k rounds of a max over the tile keys (the
+    largest score, then the smallest tile; its offset gives the first
+    maximum), a key of 0 exhausts this and the later picks, and the blank
+    [s - reach + 1, s + reach - 1] zeroes the keys of the tiles between its
+    boundary tiles and rescans those two, writing the blanked scores back;
+    a boundary tile whose key is already 0 is wholly blanked and stays so
+    (an earlier blank zeroed it without writing its scores).
+    Returns (positions (k,) with -1 where exhausted, exhausted (k,))."""
+    from wenet_tpu_torch.kernels import deframe_topk as ktopk
+    _, nuw, syms = ktopk.mode_params(mode)
+    reach = nuw + syms
+    sc = np.asarray(scores, np.int64).copy()
+    nlive, ntiles = len(sc), -(-len(sc) // ktopk.TILE)
+    keys, offs = np.zeros(ntiles, np.int64), np.zeros(ntiles, np.int64)
+    for t in range(ntiles):
+        keys[t], offs[t] = _tile_key(sc, t)
+    pos, dead = np.full(k, -1), np.ones(k, bool)
+    for r in range(k):
+        m = int(keys.max()) if ntiles else 0
+        if m == 0:
+            break
+        tile = TILE_MASK - (m & TILE_MASK)
+        s = tile * ktopk.TILE + int(offs[tile])
+        pos[r], dead[r] = s, False
+        a, b = max(s - reach + 1, 0), min(s + reach - 1, nlive - 1)
+        ta, tb = a // ktopk.TILE, b // ktopk.TILE
+        keys[ta + 1:tb] = 0
+        for t in {ta, tb}:
+            if keys[t] == 0:
+                continue
+            lo, hi = t * ktopk.TILE, min((t + 1) * ktopk.TILE, nlive)
+            span = np.arange(lo, hi)
+            sc[span[(span >= a) & (span <= b)]] = SENT
+            keys[t], offs[t] = _tile_key(sc, t)
+    return pos, dead
+
+
+def _plant_uw(soft, mode, starts):
+    """soft with a clean copy of the UW at each start (score nuw there)."""
+    uw = deframe._mode_params(mode)[0]
+    out = soft.copy()
+    for s in starts:
+        out[s:s + len(uw)] = 1.0 - 2.0 * uw
+    return out
+
+
+def _tile_pick_cases(mode):
+    """(label, soft, k): random streams, a stream whose scores all tie,
+    UW copies whose blanks start or end exactly on a tile boundary, more
+    picks than placeable windows, and a stream shorter than a packet."""
+    from wenet_tpu_torch.kernels import deframe_topk as ktopk
+    _, nuw, syms = ktopk.mode_params(mode)
+    reach = nuw + syms
+    rng = np.random.default_rng(61)
+    noise = rng.normal(0, 1, 20000).astype(np.float32)
+    train, _ = _soft_stream(mode, 3, 0.7, 62)
+    # blank of s1 starts at tile 40's first start; blank of s2 ends at the
+    # last start of a tile
+    s1 = 40 * ktopk.TILE + reach - 1
+    s2 = -(-(s1 + 2 * reach) // ktopk.TILE) * ktopk.TILE - reach
+    edges = _plant_uw(noise, mode, [s1, s2])
+    assert (s1 - reach + 1) % ktopk.TILE == 0
+    assert (s2 + reach) % ktopk.TILE == 0
+    return [("random", noise, 6), ("train", train, 5),
+            ("all_tied", np.ones(9000, np.float32), 5),
+            ("tile_edges", edges, 7),
+            ("k_above_placeable", train[:3 * reach], 6),
+            ("shorter_than_a_packet", noise[:syms], 3)]
+
+
+@pytest.mark.parametrize("case", range(6), ids=["random", "train", "all_tied",
+                                                "tile_edges", "k_above",
+                                                "short"])
+@pytest.mark.parametrize("mode", ["v1", "v2"])
+def test_tile_pick_emulation_matches_reference_and_jax(mode, case):
+    """Without a card: the pick kernel's algorithm on the tile maxima
+    (emulated in numpy on the emulated scores) gives the positions and
+    exhausted flags of topk_windows_reference and of JAX's
+    deframe_topk."""
+    label, soft, k = _tile_pick_cases(mode)[case]
+    pos, dead = _emulate_tile_picks(_emulate_topk_scores(soft, mode), mode,
+                                    k)
+    _, pos_w, exh_w = deframe.topk_windows_reference(
+        torch.from_numpy(soft)[None], mode, k)
+    np.testing.assert_array_equal(pos, pos_w[0].numpy())
+    np.testing.assert_array_equal(dead, exh_w[0].numpy())
+    pos_j = np.asarray(jdeframe.deframe_topk(jnp.asarray(soft), mode=mode,
+                                             k=k)[3])
+    np.testing.assert_array_equal(pos, pos_j)
+    if label == "tile_edges":
+        assert not dead[:2].any()
+    if label in ("k_above_placeable", "shorter_than_a_packet"):
+        assert dead.any()
+    if label == "shorter_than_a_packet":
+        assert dead.all()
+
+
+def _emulate_lane_crc(packet):
+    """The CRC kernel's warp in numpy: each of 32 lanes takes the CRC of
+    its 8 bytes from state 0 with the byte table, five levels join
+    neighbours (the left advanced over the right's zero bytes by the high-
+    and low-byte tables of kernels/crc_pack.crc_tables), and INIT_TERM
+    brings in the init 0xFFFF."""
+    from wenet_tpu_torch.kernels import crc_pack as kcrc
+    tab = kcrc.crc_tables().astype(np.int64)
+    lanes = []
+    for lane in range(32):
+        c = 0
+        for m in range(kcrc.LANE_BYTES):
+            byte = int(packet[8 * lane + m])
+            c = ((c << 8) & 0xFFFF) ^ tab[((c >> 8) ^ byte) & 0xFF]
+        lanes.append(int(c))
+    for level in range(kcrc.LEVELS):
+        adv = tab[256 + level * 512:]
+        nxt = []
+        for lane in range(32):
+            other = lanes[lane ^ (1 << level)]
+            right = (lane >> level) & 1
+            left = other if right else lanes[lane]
+            nxt.append(int(adv[left >> 8] ^ adv[256 + (left & 0xFF)])
+                       ^ (lanes[lane] if right else other))
+        lanes = nxt
+    assert len(set(lanes)) == 1
+    return lanes[0] ^ kcrc.INIT_TERM
+
+
+def test_lane_split_crc_emulation_matches_jax():
+    """Without a card: the lane-split CRC with the advance tables equals
+    core.framing.crc16_ccitt and JAX's crc16 on random, all-zero and
+    all-0xFF packets."""
+    rng = np.random.default_rng(8)
+    packets = [rng.integers(0, 256, 256, np.uint8) for _ in range(4)]
+    packets += [np.zeros(256, np.uint8), np.full(256, 0xFF, np.uint8)]
+    want_j = np.asarray(jcrc.crc16(jnp.asarray(np.stack(packets).astype(
+        np.int32))))
+    for p, wj in zip(packets, want_j):
+        got = _emulate_lane_crc(p)
+        assert got == framing.crc16_ccitt(p.tobytes()) == int(wj)
+
+
+def _emulate_tile_argmax(scores):
+    """One round of the pick kernel's argmax: the max over the tiles' keys
+    (`_tile_key`: the largest score, then the smallest tile, then the
+    tile's first maximum); (SENT, -1) where every start is blanked."""
+    from wenet_tpu_torch.kernels import deframe_topk as ktopk
+    scores = np.asarray(scores, np.int64)
+    keys = [_tile_key(scores, t)
+            for t in range(-(-len(scores) // ktopk.TILE))]
+    m, off = max(keys)
+    if m == 0:
+        return SENT, -1
+    tile = TILE_MASK - (m & TILE_MASK)
+    return (m >> 24) - 64, tile * ktopk.TILE + off
 
 
 @pytest.mark.parametrize("mode", ["v1", "v2"])
@@ -233,9 +390,9 @@ def test_topk_kernel_scores_and_picks_emulated(mode):
     rng = np.random.default_rng(2)
     for arr in (rng.integers(-3, 3, 5000), np.full(1300, 7),
                 rng.integers(0, 2, 700) * 40 - 20):
-        v, i = _emulate_block_argmax(arr)
+        v, i = _emulate_tile_argmax(arr)
         assert (v, i) == (arr.max(), int(torch.argmax(torch.as_tensor(arr))))
-    assert _emulate_block_argmax(np.full(100, -32768)) == (-32768, 2**31 - 1)
+    assert _emulate_tile_argmax(np.full(100, SENT)) == (SENT, -1)
 
 
 @pytest.mark.parametrize("mode", ["v1", "v2"])

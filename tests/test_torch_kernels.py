@@ -921,7 +921,7 @@ def test_new_wrappers_take_only_cuda_tensors():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tail", ["none", "iters", "pos"])
-@pytest.mark.parametrize("B", [1, 7, 128, 176])
+@pytest.mark.parametrize("B", [1, 7, 128, 176, 2047, 2048])
 def test_crc_pack_kernel_matches_plain(B, tail):
     """Rows bit-exact against the plain version: valid and corrupted
     packets, random bits, and bits that are not 0/1 (exact integer byte
@@ -961,6 +961,34 @@ def test_crc_pack_kernel_matches_plain(B, tail):
                            crc.crc_pack_reference(view, **kw))
     assert int(crc.packet_crc_ok(torch.from_numpy(good).to(dev)).sum()) \
         == B - B // 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [2064, 2068, 2071, 2600, 2581])
+def test_crc_pack_kernel_row_strides(stride):
+    """Rows of any stride >= 2064: 4-byte aligned strides (the kernel's
+    word loads) and odd ones (its byte loads), bit-exact in both layouts
+    and the flags alone, on valid, corrupted and non-0/1 bits."""
+    from wenet_tpu_torch.ops import crc
+    dev = _card()
+    B = 33
+    rng = np.random.default_rng(stride)
+    good = _codewords(B, stride, n_bad=11, width=2064)
+    odd = rng.integers(0, 4, good.shape).astype(np.uint8)
+    extra = torch.as_tensor(rng.integers(-300, 300, B), dtype=torch.int32,
+                            device=dev)
+    for arr in (good, odd):
+        wide = np.zeros((B, stride), np.uint8)
+        wide[:, :2064] = arr
+        bits = torch.from_numpy(wide).to(dev)[:, :2064]
+        assert bits.stride(0) == stride
+        for kw in ({"iters": extra}, {"positions": extra}):
+            assert torch.equal(crc.crc_pack(bits, **kw),
+                               crc.crc_pack_reference(bits, **kw))
+        assert torch.equal(crc.packet_crc_ok(bits),
+                           crc.packet_crc_ok_reference(bits))
+    assert int(crc.packet_crc_ok(torch.from_numpy(good).to(dev)).sum()) \
+        == B - 11
 
 
 def _assert_topk_close(got, want):
@@ -1004,23 +1032,48 @@ def test_deframe_topk_kernel_matches_plain(mode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["v2", "v1"])
 def test_deframe_topk_kernel_long_stream(mode):
-    """A stream too long for shared-memory scores (150,000 symbols) runs
-    on the global scratch buffer and equals the plain version; a stream
-    too short for one window gives only exhausted picks."""
+    """Streams too long for the pick kernel's on-chip copy of the scores
+    and tile maxima (150,000 and 3.2 M symbols: it picks on them in the
+    global scratch) equal the plain version; a stream too short for one
+    window gives only exhausted picks."""
     from wenet_tpu_torch.kernels import deframe_topk as ktopk
     from wenet_tpu_torch.ops import deframe
     dev = _card()
-    n = 150_000
-    assert ktopk.geometry(n, mode)[2] > ktopk.SMEM_LIMIT
     train = _soft_train(mode, 40, 0.6, 11, gap=400)
-    soft = torch.from_numpy(np.resize(train, (2, n)).copy()).to(dev)
-    got = ktopk.llrs(soft, mode, 12, with_sd=True)
-    _assert_topk_close(got, deframe.topk_windows_reference(soft, mode, 12))
+    for C, n, k in ((2, 150_000, 12), (1, 3_200_000, 20)):
+        soft = torch.from_numpy(np.resize(train, (C, n)).copy()).to(dev)
+        assert ktopk.geometry(n, mode)[3] > ktopk.SMEM_LIMIT
+        got = ktopk.llrs(soft, mode, k, with_sd=True)
+        _assert_topk_close(got, deframe.topk_windows_reference(soft, mode, k))
     short = soft[:, :2000].contiguous()
     got = ktopk.llrs(short, mode, 3, with_sd=True)
     want = deframe.topk_windows_reference(short, mode, 3)
     _assert_topk_close(got, want)
     assert bool(want[2].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["v2", "v1"])
+def test_deframe_topk_kernel_wideband_shape(mode):
+    """The wideband fused step's shape (8 streams of 39,888 symbols, 18
+    picks) with packet trains at several noise levels, and one stream
+    (C = 1) with more picks than placeable windows."""
+    from wenet_tpu_torch.kernels import deframe_topk as ktopk
+    from wenet_tpu_torch.ops import deframe
+    dev = _card()
+    rows = [np.resize(_soft_train(mode, 12, 0.3 + 0.1 * c, 70 + c, gap=512),
+                      39_888) for c in range(8)]
+    soft = torch.from_numpy(np.stack(rows).astype(np.float32)).to(dev)
+    before = ktopk.launches
+    got = ktopk.llrs(soft, mode, 18, with_sd=True)
+    torch.cuda.synchronize()
+    assert ktopk.launches == before + 1
+    _assert_topk_close(got, deframe.topk_windows_reference(soft, mode, 18))
+    one = soft[:1, :9000].contiguous()
+    got = ktopk.llrs(one, mode, 5, with_sd=True)
+    want = deframe.topk_windows_reference(one, mode, 5)
+    _assert_topk_close(got, want)
+    assert bool(want[2][0, -1]) and not bool(want[2][0, 0])
 
 
 @pytest.mark.cuda

@@ -9,6 +9,7 @@ package imports on a machine without CUDA or nvcc.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -90,3 +91,14 @@ def build(*names: str) -> list[ctypes.CDLL]:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu`; raises on failure."""
     return build(name)[0]
+
+
+def launch_context(device: torch.device):
+    """(context, raw stream pointer) for a launch on `device`: the device
+    made current only where it is not already, and its current stream as
+    an integer, without building a Stream object."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    ctx = (contextlib.nullcontext() if index == current
+           else torch.cuda.device(index))
+    return ctx, torch._C._cuda_getCurrentRawStream(index)

@@ -18,9 +18,10 @@ import torch
 
 from ..core import framing
 from ..core import ldpc_tables as T
-from . import load
+from . import launch_context, load
 
-SMEM_LIMIT = 232448 - 2048         # dynamic shared memory the kernel takes
+SMEM_LIMIT = 232448 - 2048         # shared memory the pick kernel takes
+TILE = 64                          # starts a tile of the pick kernel
 
 launches = 0          # kernel launches, counted where the launch succeeds
 
@@ -28,11 +29,11 @@ launches = 0          # kernel launches, counted where the launch succeeds
 class Args(ctypes.Structure):
     """`TopkArgs` of csrc/deframe_topk.cu."""
     _fields_ = ([(f, ctypes.c_void_p) for f in (
-        "soft", "code", "llr", "sd_out", "pos", "exhausted", "g_words",
-        "g_scores")]
-        + [("n", ctypes.c_longlong), ("uw", ctypes.c_ulonglong)]
+        "soft", "code", "llr", "sd_out", "pos", "exhausted", "scratch")]
+        + [("scratch_bytes", ctypes.c_longlong), ("n", ctypes.c_longlong),
+           ("uw", ctypes.c_ulonglong)]
         + [(f, ctypes.c_int) for f in ("C", "k", "nuw", "syms", "v2",
-                                       "nlive", "nwords")])
+                                       "nlive", "ntiles")])
 
 
 @functools.lru_cache(maxsize=1)
@@ -40,9 +41,15 @@ def _lib():
     lib = load("deframe_topk")
     lib.deframe_topk_launch.restype = ctypes.c_int
     lib.deframe_topk_launch.argtypes = [ctypes.POINTER(Args), ctypes.c_void_p]
-    lib.deframe_topk_smem_bytes.restype = ctypes.c_longlong
-    lib.deframe_topk_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.deframe_topk_init.restype = ctypes.c_int
+    lib.deframe_topk_scratch_bytes.restype = ctypes.c_longlong
+    lib.deframe_topk_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.deframe_topk_pick_smem_bytes.restype = ctypes.c_longlong
+    lib.deframe_topk_pick_smem_bytes.argtypes = [ctypes.c_int] * 2
     return lib
+
+
+_ready: set[int] = set()          # devices whose kernel attributes are set
 
 
 def build():
@@ -50,6 +57,7 @@ def build():
     _lib()
 
 
+@functools.lru_cache(maxsize=None)
 def mode_params(mode: str):
     """(UW bits as an integer, bit j = UW bit j; UW length; symbols a
     packet) of a framing mode."""
@@ -62,13 +70,23 @@ def mode_params(mode: str):
     return int(sum(int(b) << j for j, b in enumerate(uw))), len(uw), syms
 
 
-def geometry(n: int, mode: str):
-    """(placeable starts, hard-bit words, shared memory bytes on chip) of
-    an n-symbol stream."""
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+@functools.lru_cache(maxsize=64)
+def geometry(n: int, mode: str, C: int = 1):
+    """(placeable starts, tiles of TILE starts, global scratch bytes of C
+    streams, shared memory bytes of the pick kernel's on-chip copy of a
+    stream's scores and tile maxima) of n-symbol streams; past SMEM_LIMIT
+    (about 110,000 symbols) the pick kernel works on them in the global
+    scratch."""
     _, nuw, syms = mode_params(mode)
     nlive = max(n - syms - nuw + 1, 0)
-    nwords = -(-n // 32) + 2
-    return nlive, nwords, (nwords * 4 + 15) // 16 * 16 + 2 * nlive
+    ntiles = -(-nlive // TILE)
+    stride = -(-nlive // 8) * 8            # int16 scores a stream keeps
+    scratch = 2 * C * stride + _align16(4 * C * ntiles) + C * ntiles
+    return nlive, ntiles, scratch, 2 * stride + _align16(4 * ntiles) + ntiles
 
 
 @functools.lru_cache(maxsize=8)
@@ -77,13 +95,22 @@ def _code(device: torch.device) -> torch.Tensor:
                            device=device)
 
 
+def _init(lib, index: int):
+    """The pick kernel's shared memory attribute, once a device."""
+    if index not in _ready:
+        rc = lib.deframe_topk_init()
+        if rc != 0:
+            raise RuntimeError(f"deframe_topk init failed: cudaError_t {rc}")
+        _ready.add(index)
+
+
 def llrs(soft: torch.Tensor, mode: str, k: int, with_sd: bool = False):
     """soft (C, n) float32 contiguous CUDA tensor -> (llr (C k, 2580)
     float32, positions (C, k) int32, exhausted (C, k) bool[, sd (C k,
     2580) float32, the descrambled or stripped windows]).
 
-    The correlation scores stay in shared memory where they fit, else in a
-    global scratch buffer."""
+    One call issues the kernel's three launches (scores, picks, windows)
+    and counts as one launch."""
     global launches
     if soft.device.type != "cuda":
         raise ValueError(f"deframe_topk: needs a CUDA tensor, got "
@@ -98,24 +125,22 @@ def llrs(soft: torch.Tensor, mode: str, k: int, with_sd: bool = False):
     uw, nuw, syms = mode_params(mode)
     C, n = soft.shape
     dev = soft.device
-    nlive, nwords, smem = geometry(n, mode)
+    lib = _lib()
+    nlive, ntiles, scratch_bytes, _ = geometry(n, mode, C)
     llr = torch.empty((C * k, T.CODE_LEN), dtype=torch.float32, device=dev)
     sd = torch.empty_like(llr) if with_sd else None
     pos = torch.empty((C, k), dtype=torch.int32, device=dev)
     exhausted = torch.empty((C, k), dtype=torch.bool, device=dev)
-    g_words = g_scores = None
-    if smem > SMEM_LIMIT:
-        g_words = torch.empty((C, nwords), dtype=torch.int32, device=dev)
-        g_scores = torch.empty((C, max(nlive, 1)), dtype=torch.int16,
-                               device=dev)
-    ptr = (lambda t: None if t is None else t.data_ptr())
+    scratch = torch.empty((max(scratch_bytes, 1),), dtype=torch.uint8,
+                          device=dev)
     args = Args(soft.data_ptr(), _code(dev).data_ptr(), llr.data_ptr(),
-                ptr(sd), pos.data_ptr(), exhausted.data_ptr(), ptr(g_words),
-                ptr(g_scores), n, uw, C, k, nuw, syms, int(mode == "v2"),
-                nlive, nwords)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().deframe_topk_launch(ctypes.byref(args), stream)
+                None if sd is None else sd.data_ptr(), pos.data_ptr(),
+                exhausted.data_ptr(), scratch.data_ptr(), scratch_bytes, n,
+                uw, C, k, nuw, syms, int(mode == "v2"), nlive, ntiles)
+    ctx, stream = launch_context(dev)
+    with ctx:
+        _init(lib, torch.cuda.current_device())
+        rc = lib.deframe_topk_launch(ctypes.byref(args), stream)
     if rc != 0:
         raise RuntimeError(f"deframe_topk launch failed (C={C}, n={n}, k={k}):"
                            f" cudaError_t {rc}")
