@@ -3,6 +3,7 @@
     python3 chip_profile.py [--batch 70] [--snr 2.5] [--seed 5]
     python3 chip_profile.py --kernel fsk_demod [--source FILE]
     python3 chip_profile.py --kernel deframe_topk [--source FILE]
+    python3 chip_profile.py --kernel channelize [--source FILE]
 
 bp_onehot (the default): builds wenet_tpu_torch/csrc/bp_onehot.cu a second
 time with -DBP_ONEHOT_PHASES, which makes thread 0 of each of the first 64
@@ -35,6 +36,20 @@ cycles of each phase: hard bits, scores, each pick round's argmax and
 blanking, each window's gather and sd_to_llr (the new kernel's windows run
 in parallel, one block a pick: their slowest block), beside the CUDA-event
 time of a call of the phase build.
+
+channelize: builds the channelizer kernel (csrc/channelize.cu, or
+--source, e.g. its first revision) a second time with
+-DCHANNELIZE_PHASES.  The persistent kernel's thread 0 sums, over its
+block's tiles, the SM cycles of issuing the next tile's copies, waiting
+for the current tile (the copy wait and the barrier), the FIR and the
+DFT with its stores; the first revision (a block a tile of 128 frames, no
+clocks of its own) gets clocks inserted after its staging loop (copy-in),
+its FIR and its DFT and stores, and is called through its own argument
+struct.  It channelizes 3.16 M random samples into 8 channels (the
+smoke's wideband shape; the new kernel on float pairs and on cu8 bytes),
+checks the output against ops.channelizer.channelize_reference (within
+1e-5 of its rms), and prints the slowest block's cycles of each phase,
+the median block's, and the CUDA-event time of a call of the phase build.
 
 Each prints the card's name, power limit and SM clock.  Without a CUDA
 device it fails at once.
@@ -391,17 +406,183 @@ def profile_topk(args) -> int:
     return 0
 
 
+CHAN_SHAPE = (8, 3_160_000)   # the smoke's wideband call: N, samples
+CHAN_PRELUDE = r"""
+#ifdef CHANNELIZE_PHASES
+__device__ long long channelize_phases[4096 * 4];
+extern "C" int channelize_read_phases(long long* host) {
+    return (int)cudaMemcpyFromSymbol(host, channelize_phases,
+                                     sizeof(channelize_phases));
+}
+#endif
+"""
+# the first revision's phase marks: (line, clock inserted after it)
+CHAN_MARKS = (
+    ("    const long long m0 = (long long)blockIdx.x * tile;\n",
+     "    const long long t0_ = clock64();\n"),
+    ("hps[i] = g.hp[i];\n    __syncthreads();\n",
+     "    const long long t1_ = clock64();\n"),
+    ("        ys[p * row + ml] = make_float2(re, im);\n    }\n"
+     "    __syncthreads();\n", "    const long long t2_ = clock64();\n"),
+    ("        g.out[(long long)ci * g.F + m0 + ml] = make_float2(re, im);\n"
+     "    }\n",
+     "    __syncthreads();\n"
+     "    if (threadIdx.x == 0 && blockIdx.x < 4096) {\n"
+     "        long long* o_ = channelize_phases + blockIdx.x * 4;\n"
+     "        o_[0] = t1_ - t0_;\n"
+     "        o_[1] = t2_ - t1_;\n"
+     "        o_[2] = clock64() - t2_;\n"
+     "    }\n"),
+)
+
+
+def instrument_channelize(src: str) -> str:
+    """Phase clocks for the first revision of the channelizer (a block a
+    tile): CHAN_PRELUDE after its THREADS define, and thread 0's clocks
+    after its staging loop, its FIR and its DFT (CHAN_MARKS)."""
+    src = src.replace("#define THREADS 256\n",
+                      "#define THREADS 256\n" + CHAN_PRELUDE, 1)
+    for line, clock in CHAN_MARKS:
+        if src.count(line) != 1:
+            raise RuntimeError(f"no single mark {line.strip()!r} in the "
+                               "channelizer source")
+        src = src.replace(line, line + clock)
+    return src
+
+
+def profile_channelize(args) -> int:
+    import ctypes as C
+    import hashlib
+    import torch
+    from wenet_tpu_torch import kernels
+    from wenet_tpu_torch.kernels import channelize as kch
+    from wenet_tpu_torch.ops import channelizer, fsk
+
+    path = args.source or os.path.join(kernels.CSRC, "channelize.cu")
+    with open(path) as fh:
+        src = fh.read()
+    first_revision = "CHANNELIZE_PHASES" not in src
+    if first_revision:
+        src = instrument_channelize(src)
+    tag = hashlib.sha1(src.encode()).hexdigest()[:12]
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    cu = os.path.join(kernels.BUILD_DIR, f"channelize_phases_{tag}.cu")
+    out_so = cu[:-3] + ".so"
+    with open(cu, "w") as fh:
+        fh.write(src)
+    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS,
+                    "-DCHANNELIZE_PHASES", "-o", out_so, cu], check=True,
+                   capture_output=True)
+    lib = C.CDLL(out_so)
+    lib.channelize_launch.restype = C.c_int
+    lib.channelize_launch.argtypes = [C.c_void_p, C.c_void_p]
+    lib.channelize_read_phases.restype = C.c_int
+    lib.channelize_read_phases.argtypes = [C.c_void_p]
+
+    dev = torch.device("cuda")
+    N, n = CHAN_SHAPE
+    F = n // N
+    raw = np.random.default_rng(args.seed).integers(0, 256, 2 * n,
+                                                    dtype=np.uint8)
+    raw_t = torch.from_numpy(raw).to(dev)
+    pairs = torch.from_numpy(fsk.iq_from_cu8(raw).view(np.float32)
+                             .reshape(-1, 2)).to(dev)
+    sel = tuple(range(N))
+    out = torch.empty((N * F, 2), device=dev)
+    want = torch.view_as_real(channelizer.channelize_reference(
+        torch.view_as_complex(pairs), N)).reshape(-1, 2)
+    rms = float(want.square().mean().sqrt())
+    stream = torch.cuda.current_stream().cuda_stream
+    runs = {}
+    if first_revision:         # its ChanArgs: a block a tile of 128 frames
+        fields = ([(f, C.c_void_p) for f in ("x", "hp", "tw", "out")]
+                  + [("F", C.c_longlong)]
+                  + [(f, C.c_int) for f in ("N", "T", "nsel", "tile")])
+        argt = type("Args1", (C.Structure,), {"_fields_": fields})
+        ang = (-2.0 * np.pi / N) * np.outer((-np.arange(N)) % N,
+                                            np.arange(N))
+        tw = torch.from_numpy(np.stack([np.cos(ang).astype(np.float32),
+                                        np.sin(ang).astype(np.float32)],
+                                       -1)).to(dev)   # a row a channel
+        hp = kch._tables(N, 12, sel, dev)[0]
+        cases = {"c64": argt(pairs.data_ptr(), hp.data_ptr(), tw.data_ptr(),
+                             out.data_ptr(), F, N, 12, N, 128)}
+        blocks = -(-F // 128)
+    else:
+        lib.channelize_init.restype = C.c_int
+        if lib.channelize_init():
+            raise RuntimeError("channelize_init failed")
+        cases = {fmt: kch.launch_args(x, out, N, 12, sel, fmt)
+                 for fmt, x in (("c64", pairs), ("cu8", raw_t))}
+        blocks, per = cases["c64"].blocks, cases["c64"].tiles_per_block
+    for fmt, a in cases.items():
+        def launch():
+            rc = lib.channelize_launch(C.addressof(a), stream)
+            if rc:
+                raise RuntimeError(f"launch failed: cudaError_t {rc}")
+        for _ in range(3):
+            launch()
+        torch.cuda.synchronize()
+        clocks = np.zeros(4096 * 4 if first_revision else 1024 * 10,
+                          np.int64)
+        rc = lib.channelize_read_phases(clocks.ctypes.data_as(C.c_void_p))
+        if rc:
+            raise RuntimeError(f"reading the phase clocks: cudaError_t {rc}")
+        err = float((out - want).abs().max())
+        if not err <= 1e-5 * rms:
+            raise RuntimeError(f"the phase build differs from the plain "
+                               f"version: {err} of rms {rms}")
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(20):
+            launch()
+        t1.record()
+        t1.synchronize()
+        if first_revision:
+            names = ("copy_in", "fir", "dft_store")
+            st = clocks.reshape(4096, 4)[:min(blocks, 4096), :3]
+        else:
+            names = ("copy", "wait", "fir", "dft_store")
+            st = clocks.reshape(1024, 10)[:min(blocks, 1024)]
+        span = st[:, 5] if not first_revision else st.sum(axis=1)
+        slow, med = int(span.argmax()), int(np.argsort(span)[len(span) // 2])
+        runs[fmt] = {
+            "blocks": blocks,
+            "tiles_per_block": None if first_revision else per,
+            "slowest_block_sm_cycles": {k: int(st[slow, i])
+                                        for i, k in enumerate(names)},
+            "slowest_block_span": int(span[slow]),
+            "median_block_sm_cycles": {k: int(st[med, i])
+                                       for i, k in enumerate(names)},
+            "median_block_span": int(span[med]),
+            "call_ms_phase_build": t0.elapsed_time(t1) / 20,
+            "rel_err": err / rms}
+        if not first_revision:      # the last run's blocks on one clock
+            runs[fmt].update({
+                "max_prologue_sm_cycles": int(st[:, 6].max()),
+                "kernel_span_us": float(st[:, 8].max() - st[:, 7].min())
+                / 1e3,
+                "block_start_skew_us": float(st[:, 7].max() - st[:, 7].min())
+                / 1e3,
+                "longest_block_us": float((st[:, 8] - st[:, 7]).max()) / 1e3})
+    print(json.dumps({
+        "kernel": "channelize", "source": os.path.relpath(path, ROOT),
+        "first_revision": first_revision, "n_channels": N, "samples": n,
+        "runs": runs, "card": smi_line()}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", choices=["bp_onehot", "fsk_demod",
-                                         "deframe_topk"],
+                                         "deframe_topk", "channelize"],
                     default="bp_onehot")
     ap.add_argument("--batch", type=int, default=70)
     ap.add_argument("--snr", type=float, default=2.5)
     ap.add_argument("--seed", type=int, default=5)
     ap.add_argument("--source", default=None,
-                    help="fsk_demod, deframe_topk: the kernel "
-                    "source to profile")
+                    help="fsk_demod, deframe_topk, channelize: the "
+                    "kernel source to profile")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -411,6 +592,8 @@ def main() -> int:
         return profile_demod(args)
     if args.kernel == "deframe_topk":
         return profile_topk(args)
+    if args.kernel == "channelize":
+        return profile_channelize(args)
     from wenet_tpu_torch import kernels
     from wenet_tpu_torch.kernels import bp_onehot
     from wenet_tpu_torch.ops import ldpc, ldpc_onehot

@@ -17,9 +17,11 @@ batches and the wideband fused step's 8 kk), the top-k acquisition kernel
 (positions, exhausted picks and windows exact, LLRs within rtol 1e-5, and
 the decodes of both LLRs equal) on the fused steps' soft bits (v2 and v1,
 16 streams) and on the wideband fused mode's (8 streams, kk picks), the
-channelizer kernel (within 1e-5 of the output's rms; all 8 channels and a
-selection) on an 8-channel wideband capture at 7.68 MHz, and the demod
-kernel on the channelizer's 8 c64 lanes.  Kernel
+channelizer kernel (within 1e-5 of the output's rms; all 8 channels, a
+selection, the capture's cu8 bytes read by the kernel (bit for bit the
+float-pair route on the same samples) and N = 6 read at run time) on an
+8-channel wideband capture at 7.68 MHz, and the demod kernel on the
+channelizer's 8 c64 lanes.  Kernel
 times are CUDA-event times: for the BP kernels `ms` over replays of a
 CUDA graph of many launches (the kernel alone) and `call_ms` over many
 eager calls (the wrapper's host work included); for the demod kernel and
@@ -43,9 +45,12 @@ torch.profiler, its kernels under 50), the wideband receive path
 (`demod_multichannel` on 8 channels of 12 packets each, fused, vectorized
 and per-Receiver: at least 11 packets a channel, the fused mode all 12,
 the others the same lists less the packet a false UW lock costs the
-reference's FSM; the fused call's stages timed), the
+reference's FSM; the capture quantised to cu8 bytes through the raw-cu8
+route, fused and vectorized, equal to the float-pair route on the same
+samples; the fused call's stages timed on both routes), the
 `python -m wenet_tpu_torch rx` CLI streaming, with --parallel and
---slabs, and with --channels 8 (and --channel-select); the decoder-throughput
+--slabs, and with --channels 8 (and --channel-select, and on the cu8
+bytes); the decoder-throughput
 stage of bench.py (B = 2048 at 7.5 dB); LDPC BER sweeps with both
 algorithms; a full-chain PER sweep; and the coarse acquisition search,
 alone and through the CLI's --acquire, on a capture tuned 300 kHz off.
@@ -109,6 +114,12 @@ WIDE_SELECT = (6, 1, 3)       # a channel selection, in this order
 # (tests/test_torch_channelizer.py::test_false_uw_lock_matches_jax)
 WIDE_FALSE_LOCK = (6, 9)
 CHANNELIZE_TOL = 1e-5         # max |d| / rms of the channelizer's output
+WIDE_CU8_SCALE = 1 / 8        # the capture quantised to cu8 after this
+#                               scale: 8 unit-amplitude channels peak near 8
+RUNTIME_N = 6                 # a channel count the kernel reads at run time
+WIDE_N = 256                  # more phases than the kernel's FIR threads
+WIDE_N_SELECT = (255, 3, 128)
+RUNTIME_TAPS = 16             # taps a phase read at run time
 TOPK_LLR_RTOL = 1e-5          # sd_to_llr's sums in another order
 CALL_REPS = 200               # eager calls behind the CRC and acquisition
 #                               kernels' call_ms (the host's share is noisy)
@@ -418,12 +429,14 @@ def topk_bound(C, n, k, nlive, nuw):
                     C * nlive * (2 * nuw + k) + C * k * 2580 * 10)
 
 
-def channelize_bound(n, N, T, nsel):
-    """One channelizer call: the samples read once, the selected channels
-    written once; per frame the N phases' T complex-by-real multiply-adds
-    (4 each) and each selected channel's N complex multiply-adds (8)."""
+def channelize_bound(n, N, T, nsel, in_bytes=8):
+    """One channelizer call: the samples read once (8 bytes as float
+    pairs, 2 as cu8), the selected channels written once; per frame the N
+    phases' T complex-by-real multiply-adds (4 each) and each selected
+    channel's N complex multiply-adds (8)."""
     F = n // N
-    return bound_ms(8 * n + 8 * nsel * F, F * (N * T * 4 + nsel * N * 8))
+    return bound_ms(in_bytes * n + 8 * nsel * F,
+                    F * (N * T * 4 + nsel * N * 8))
 
 
 def main() -> int:
@@ -483,11 +496,16 @@ def main() -> int:
                 == scratch_t
                 and lib_t.deframe_topk_pick_smem_bytes(nlive_t, ntiles_t)
                 == smem_t, "deframe_topk scratch accounting")
-    for n_ch in (4, 8, 16, 64, 256):
-        tile = kchan.tile_frames(n_ch, 12)
-        require(kchan._lib().channelize_smem_bytes(n_ch, 12, tile)
-                == kchan.smem_bytes(n_ch, 12, tile),
-                "channelize smem accounting")
+    for n_ch, t_ch in ((1, 12), (4, 12), (6, 12), (8, 16), (16, 12),
+                       (100, 12), (256, 12), (1024, 12)):
+        for fmt_c, (code, _) in kchan.FORMATS.items():
+            for nsel in (1, 3, n_ch):
+                tile, tw_smem = kchan.plan(n_ch, t_ch, nsel, fmt_c)
+                require(kchan._lib().channelize_smem_bytes(
+                    n_ch, t_ch, tile, nsel, code, int(tw_smem))
+                        == kchan.smem_bytes(n_ch, t_ch, tile, nsel, fmt_c,
+                                            tw_smem),
+                        "channelize smem accounting")
     region = ldpc_onehot.kernel_tables(dev).shape[1]
     clusters = bp_onehot.card_clusters(dev, region)
     onehot_shapes = {b: tuple(bp_onehot.launch_shape(b, clusters, region))
@@ -975,37 +993,67 @@ def main() -> int:
     synth_s = time.perf_counter() - t0
     n_w = len(wide)
     pairs_w = torch.from_numpy(wide.view(np.float32).reshape(-1, 2)).to(dev)
+    # the capture as an SDR's cu8 bytes, and those bytes' float pairs
+    raw_w = fsk.iq_to_cu8(wide * np.float32(WIDE_CU8_SCALE))
+    raw_wt = torch.from_numpy(raw_w).to(dev)
+    iq_q = fsk.iq_from_cu8(raw_w)
+    pairs_q = torch.from_numpy(iq_q.view(np.float32).reshape(-1, 2)).to(dev)
     chan_times = {}
-    for label, sel in (("all", None), ("select", WIDE_SELECT)):
-        got = channelizer.channelize_pairs(pairs_w, WIDE_CHANNELS,
-                                           channels=sel)
+    # (label, channels, the kernel's input, its format, the plain
+    # version's pairs, N, taps a phase)
+    for label, sel, x_c, fmt_c, plain_x, n_ch, t_ch in (
+            ("all", None, pairs_w, "c64", pairs_w, WIDE_CHANNELS, 12),
+            ("select", WIDE_SELECT, pairs_w, "c64", pairs_w, WIDE_CHANNELS,
+             12),
+            ("cu8", None, raw_wt, "cu8", pairs_q, WIDE_CHANNELS, 12),
+            ("runtime_n", None, pairs_w, "c64", pairs_w, RUNTIME_N, 12),
+            ("wide_n", WIDE_N_SELECT, pairs_w, "c64", pairs_w, WIDE_N, 12),
+            ("taps", None, pairs_w, "c64", pairs_w, WIDE_CHANNELS,
+             RUNTIME_TAPS)):
+        def call():
+            return channelizer.channelize_pairs(x_c, n_ch, t_ch,
+                                                channels=sel,
+                                                input_format=fmt_c)
+        got = call()
         want = torch.view_as_real(channelizer.channelize_reference(
-            torch.view_as_complex(pairs_w), WIDE_CHANNELS, channels=sel)
+            torch.view_as_complex(plain_x), n_ch, t_ch, channels=sel)
         ).reshape(-1, 2)
         err = float((got - want).abs().max())
         rms = float(want.square().sum(1).mean().sqrt())
         require(got.shape == want.shape and err <= CHANNELIZE_TOL * rms,
                 f"channelize {label}: max |diff| {err} of rms {rms}")
         max_err["channelize"] = max(max_err["channelize"], err)
-        nsel = WIDE_CHANNELS if sel is None else len(sel)
-        bound, by = channelize_bound(n_w, WIDE_CHANNELS, 12, nsel)
-        m = {"ms": graph_ms(lambda: channelizer.channelize_pairs(
-                 pairs_w, WIDE_CHANNELS, channels=sel)),
-             "call_ms": event_ms(lambda: channelizer.channelize_pairs(
-                 pairs_w, WIDE_CHANNELS, channels=sel), 20),
+        extra = {}
+        if fmt_c == "cu8":         # the conversion is exact: the same bits
+            same = torch.equal(got, channelizer.channelize_pairs(
+                pairs_q, n_ch, channels=sel))
+            require(same, "channelize cu8: differs from the float-pair "
+                    "route on the same samples")
+            extra["bitwise_equal_to_c64_route"] = same
+        nsel = n_ch if sel is None else len(sel)
+        bound, by = channelize_bound(n_w, n_ch, t_ch, nsel,
+                                     2 if fmt_c == "cu8" else 8)
+        m = {"ms": graph_ms(call), "call_ms": event_ms(call, 20),
              "plain_ms": event_ms(lambda: channelizer.channelize_reference(
-                 torch.view_as_complex(pairs_w), WIDE_CHANNELS,
-                 channels=sel), 3),
+                 torch.view_as_complex(plain_x), n_ch, t_ch, channels=sel),
+                 3),
              "bound_ms": bound, "bound_by": by, "rel_err": err / rms}
         chan_times[label] = m
+        tile_c, tw_smem_c = kchan.plan(n_ch, t_ch, nsel, fmt_c)
         say("channelize_vs_plain", kernel="channelize", channels=label,
-            n_channels=WIDE_CHANNELS, selected=nsel, samples=n_w,
-            max_abs_err=f"{err:.3e}", rel_err=f"{err / rms:.3e}",
-            tol=CHANNELIZE_TOL, kernel_ms=f"{m['ms']:.4f}",
-            call_ms=f"{m['call_ms']:.4f}",
+            input_format=fmt_c, n_channels=n_ch, taps=t_ch, selected=nsel,
+            samples=n_w, max_abs_err=f"{err:.3e}",
+            rel_err=f"{err / rms:.3e}", tol=CHANNELIZE_TOL,
+            kernel_ms=f"{m['ms']:.4f}", call_ms=f"{m['call_ms']:.4f}",
             plain_ms=f"{m['plain_ms']:.3f}", bound_ms=f"{bound:.6f}",
             bound_by=by, share_of_bound=f"{bound / m['ms']:.5f}",
-            tile_frames=kchan.tile_frames(WIDE_CHANNELS, 12), card=repr(smi))
+            tile_frames=tile_c, twiddles_in_smem=tw_smem_c,
+            templated=kchan.templated(n_ch, t_ch, tile_c, tw_smem_c),
+            blocks_tiles=kchan.geometry(
+                n_w // n_ch, tile_c, kchan._sms(0),
+                kchan.smem_bytes(n_ch, t_ch, tile_c, nsel, fmt_c,
+                                 tw_smem_c)),
+            card=repr(smi), **extra)
 
     # the fused mode's front end, as demod_multichannel runs it
     F_w = n_w // WIDE_CHANNELS
@@ -1120,18 +1168,60 @@ def main() -> int:
         vectorized_equals_receiver=True, only_fused=topk_only,
         only_vectorized=fsm_only, false_lock=WIDE_FALSE_LOCK)
 
-    # where the fused call's time goes: its stages as demod_multichannel
-    # runs them, each closed by a CUDA event (device time between the
-    # marks, launch gaps included), then one call under torch.profiler
-    # (each kernel's device time, the device's busy share)
-    def wide_stages():
+    # the raw-cu8 route: the capture's cu8 bytes straight to the
+    # channelizer kernel, fused and vectorized (the CLI's default), each
+    # held to the float-pair route on iq_from_cu8 of the same bytes
+    wide_cu8 = {}
+    for mode_w, kw in (("fused", {"fused": True}), ("vectorized", {})):
+        want_q = channelizer.demod_multichannel(
+            iq_q, fs_w, WIDE_CHANNELS, cfgw, device=dev, **kw)
+        walls = []
+        for _ in range(2):
+            for mod in (kchan, fsk_demod, ktopk, bp_decode, kcrc):
+                mod.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_q = channelizer.demod_multichannel(
+                raw_w, fs_w, WIDE_CHANNELS, cfgw, device=dev,
+                input_format="cu8", **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        counts = {"channelize": kchan.launches,
+                  "fsk_demod": fsk_demod.launches,
+                  "deframe_topk": ktopk.launches,
+                  "bp_decode": bp_decode.launches, "crc_pack": kcrc.launches}
+        require(counts["channelize"] == 1 and counts["fsk_demod"] == 1,
+                f"wideband cu8 {mode_w}: launches {counts}")
+        require(out_q == want_q, f"wideband cu8 {mode_w}: the lists differ "
+                "from the float-pair route on the same samples")
+        wide_cu8[mode_w] = out_q
+        npk = sum(map(len, out_q.values()))
+        msps = n_w / walls[1] / 1e6
+        say("wideband_cu8", mode=mode_w, channels=WIDE_CHANNELS,
+            scale=WIDE_CU8_SCALE, samples=n_w, bytes=raw_w.nbytes,
+            packets=f"{npk}/{WIDE_CHANNELS * WIDE_PACKETS}",
+            equals_c64_route=True,
+            equals_unquantised=(out_q == wide_out[mode_w]),
+            first_wall_s=f"{walls[0]:.3f}", wall_s=f"{walls[1]:.4f}",
+            band_msps=f"{msps:.4f}", x_realtime=f"{msps * 1e6 / fs_w:.3f}",
+            launches=counts, card=repr(smi))
+    require(wide_cu8["fused"] == sent_w,
+            f"wideband cu8 fused: {sum(map(len, wide_cu8['fused'].values()))}"
+            f" of {WIDE_CHANNELS * WIDE_PACKETS} packets in order")
+
+    # where the fused call's time goes, for both routes: its stages as
+    # demod_multichannel runs them, each closed by a CUDA event (device
+    # time between the marks, launch gaps included), then one call under
+    # torch.profiler (each kernel's device time, the device's busy share)
+    def wide_stages(src, fmt_s):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ev[0].record()
-        pairs = channelizer._pairs(wide, dev)
+        x_s = channelizer._device_input(src, dev, fmt_s)
         ev[1].record()
-        chans = channelizer.channelize_pairs(pairs, WIDE_CHANNELS)
+        chans = channelizer.channelize_pairs(x_s, WIDE_CHANNELS,
+                                             input_format=fmt_s)
         ev[2].record()
         _, o = fsk.demod_raw(cfgw, chans, "c64", nf_w, *lanes_w[4:])
         ev[3].record()
@@ -1146,21 +1236,27 @@ def main() -> int:
         ev[6].synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         return wall, [ev[i].elapsed_time(ev[i + 1]) for i in range(6)]
-    wide_stages()
-    stage_wall, stage_ms = wide_stages()
-    per_kernel = {}
-    wall_wf, busy_wf, nk_wf = device_busy(lambda: channelizer.demod_multichannel(
-        wide, fs_w, WIDE_CHANNELS, cfgw, fused=True, device=dev), per_kernel)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-    say("wideband_breakdown", mode="fused", stages_wall_ms=f"{stage_wall:.3f}",
-        h2d_ms=f"{stage_ms[0]:.3f}", channelize_ms=f"{stage_ms[1]:.3f}",
-        demod_ms=f"{stage_ms[2]:.3f}", deframe_topk_ms=f"{stage_ms[3]:.3f}",
-        decode_ms=f"{stage_ms[4]:.3f}", crc_and_d2h_ms=f"{stage_ms[5]:.3f}",
-        profiled_wall_ms=f"{wall_wf * 1e3:.3f}",
-        kernels=nk_wf if busy_wf is not None else "not measured",
-        device_busy_share=share(busy_wf, wall_wf),
-        kernel_device_ms={n[:40]: round(t, 4) for n, t in top},
-        card=repr(smi))
+    for src, fmt_s in ((wide, "c64"), (raw_w, "cu8")):
+        wide_stages(src, fmt_s)
+        stage_wall, stage_ms = wide_stages(src, fmt_s)
+        per_kernel = {}
+        wall_wf, busy_wf, nk_wf = device_busy(
+            lambda: channelizer.demod_multichannel(
+                src, fs_w, WIDE_CHANNELS, cfgw, fused=True, device=dev,
+                input_format=fmt_s), per_kernel)
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+        say("wideband_breakdown", mode="fused", input_format=fmt_s,
+            h2d_bytes=src.nbytes, stages_wall_ms=f"{stage_wall:.3f}",
+            h2d_ms=f"{stage_ms[0]:.3f}", channelize_ms=f"{stage_ms[1]:.3f}",
+            demod_ms=f"{stage_ms[2]:.3f}",
+            deframe_topk_ms=f"{stage_ms[3]:.3f}",
+            decode_ms=f"{stage_ms[4]:.3f}",
+            crc_and_d2h_ms=f"{stage_ms[5]:.3f}",
+            profiled_wall_ms=f"{wall_wf * 1e3:.3f}",
+            kernels=nk_wf if busy_wf is not None else "not measured",
+            device_busy_share=share(busy_wf, wall_wf),
+            kernel_device_ms={n[:40]: round(t, 4) for n, t in top},
+            card=repr(smi))
     for name in ("channelize", "deframe_topk", "crc_pack"):
         main_launches[name] = wide_counts["fused"][name]
 
@@ -1200,6 +1296,22 @@ def main() -> int:
                                     f"{total} packets"), f"{phase}: {line}")
             say(phase, rc=rc, wall_s=f"{dt_cli:.2f}", stderr=repr(line),
                 card=repr(smi))
+        # the same capture as cu8 bytes (--format cu8: the raw route):
+        # the vectorized mode's count on those bytes, and the c64 run's
+        path_q = os.path.join(tmp, "wide.cu8")
+        raw_w.tofile(path_q)
+        total = sum(map(len, wide_cu8["vectorized"].values()))
+        total_c64 = sum(map(len, wide_out["vectorized"].values()))
+        rc, line, err, dt_cli = run_cli(
+            path_q, "--channels", str(WIDE_CHANNELS), "--image-dir",
+            os.path.join(tmp, "cli_wideband_cu8"), fmt="cu8")
+        require(rc == 0, f"cli_wideband_cu8 exit {rc}: {err}")
+        require(line.startswith(f"wideband: {WIDE_CHANNELS} channels, "
+                                f"{total} packets"),
+                f"cli_wideband_cu8: {line}")
+        say("cli_wideband_cu8", rc=rc, wall_s=f"{dt_cli:.2f}",
+            stderr=repr(line), same_count_as_c64=(total == total_c64),
+            card=repr(smi))
 
         # 10. the decoder-throughput stage of bench.py: B = 2048 at 7.5 dB,
         # each decoder timed, then held against its plain version
@@ -1409,7 +1521,8 @@ def main() -> int:
                 "wideband_picks": tw["picks"], "wideband_ms": tw["ms"],
                 "wideband_plain_ms": tw["plain_ms"],
                 "wideband_bound_ms": tw["bound_ms"]})
-    ca, cs = chan_times["all"], chan_times["select"]
+    ca, cs, cq, cr, cw, ct = (chan_times[lb] for lb in (
+        "all", "select", "cu8", "runtime_n", "wide_n", "taps"))
     out.append({"name": "channelize", "route": "cuda",
                 "source": "wenet_tpu_torch/csrc/channelize.cu",
                 "replaces": "wenet_tpu/ops/channelizer.py:37",
@@ -1419,9 +1532,22 @@ def main() -> int:
                 "bound_by": ca["bound_by"], "library_ms": None,
                 "n_channels": WIDE_CHANNELS, "samples": n_w,
                 "call_ms": ca["call_ms"],
-                "rel_err": max(ca["rel_err"], cs["rel_err"]),
+                "rel_err": max(m["rel_err"] for m in chan_times.values()),
                 "select_ms": cs["ms"], "select_plain_ms": cs["plain_ms"],
-                "select_bound_ms": cs["bound_ms"]})
+                "select_bound_ms": cs["bound_ms"],
+                "cu8_ms": cq["ms"], "cu8_call_ms": cq["call_ms"],
+                "cu8_plain_ms": cq["plain_ms"],
+                "cu8_bound_ms": cq["bound_ms"],
+                "cu8_bitwise_equal_to_c64": True,
+                "runtime_n": RUNTIME_N, "runtime_n_ms": cr["ms"],
+                "runtime_n_plain_ms": cr["plain_ms"],
+                "runtime_n_bound_ms": cr["bound_ms"],
+                "wide_n": WIDE_N, "wide_n_selected": len(WIDE_N_SELECT),
+                "wide_n_ms": cw["ms"], "wide_n_plain_ms": cw["plain_ms"],
+                "wide_n_bound_ms": cw["bound_ms"],
+                "runtime_taps": RUNTIME_TAPS, "runtime_taps_ms": ct["ms"],
+                "runtime_taps_plain_ms": ct["plain_ms"],
+                "runtime_taps_bound_ms": ct["bound_ms"]})
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

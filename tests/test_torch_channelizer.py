@@ -102,43 +102,215 @@ def test_adjacent_channel_rejection():
     assert np.delete(p, 2).max() < p[2] - 45
 
 
-def test_channelize_kernel_tiling_emulated():
-    """A numpy emulation of csrc/channelize.cu (tiles of frames staged from
-    x[(m0 - T) N ...], the FIR for s = T-1 .. 0 at x[(ml + T - s) N - p],
-    then the real parts' and the imaginary parts' DFT terms in phase
-    order) against the plain version, with a tile that does not divide
-    the frames."""
-    N, T, tile = 8, 12, 16
-    rng = np.random.default_rng(3)
-    n = N * 203 + 3
+def _fma(a, b, c):
+    """float32 a*b + c rounded once (the kernel's fmaf; the float64 sum
+    of the exact product rounds twice only in ties too rare to matter at
+    REL_TOL)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _emulate_kernel(buf, o, fmt, N, T, F, sel, sms):
+    """csrc/channelize.cu in numpy, block after block: buf is a 16-byte
+    aligned buffer whose bytes from offset o on are the capture (float32
+    pairs or cu8 bytes), with garbage around it as the card's memory has.
+    Each block walks its run of tiles of kch.plan and kch.geometry: the
+    first tile's T frames of history and IN_FLIGHT tiles copied ahead as
+    whole 16-byte chunks into a ring of kch.ring_samples that maps global
+    byte b to b mod R (each copy lands at once, the worst case for a copy
+    that overwrites live data), the zeros before the stream written after
+    the block's first tile arrives, the FIR of each output with taps s =
+    T-1 .. 0 (cu8: b - 127 times the taps / 128; the register window and
+    the single-output loop round alike), and the DFT of each channel over
+    the phases in order (re += yr c - yi s, im += yr s + yi c).  Frames
+    past F are never written (NaN left)."""
+    SB, D = kch.FORMATS[fmt][1], kch.IN_FLIGHT
+    tile, _ = kch.plan(N, T, len(sel), fmt)
+    hp, tw = (t.numpy() for t in kch._tables(N, T, tuple(sel),
+                                             torch.device("cpu")))
+    if fmt == "cu8":
+        hp = hp * np.float32(0.0078125)
+    blocks, per = kch.geometry(F, tile, sms)
+    TN, RS = tile * N, kch.ring_samples(N, T, tile, fmt)
+    R = RS * SB
+    total, ntiles, os_ = F * N, -(-F // tile), o // SB
+    nsel = len(sel)
+    out = np.full((nsel, F, 2), np.nan, np.float32)
+    k = np.arange(tile)[:, None]
+    p = np.arange(N)[None, :]
+    for blk in range(blocks):
+        ring = np.full(R, 0xA5, np.uint8)
+        q0, q1 = blk * per, min((blk + 1) * per, ntiles)
+
+        def fetch(js, je):
+            je = min(je, total)
+            if js >= je:
+                return
+            rc0, c0 = (((os_ + js) % RS) * SB) >> 4, (o + js * SB) >> 4
+            for c in range(c0, (o + je * SB + 15) >> 4):
+                rc = (rc0 + c - c0) % (R // 16)
+                ring[16 * rc: 16 * rc + 16] = buf[16 * c: 16 * c + 16]
+
+        h0 = q0 * TN - T * N
+        if q0 > 0:
+            fetch(max(h0, 0), q0 * TN)
+        for d in range(D):
+            if q0 + d < q1:
+                fetch((q0 + d) * TN, (q0 + d + 1) * TN)
+        for q in range(q0, q1):
+            if q + D < q1:
+                fetch((q + D) * TN, (q + D + 1) * TN)
+            if q == q0 and h0 < 0:
+                b = (os_ + h0) * SB + np.arange(-h0 * SB)
+                ring[b % R] = 127 if fmt == "cu8" else 0
+            rq = (os_ + q * TN) % RS
+            y = np.zeros((tile, N, 2), np.float32)
+            for s in range(T - 1, -1, -1):
+                r = (rq + (k - s) * N - p) % RS
+                if fmt == "cu8":        # b - 127, the 1/128 in the taps
+                    x = np.stack([ring[2 * r], ring[2 * r + 1]], -1).astype(
+                        np.float32) - np.float32(127)
+                else:
+                    x = ring.view(np.float32).reshape(-1, 2)[r]
+                y = _fma(hp[s][None, :, None], x, y)
+            m0 = q * tile
+            frames = min(tile, F - m0)
+            acc = np.zeros((nsel, tile, 2), np.float32)
+            for pp in range(N):
+                c, sn = tw[:nsel, pp, 0][:, None], tw[:nsel, pp, 1][:, None]
+                yr, yi = y[None, :, pp, 0], y[None, :, pp, 1]
+                acc[..., 0] = _fma(-yi, sn, _fma(yr, c, acc[..., 0]))
+                acc[..., 1] = _fma(yi, c, _fma(yr, sn, acc[..., 1]))
+            out[:, m0:m0 + frames] = acc[:, :frames]
+    return out[..., 0] + 1j * out[..., 1]
+
+
+def _aligned_buffer(data: bytes, o: int) -> np.ndarray:
+    """data at byte offset o of a 16-byte-aligned buffer of garbage bytes
+    (0x5A), with at least 16 more after it."""
+    n = -(-(o + len(data) + 16) // 16) * 16
+    buf = np.full(n, 0x5A, np.uint8)
+    buf[o:o + len(data)] = np.frombuffer(data, np.uint8)
+    return buf
+
+
+@pytest.mark.parametrize("N,T", [(8, 12), (6, 12), (256, 12), (8, 16),
+                                 (1300, 12)])
+def test_channelize_kernel_tiling_emulated(N, T):
+    """The numpy emulation of csrc/channelize.cu against the plain version
+    within REL_TOL, on float pairs 8 bytes past an aligned address: a
+    templated N (8), N read at run time (6; 256, more phases than FIR
+    threads), taps read at run time (16) and an N whose tile shrinks to 2
+    frames (1300); two persistent blocks of several tiles (the second
+    starts mid-stream and reads its own history, which for 2-frame tiles
+    reaches before the stream; the ring wraps), zeros before the stream,
+    a ragged last tile, a length that is not a multiple of N, and a
+    selection with a repeated channel and an odd count."""
+    tile, _ = kch.plan(N, T, 6, "c64")
+    assert tile % 2 == 0 and kch.templated(N, T, tile) == (N == 8 and T == 12)
+    F = 5 * tile + max(tile // 2 - 1, 1)     # six tiles, the last ragged
+    rng = np.random.default_rng(N + T)
+    n = N * F + 3
     x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
-    sel = (5, 0, 2)
-    hp, tw = (t.numpy() for t in kch._tables(N, T, sel, torch.device("cpu")))
-    F = n // N
-    out = np.zeros((len(sel), F), np.complex64)
-    for m0 in range(0, F, tile):
-        base = (m0 - T) * N
-        j = base + np.arange((tile + T) * N)
-        xs = np.where((j >= 0) & (j < F * N), x[np.clip(j, 0, n - 1)], 0)
-        xs = xs.astype(np.complex64)
-        ml = np.arange(tile)[:, None]
-        p = np.arange(N)[None, :]
-        y = np.zeros((tile, N), np.complex64)
-        for s in range(T - 1, -1, -1):
-            y += (hp[s][None, :] * xs[(ml + T - s) * N - p]).astype(
-                np.complex64)
-        frames = min(tile, F - m0)
-        for ci in range(len(sel)):
-            c, sn = tw[ci, :, 0], tw[ci, :, 1]
-            re = (y.real * c).sum(1, dtype=np.float32) \
-                - (y.imag * sn).sum(1, dtype=np.float32)
-            im = (y.real * sn).sum(1, dtype=np.float32) \
-                + (y.imag * c).sum(1, dtype=np.float32)
-            out[ci, m0:m0 + frames] = (re + 1j * im)[:frames]
-    want = tch.channelize(x, N, channels=sel, device="cpu").numpy()
-    assert _rel_err(out, want) <= REL_TOL
-    assert kch.tile_frames(N, T) == kch.MAX_TILE
-    assert kch.smem_bytes(256, T, kch.tile_frames(256, T)) <= kch.SMEM_LIMIT
+    sel = (5, 0, 2, 5, 4, 1)
+    blocks, per = kch.geometry(F, tile, 1)
+    assert blocks == 2 and per == 3
+    got = _emulate_kernel(_aligned_buffer(x.tobytes(), 8), 8, "c64", N, T,
+                          F, sel, 1)
+    want = tch.channelize(x, N, T, channels=sel, device="cpu").numpy()
+    assert not np.isnan(got).any()
+    assert _rel_err(got, want) <= REL_TOL
+
+
+def test_channelize_kernel_plan():
+    """The launch plan: N = 4, 8, 16 with T = 12 take the templated
+    kernel; 256 keeps a tile of whole FIR groups (the register window);
+    larger N shrink the tile; every N up to 1024 fits a block on either
+    format, with the twiddles of all its channels in shared memory up to
+    N = 64, and every N up to 1383 (the first version's largest at T =
+    12) on float pairs; a block that fits no 2-frame tile raises; the
+    persistent grid takes as many blocks a SM as fit its shared
+    memory."""
+    for N in (4, 8, 16):
+        assert kch.templated(N, 12, kch.plan(N, 12, N)[0])
+        assert not kch.templated(N, 16, kch.plan(N, 16, N)[0])
+    assert kch.plan(8, 12, 8) == (252, True)
+    assert kch.plan(6, 12, 6) == (324, True)
+    assert kch.plan(256, 12, 256, "c64") == (18, False)
+    assert kch.plan(1300, 12, 3, "c64")[0] == 2
+    assert kch.plan(1383, 12, 1, "c64")[0] == 2
+    for N in range(1, 1025):
+        for fmt in ("c64", "cu8"):
+            tile, tw_smem = kch.plan(N, 12, N, fmt)
+            assert kch.smem_bytes(N, 12, tile, N, fmt, tw_smem) \
+                <= kch.SMEM_LIMIT
+            assert kch.ring_samples(N, 12, tile, fmt) \
+                * kch.FORMATS[fmt][1] % 16 == 0
+            assert tw_smem or N > 64
+    with pytest.raises(ValueError):
+        kch.plan(4096, 12, 1, "c64")
+    # two blocks a SM where two fit its shared memory, else one
+    assert kch.geometry(18 * 300, 18, 132, 60_000) == (150, 2)
+    assert kch.geometry(18 * 300, 18, 132, 150_000) == (100, 3)
+
+
+def test_channelize_kernel_ring_emulated_cu8():
+    """The emulation on raw cu8 bytes 6 bytes past an aligned address
+    (chunks that straddle tiles and the stream's edges; the ring wrapped
+    by each block) equals the float-pair route on
+    iq_from_cu8 of the same bytes bit for bit, and the plain version
+    within REL_TOL."""
+    N = 8
+    F = 10 * kch.plan(N, 12, 5, "cu8")[0] + 37
+    rng = np.random.default_rng(11)
+    raw = rng.integers(0, 256, 2 * (N * F + 3), dtype=np.uint8)
+    sel = (1, 7, 4, 0, 3)
+    got = _emulate_kernel(_aligned_buffer(raw.tobytes(), 6), 6, "cu8", N,
+                          12, F, sel, 1)
+    iq = tfsk.iq_from_cu8(raw)
+    pairs = _emulate_kernel(_aligned_buffer(iq.tobytes(), 8), 8, "c64", N,
+                            12, F, sel, 1)
+    assert not np.isnan(got).any()
+    np.testing.assert_array_equal(got, pairs)
+    want = tch.channelize(iq, N, channels=sel, device="cpu").numpy()
+    assert _rel_err(got, want) <= REL_TOL
+
+
+def test_channelize_cu8_route_on_the_cpu():
+    """channelize_pairs on raw cu8 bytes equals the c64 route on
+    iq_from_cu8 of the same bytes bit for bit (a length in samples that is
+    not a multiple of N, all channels and a selection with a negative
+    index); other formats raise."""
+    rng = np.random.default_rng(21)
+    raw = rng.integers(0, 256, 2 * (NCH * 300 + 5), dtype=np.uint8)
+    pairs = torch.from_numpy(tfsk.iq_from_cu8(raw).view(np.float32)
+                             .reshape(-1, 2))
+    for sel in (None, (3, -1)):
+        got = tch.channelize_pairs(torch.from_numpy(raw), NCH, channels=sel,
+                                   input_format="cu8")
+        assert torch.equal(got, tch.channelize_pairs(pairs, NCH,
+                                                     channels=sel))
+    with pytest.raises(ValueError):
+        tch.channelize_pairs(pairs, NCH, input_format="cs16")
+
+
+def test_negative_channels_and_range():
+    """Indices in [-N, 0) count from the end (channelize_pairs with
+    (-1, 3) equals the plain version on (N-1, 3)); N and -N-1 raise
+    IndexError, as the JAX package's indexing does."""
+    rng = np.random.default_rng(22)
+    n = NCH * 200 + 1
+    x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
+    pairs = torch.from_numpy(x.view(np.float32).reshape(-1, 2))
+    want = torch.view_as_real(tch.channelize_reference(
+        torch.from_numpy(x), NCH, channels=(NCH - 1, 3))).reshape(-1, 2)
+    assert torch.equal(tch.channelize_pairs(pairs, NCH, channels=(-1, 3)),
+                       want)
+    for bad in (NCH, -NCH - 1):
+        with pytest.raises(IndexError):
+            tch.channelize_pairs(pairs, NCH, channels=(0, bad))
+        with pytest.raises(IndexError):
+            tch.demod_multichannel(x, FS_TOTAL, NCH, tfsk.FSKConfig(**GEOM),
+                                   channels=[bad], device="cpu")
 
 
 # ---------------------------------------------------------- receive path
@@ -228,6 +400,42 @@ def test_demod_multichannel_matches_jax(mode):
                                  channels=CHANNELS, device="cpu",
                                  **MODES[mode])
     assert got == _jax_multichannel(mode) == sent
+
+
+@functools.lru_cache(maxsize=None)
+def _wideband_cu8():
+    """_wideband()'s capture as cu8 bytes, scaled by 1/4 (the two channels'
+    sum peaks near 2)."""
+    wide, sent = _wideband()
+    return tfsk.iq_to_cu8(wide / 4), sent
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_demod_multichannel_cu8_matches_jax(mode):
+    """Raw cu8 bytes (input_format="cu8") give JAX's lists on
+    iq_from_cu8 of the same bytes in each mode, and the sent packets."""
+    raw, sent = _wideband_cu8()
+    got = tch.demod_multichannel(raw, FS_TOTAL, NCH, tfsk.FSKConfig(**GEOM),
+                                 channels=CHANNELS, device="cpu",
+                                 input_format="cu8", **MODES[mode])
+    want = jch.demod_multichannel(jfsk.iq_from_cu8(raw), FS_TOTAL, NCH,
+                                  jfsk.FSKConfig(**GEOM), channels=CHANNELS,
+                                  **MODES[mode])
+    assert got == want == sent
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_demod_multichannel_negative_channels_match_jax(mode):
+    """channels=[-1, 2]: channel N-1 under the key -1, then channel 2, in
+    each mode as the JAX package gives them, keys included."""
+    wide, sent = _wideband()
+    got = tch.demod_multichannel(wide, FS_TOTAL, NCH, tfsk.FSKConfig(**GEOM),
+                                 channels=[-1, 2], device="cpu",
+                                 **MODES[mode])
+    want = jch.demod_multichannel(wide, FS_TOTAL, NCH, jfsk.FSKConfig(**GEOM),
+                                  channels=[-1, 2], **MODES[mode])
+    assert got == want == {-1: [], 2: sent[2]}
+    assert list(got) == [-1, 2]
 
 
 def test_demod_multichannel_every_channel_and_checks():

@@ -907,7 +907,9 @@ def test_new_wrappers_take_only_cuda_tensors():
     for call in (lambda: kcrc.pack(bits, iters=torch.zeros(3)),
                  lambda: kcrc.crc_ok(bits),
                  lambda: ktopk.llrs(soft, "v2", 2),
-                 lambda: kch.channelize(pairs, 8, 12, (0, 1))):
+                 lambda: kch.channelize(pairs, 8, 12, (0, 1)),
+                 lambda: kch.channelize(pairs[:, 0].to(torch.uint8), 8, 12,
+                                        (0, 1), "cu8")):
         with pytest.raises(ValueError):
             call()
     assert crc.packet_crc_ok(bits).tolist() == [True, True, False]
@@ -1102,29 +1104,154 @@ def test_deframe_topk_on_the_card_matches_the_cpu(mode):
     assert int(want[1][0].sum()) == 3
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("channels", [None, (5, 0, 3)], ids=["all", "sel"])
-@pytest.mark.parametrize("N", [4, 8, 16])
-def test_channelize_kernel_matches_plain(N, channels):
-    """Random samples, a length that is not a multiple of N or of the
-    tile: within 1e-5 of the output's rms of the plain version."""
-    from wenet_tpu_torch.kernels import channelize as kch
+def _chan_inputs(n, seed, dev):
+    """(raw cu8 bytes (2 n,), their float32 pairs (n, 2)) on `dev`."""
+    raw = np.random.default_rng(seed).integers(0, 256, 2 * n, dtype=np.uint8)
+    pairs = fsk.iq_from_cu8(raw).view(np.float32).reshape(-1, 2)
+    return torch.from_numpy(raw).to(dev), torch.from_numpy(pairs).to(dev)
+
+
+def _chan_gaussian(n, seed, dev):
+    """(n, 2) float32 pairs of unit-variance Gaussian samples on `dev`:
+    arbitrary mantissas, magnitudes above 1."""
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(n, 2)).astype(np.float32)).to(dev)
+
+
+def _chan_plain(pairs, N, sel, T=12):
     from wenet_tpu_torch.ops import channelizer
-    dev = _card()
-    rng = np.random.default_rng(N)
-    n = N * 1000 + 3
-    x = rng.normal(size=(n, 2)).astype(np.float32)
-    pairs = torch.from_numpy(x).to(dev)
-    sel = None if channels is None else [k % N for k in channels]
-    before = kch.launches
-    got = channelizer.channelize_pairs(pairs, N, channels=sel)
-    torch.cuda.synchronize()
-    assert kch.launches == before + 1
-    want = torch.view_as_real(channelizer.channelize_reference(
-        torch.view_as_complex(pairs), N, channels=sel)).reshape(-1, 2)
+    return torch.view_as_real(channelizer.channelize_reference(
+        torch.view_as_complex(pairs), N, T, channels=sel)).reshape(-1, 2)
+
+
+def _chan_close(got, want):
     assert got.shape == want.shape
     rms = float(want.square().mean().sqrt())
     assert float((got - want).abs().max()) <= 1e-5 * rms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["c64", "cu8"])
+@pytest.mark.parametrize("channels", [None, (5, 0, 3)], ids=["all", "sel"])
+@pytest.mark.parametrize("N", [4, 8, 16, 6, 256])
+def test_channelize_kernel_matches_plain(N, channels, fmt):
+    """A length that is not a multiple of N or of the tile, N = 4, 8, 16
+    (N a template constant), 6 and 256 (N read at run time; 256 has more
+    phases than FIR threads), Gaussian float pairs or raw cu8 bytes:
+    within 1e-5 of the output's rms of the plain version, one launch a
+    call."""
+    from wenet_tpu_torch.kernels import channelize as kch
+    from wenet_tpu_torch.ops import channelizer
+    dev = _card()
+    n = N * 3000 + 3
+    if fmt == "cu8":
+        x, pairs = _chan_inputs(n, N, dev)
+    else:
+        x = pairs = _chan_gaussian(n, N, dev)
+    sel = None if channels is None else [k % N for k in channels]
+    before = kch.launches
+    got = channelizer.channelize_pairs(x, N, channels=sel, input_format=fmt)
+    torch.cuda.synchronize()
+    assert kch.launches == before + 1
+    _chan_close(got, _chan_plain(pairs, N, sel))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["c64", "cu8"])
+@pytest.mark.parametrize("N,T", [(8, 16), (6, 4), (256, 16), (1300, 12)])
+def test_channelize_kernel_run_time_taps_and_tiles(N, T, fmt):
+    """Taps other than 12 (read at run time, the single-output FIR) and
+    N = 1300, whose tile shrinks (2 frames on float pairs): within 1e-5 of the output's
+    rms of the plain version, one launch a call."""
+    from wenet_tpu_torch.kernels import channelize as kch
+    from wenet_tpu_torch.ops import channelizer
+    dev = _card()
+    n = N * 2000 + 5
+    if fmt == "cu8":
+        x, pairs = _chan_inputs(n, N + T, dev)
+    else:
+        x = pairs = _chan_gaussian(n, N + T, dev)
+    sel = [N - 1, 2, 0]
+    before = kch.launches
+    got = channelizer.channelize_pairs(x, N, T, channels=sel,
+                                       input_format=fmt)
+    torch.cuda.synchronize()
+    assert kch.launches == before + 1
+    _chan_close(got, _chan_plain(pairs, N, sel, T))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4, 8, 16, 6, 5, 128, 256])
+def test_channelize_cu8_equals_pairs_bitwise(N):
+    """The cu8 route and the float-pair route on the same samples give the
+    same bits (the conversion is exact), each call one launch; a long
+    capture spreads over many tiles a block."""
+    from wenet_tpu_torch.kernels import channelize as kch
+    from wenet_tpu_torch.ops import channelizer
+    dev = _card()
+    n = N * kch.plan(N, 12, 3, "cu8")[0] * 700 + N - 1
+    raw, pairs = _chan_inputs(n, 7, dev)
+    sel = [N - 1, 0, 1 % N]
+    before = kch.launches
+    a = channelizer.channelize_pairs(raw, N, channels=sel, input_format="cu8")
+    b = channelizer.channelize_pairs(pairs, N, channels=sel)
+    torch.cuda.synchronize()
+    assert kch.launches == before + 2
+    assert torch.equal(a, b)
+    _chan_close(a, _chan_plain(pairs, N, sel))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,offset", [("cu8", 2), ("cu8", 8), ("cu8", 16),
+                                        ("cu8", 14), ("c64", 8),
+                                        ("c64", 16)])
+def test_channelize_kernel_unaligned_capture(fmt, offset):
+    """A capture whose device pointer lies `offset` bytes past an aligned
+    address (a slice of a larger buffer): the same output as the aligned
+    copy, bit for bit."""
+    from wenet_tpu_torch.ops import channelizer
+    dev = _card()
+    N = 8
+    n = N * 5000 + 5
+    x = _chan_inputs(n, 9, dev)[0] if fmt == "cu8" else _chan_gaussian(
+        n, 9, dev)
+    flat = x.reshape(-1)
+    step = flat.element_size()
+    big = torch.zeros(flat.numel() + 64 // step, dtype=flat.dtype, device=dev)
+    big[offset // step: offset // step + flat.numel()] = flat
+    moved = big[offset // step: offset // step + flat.numel()].view(x.shape)
+    assert (moved.data_ptr() - big.data_ptr()) == offset
+    got = channelizer.channelize_pairs(moved, N, input_format=fmt)
+    want = channelizer.channelize_pairs(x, N, input_format=fmt)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_channelize_negative_channels_on_the_card():
+    """channels (-1, 3) on the card equal the plain version's (N-1, 3);
+    N and -N-1 raise IndexError before any launch; the wrapper raises on
+    what the kernel does not take (no taps, an N for which not even a
+    2-frame tile fits a block, float64 pairs, an odd number of cu8
+    bytes)."""
+    from wenet_tpu_torch.kernels import channelize as kch
+    from wenet_tpu_torch.ops import channelizer
+    dev = _card()
+    N = 8
+    raw, pairs = _chan_inputs(N * 2000 + 1, 13, dev)
+    got = channelizer.channelize_pairs(pairs, N, channels=(-1, 3))
+    _chan_close(got, _chan_plain(pairs, N, (N - 1, 3)))
+    before = kch.launches
+    for bad in (N, -N - 1):
+        with pytest.raises(IndexError):
+            channelizer.channelize_pairs(pairs, N, channels=(0, bad))
+    for call in (lambda: kch.channelize(pairs, N, 0, (0,)),
+                 lambda: kch.channelize(pairs, 4096, 12, (0,)),
+                 lambda: kch.channelize(raw[:-1], N, 12, (0,), "cu8")):
+        with pytest.raises(ValueError):
+            call()
+    with pytest.raises(TypeError):
+        kch.channelize(pairs.double(), N, 12, (0,))
+    assert kch.launches == before
 
 
 @pytest.mark.cuda
@@ -1142,6 +1269,27 @@ def test_demod_multichannel_on_the_card_matches_the_cpu(kw):
     want = channelizer.demod_multichannel(wide, 8 * cfg.Fs, 8, cfg,
                                           channels=[2, 5], device="cpu", **kw)
     assert got == want == {k: sent[k] for k in (2, 5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"fused": True}, {"vectorized": False}],
+                         ids=["vectorized", "fused", "receiver"])
+def test_demod_multichannel_cu8_and_negative_channels_on_the_card(kw):
+    """The same capture as cu8 bytes (scaled by 1/4) with channels
+    [-1, 2, 5]: every mode's lists on the card equal the CPU's, keyed by
+    the indices as given."""
+    from wenet_tpu_torch.ops import channelizer
+    dev = _card()
+    cfg = fsk.FSKConfig(Fs=96000, Rs=9600)
+    wide, sent = _wideband(cfg, 8, {2: 1, 5: 1}, 30.0, 40)
+    raw = fsk.iq_to_cu8(wide / 4)
+    got = channelizer.demod_multichannel(raw, 8 * cfg.Fs, 8, cfg,
+                                         channels=[-1, 2, 5], device=dev,
+                                         input_format="cu8", **kw)
+    want = channelizer.demod_multichannel(raw, 8 * cfg.Fs, 8, cfg,
+                                          channels=[-1, 2, 5], device="cpu",
+                                          input_format="cu8", **kw)
+    assert got == want == {-1: [], 2: sent[2], 5: sent[5]}
 
 
 def _wideband(cfg, n_ch, packets, ebno_db, seed):

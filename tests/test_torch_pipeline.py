@@ -199,6 +199,35 @@ def test_cli_wideband_matches_jax(tmp_path, capsys):
             lines[name]
 
 
+def test_cli_wideband_cu8_matches_jax(tmp_path, capsys):
+    """`rx --format cu8 --channels 8` through both CLIs on the CPU: the
+    port passes the raw bytes to the channelizer (converted there), the
+    JAX CLI converts on the host; exit 0, one packet each, the same text
+    log."""
+    from wenet_tpu.cli import rx as jax_cli
+    from wenet_tpu_torch.cli import rx as port_cli
+    cfg = jfsk.FSKConfig(**GEOM["v2"])
+    cap = tmp_path / "wide.cu8"
+    wide = _wideband_capture(cfg, 8, 3, "wideband channel three", 60)
+    jfsk.iq_to_cu8(wide / 2).tofile(cap)
+    common = [str(cap), "--format", "cu8", "--channels", "8", "--mode", "v2",
+              "--fs", str(cfg.Fs), "--rs", str(cfg.Rs), "--no-udp"]
+    logs, lines = {}, {}
+    for name, cli, extra in (("jax", jax_cli, []),
+                             ("port", port_cli, ["--device", "cpu"])):
+        out = tmp_path / name
+        assert cli.main(common + extra + [
+            "--image-dir", str(out / "img"), "--log-dir",
+            str(out / "logs")]) == 0
+        logs[name] = _text_logs(out / "logs")
+        lines[name] = capsys.readouterr().err.strip().splitlines()[-1]
+    assert logs["port"] == logs["jax"]
+    assert len(logs["jax"]) == 1 and "wideband channel three" in logs["jax"][0]
+    for name in lines:
+        assert lines[name].startswith("wideband: 8 channels, 1 packets, "), \
+            lines[name]
+
+
 @pytest.mark.parametrize("mode", ["v2", "v1"])
 def test_stats_record_with_eye_matches_jax(mode):
     """A with_eye receiver's stats record has JAX's keys, and its eye

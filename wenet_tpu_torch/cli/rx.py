@@ -17,8 +17,9 @@ samples.  Unless `--no-udp`, the modem-stats records carry the eye
 diagram of the last valid frame.  `--channels N` reads the whole capture
 as one wideband stream at N times the mode's rate, channelizes it into N
 channels on the device and decodes them all
-(`ops.channelizer.demod_multichannel`); `--channel-select` keeps only the
-channels it names.
+(`ops.channelizer.demod_multichannel`; cu8 bytes are converted in the
+channelizer kernel, other formats on the host); `--channel-select` keeps
+only the channels it names.
 """
 from __future__ import annotations
 
@@ -204,16 +205,20 @@ def main(argv=None):
 
 
 def _wideband(args, cfg, conv, dtype) -> int:
-    """--channels N: the whole capture, converted on the host, through the
-    channelizer and the per-channel decode; payloads routed in channel
-    order."""
+    """--channels N: the whole capture through the channelizer and the
+    per-channel decode; cu8 bytes go to the device as they are and are
+    converted in the channelizer kernel, other formats are converted on
+    the host; payloads routed in channel order."""
     from ..ops.channelizer import demod_multichannel
     from ..rx.router import PacketRouter, UDPEmitter
 
     fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
-    iq = conv(np.frombuffer(fin.read(), dtype=dtype))
+    buf = np.frombuffer(fin.read(), dtype=dtype)
     if fin is not sys.stdin.buffer:
         fin.close()
+    native = args.format == "cu8"
+    iq = buf if native else conv(buf)
+    n_samp = len(buf) // 2 if native else len(iq)
     sel = ([int(k) for k in args.channel_select.split(",")]
            if args.channel_select else None)
     router = PacketRouter(image_dir=args.image_dir, log_dir=args.log_dir,
@@ -223,7 +228,8 @@ def _wideband(args, cfg, conv, dtype) -> int:
     t0 = time.time()
     per_channel = demod_multichannel(
         iq, Fs_total=cfg.Fs * args.channels, n_channels=args.channels,
-        cfg=cfg, mode=args.mode, channels=sel, device=args.device)
+        cfg=cfg, mode=args.mode, channels=sel, device=args.device,
+        input_format="cu8" if native else "c64")
     n = 0
     for k in sorted(per_channel):
         for payload in per_channel[k]:
@@ -231,10 +237,10 @@ def _wideband(args, cfg, conv, dtype) -> int:
             n += 1
     router.flush()
     dt = time.time() - t0
-    # iq is at the full wideband rate Fs_total = cfg.Fs * channels
+    # samples at the full wideband rate Fs_total = cfg.Fs * channels
     print(f"wideband: {args.channels} channels, {n} packets, "
           f"images={router.images_decoded} wall={dt:.2f}s "
-          f"({len(iq) / max(dt, 1e-9) / 1e6:.2f} Msamp/s)",
+          f"({n_samp / max(dt, 1e-9) / 1e6:.2f} Msamp/s)",
           file=sys.stderr)
     return 0
 

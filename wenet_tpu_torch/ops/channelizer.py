@@ -6,18 +6,22 @@ Channel k is centred at k*Fs/N (negative ks wrap).  An N-phase
 decomposition of a windowed-sinc prototype lowpass filters each phase's
 decimated sub-stream (12 taps a phase), and an N-point DFT across the
 phases gives the channels.  On a CUDA tensor `channelize_pairs` launches
-the channelizer kernel (`kernels.channelize`), which writes the selected
-channels straight into the buffer that the demod kernel reads as lanes;
-on a CPU tensor `channelize_reference` computes it as the JAX package
-does (shifted slices, an einsum, `utils.compat.dft`).
+the channelizer kernel (`kernels.channelize`), which reads float32 pairs
+or the capture's raw cu8 bytes and writes the selected channels straight
+into the buffer that the demod kernel reads as lanes; on a CPU tensor
+`channelize_reference` computes it as the JAX package does (shifted
+slices, an einsum, `utils.compat.dft`).
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..utils import compat
+from . import fsk
 
 
 def prototype_lowpass(n_channels: int, taps_per_phase: int = 12,
@@ -75,27 +79,57 @@ def channelize_reference(iq: torch.Tensor, n_channels: int,
     return chans.contiguous()
 
 
-def channelize_pairs(pairs: torch.Tensor, n_channels: int,
-                     taps_per_phase: int = 12, channels=None) -> torch.Tensor:
-    """pairs (n, 2) float32 (re, im) -> (Nsel F, 2) float32: the selected
-    channels (default: all) one after the other, F = n // N frames each —
+def _selection(channels, N: int) -> tuple:
+    """The channel indices to compute, in the order given (default: all),
+    each in [-N, N) and mapped into [0, N) as the JAX package's indexing
+    does; anything else raises IndexError, as there."""
+    if channels is None:
+        return tuple(range(N))
+    sel = tuple(int(k) for k in channels)
+    bad = [k for k in sel if not -N <= k < N]
+    if bad:
+        raise IndexError(f"channels {bad} out of range for {N} channels")
+    return tuple(k % N for k in sel)
+
+
+def channelize_pairs(x: torch.Tensor, n_channels: int,
+                     taps_per_phase: int = 12, channels=None,
+                     input_format: str = "c64") -> torch.Tensor:
+    """x: (n, 2) float32 (re, im) pairs ("c64") or the raw interleaved cu8
+    bytes of n samples as a uint8 tensor ("cu8") -> (Nsel F, 2) float32:
+    the selected channels (default: all; indices in [-N, N), negative ones
+    counted from the end) one after the other, F = n // N frames each —
     the layout the demod reads as c64 lanes (lane i starts at i*F).  A
-    CUDA tensor launches the channelizer kernel; a CPU tensor runs the
-    plain version."""
-    sel = tuple(range(n_channels)) if channels is None else tuple(
-        int(k) for k in channels)
-    if pairs.device.type == "cuda":
+    CUDA tensor launches the channelizer kernel (cu8 bytes converted in
+    it); a CPU tensor runs the plain version (cu8 converted first)."""
+    if input_format not in ("c64", "cu8"):
+        raise ValueError(f"input_format must be 'c64' or 'cu8', got "
+                         f"{input_format!r}")
+    sel = _selection(channels, n_channels)
+    if x.device.type == "cuda":
         from ..kernels import channelize as kernel
-        return kernel.channelize(pairs.contiguous(), n_channels,
-                                 taps_per_phase, sel)
-    iq = torch.complex(pairs[:, 0].contiguous(), pairs[:, 1].contiguous())
+        return kernel.channelize(x.contiguous(), n_channels, taps_per_phase,
+                                 sel, input_format)
+    if input_format == "cu8":
+        iq = torch.from_numpy(fsk.iq_from_cu8(x.numpy()))
+    else:
+        iq = torch.complex(x[:, 0].contiguous(), x[:, 1].contiguous())
     ch = channelize_reference(iq, n_channels, taps_per_phase, sel)
     return torch.view_as_real(ch).reshape(-1, 2)
 
 
-def _pairs(iq, device) -> torch.Tensor:
-    """A capture (complex64 numpy or tensor) as (n, 2) float32 pairs on
-    `device` (a tensor stays on its own device)."""
+def _device_input(iq, device, input_format: str = "c64") -> torch.Tensor:
+    """A capture on `device` as channelize_pairs takes it: complex64
+    (numpy or tensor) as (n, 2) float32 pairs, or cu8 bytes (numpy or
+    tensor) as they are, one copy of 2 bytes a sample; a tensor stays on
+    its own device."""
+    if input_format == "cu8":
+        if isinstance(iq, torch.Tensor):
+            return iq.reshape(-1)
+        raw = np.ascontiguousarray(np.asarray(iq, np.uint8).reshape(-1))
+        with warnings.catch_warnings():   # read-only file bytes: never
+            warnings.simplefilter("ignore", UserWarning)  # written here
+            return torch.from_numpy(raw).to(resolve_device(device))
     if isinstance(iq, torch.Tensor):
         return torch.view_as_real(iq.to(torch.complex64).contiguous())
     iq = np.require(np.asarray(iq, np.complex64), requirements=["C", "W"])
@@ -111,23 +145,29 @@ def channelize(iq, n_channels: int, taps_per_phase: int = 12,
     k*Fs/N, downconverted to baseband and decimated by N (critically
     sampled).  channels: the channel indices to compute (default all)."""
     N = n_channels
-    pairs = _pairs(iq, device)
+    pairs = _device_input(iq, device)
     out = channelize_pairs(pairs, N, taps_per_phase, channels)
-    nsel = N if channels is None else len(channels)
+    nsel = len(_selection(channels, N))
     return torch.view_as_complex(out.reshape(nsel, pairs.shape[0] // N, 2))
 
 
 def demod_multichannel(iq, Fs_total: int, n_channels: int, cfg,
                        mode: str = "v2", channels=None,
                        vectorized: bool = True, max_iter: int = 10,
-                       fused: bool = False, device="cuda"):
+                       fused: bool = False, device="cuda",
+                       input_format: str = "c64"):
     """Wideband capture -> per-channel packet decode; returns
     {channel_index: list_of_payloads}, as
     `wenet_tpu/ops/channelizer.py::demod_multichannel`.
 
-    iq at Fs_total (complex64 numpy or tensor); each channel lands at
-    Fs_total/n_channels, which must equal cfg.Fs.  device: CUDA unless the
-    caller asks for another; raises without a card.
+    iq at Fs_total (complex64 numpy or tensor, or with input_format="cu8"
+    the capture's raw interleaved uint8 bytes, which go to the device as
+    they are and are converted in the channelizer kernel; on the CPU they
+    are converted first, as `ops.fsk.iq_from_cu8`); each channel lands at
+    Fs_total/n_channels, which must equal cfg.Fs.  channels: indices in
+    [-N, N) (negative ones counted from the end); the result is keyed by
+    the indices as given.  device: CUDA unless the caller asks for
+    another; raises without a card.
 
     vectorized=True (the default): the channelizer, then the selected
     channels demodulated as lanes of one demod call straight out of its
@@ -142,17 +182,18 @@ def demod_multichannel(iq, Fs_total: int, n_channels: int, cfg,
     """
     from ..core import framing
     from ..rx.pipeline import Receiver
-    from . import deframe, fsk
+    from . import deframe
 
     if Fs_total // n_channels != cfg.Fs:
         raise ValueError("channel rate != demod config rate")
     sel = list(range(n_channels)) if channels is None else [
         int(k) for k in channels]
-    pairs = _pairs(iq, device)
-    dev = pairs.device
-    F = pairs.shape[0] // n_channels
+    x = _device_input(iq, device, input_format)
+    dev = x.device
+    F = x.numel() // 2 // n_channels   # pairs or cu8: 2 values a sample
     L = len(sel)
-    chans = channelize_pairs(pairs, n_channels, channels=sel)
+    chans = channelize_pairs(x, n_channels, channels=sel,
+                             input_format=input_format)
     if not vectorized and not fused:
         ch = torch.view_as_complex(chans.reshape(L, F, 2)).cpu().numpy()
         return {k: Receiver(mode=mode, cfg=cfg, device=dev).decode_iq(ch[i])
