@@ -19,7 +19,9 @@ the decodes of both LLRs equal) on the fused steps' soft bits (v2 and v1,
 16 streams) and on the wideband fused mode's (8 streams, kk picks), the
 channelizer kernel (within 1e-5 of the output's rms; all 8 channels, a
 selection, the capture's cu8 bytes read by the kernel (bit for bit the
-float-pair route on the same samples) and N = 6 read at run time) on an
+float-pair route on the same samples), N = 6 read at run time, and N =
+3228 at 4 taps a phase, the first version's largest, whose block keeps no
+tile in flight, on Gaussian pairs) on an
 8-channel wideband capture at 7.68 MHz, and the demod kernel on the
 channelizer's 8 c64 lanes.  Kernel
 times are CUDA-event times: for the BP kernels `ms` over replays of a
@@ -52,8 +54,17 @@ samples; the fused call's stages timed on both routes), the
 --slabs, and with --channels 8 (and --channel-select, and on the cu8
 bytes); the decoder-throughput
 stage of bench.py (B = 2048 at 7.5 dB); LDPC BER sweeps with both
-algorithms; a full-chain PER sweep; and the coarse acquisition search,
-alone and through the CLI's --acquire, on a capture tuned 300 kHz off.
+algorithms; a full-chain PER sweep; the coarse acquisition search,
+alone and through the CLI's --acquire, on a capture tuned 300 kHz off;
+and the modem tools and the transmit side: `utils/probe.probe_demod` on
+600 v2 frames (the demod kernel's PROBE variant, held against the plain
+loop with traces and its soft bits bit-equal to the flight kernel's,
+both timed in turns), `rx/selftest.run`, `python -m wenet_tpu_torch tx`
+of 40 (v2) and 20 (v1) text messages at the flight geometries decoded
+by `python -m wenet_tpu_torch rx --format c64` (every text back),
+`cli/ber.run_ber` at two levels (at the higher, sync and a BER under
+1e-3) and `cli/bench_demod.run_sweep` at three levels (decoded bytes
+equal to the plain path's on the CPU, its table printed).
 Each phase prints one line (the receive paths their Msamples/s beside
 real time); any failed check raises, so the script exits non-zero before
 its last line.  The last three lines are a JSON object with the kernels'
@@ -124,6 +135,15 @@ TOPK_LLR_RTOL = 1e-5          # sd_to_llr's sums in another order
 CALL_REPS = 200               # eager calls behind the CRC and acquisition
 #                               kernels' call_ms (the host's share is noisy)
 VALID_EDGES = 7223            # of the 516 x 14 edge slots of H2064_516
+PROBE_FRAMES = 600            # probe: v2 frames through utils/probe
+TRACE_TOL = 1e-5              # probe traces f_int, EMA: max |d| / rms
+TXRX_TEXTS = {"v2": 40, "v1": 20}    # tx_rx: text messages a mode
+BER_EBNO_DB = (9.0, 13.0)     # ber: the higher syncs with BER < 1e-3
+BER_SECONDS = 2.0
+BENCH_PACKETS = 20            # bench: run_sweep("v2", 20, BENCH_EBNO_DB)
+BENCH_EBNO_DB = (7.0, 7.5, 12.0)  # a few, most, all packets at flight rate
+REACH = (3228, 4)             # channelize: the first version's largest N
+#                               at 4 taps a phase (no tile in flight)
 
 
 def require(ok, msg: str):
@@ -345,11 +365,12 @@ def demod_compare(got, want):
     return out
 
 
-def demod_bound(cfg, outs, n_samples, bytes_per_sample):
+def demod_bound(cfg, outs, n_samples, bytes_per_sample, traces=False):
     """(bound ms, 'bytes' or 'operations', one-SM bound ms) of one
     frame-loop call from the frames this run's data made valid.  Bytes:
     the lanes' raw samples read once, the frame outputs and the states
-    written once.  Operations (float32 and float64 alike, at
+    written once (with traces, the PROBE variant's: also each frame's
+    integrators, EMA, timing and high sample written once).  Operations (float32 and float64 alike, at
     FP32_OPS_PER_S): per estimator block used, the Hann window (2 a
     sample), the DFT (8 a sample and bin) and the magnitude and EMA (6 a
     bin); M peak picks over the bins; per tone and window sample the angle
@@ -373,7 +394,8 @@ def demod_bound(cfg, outs, n_samples, bytes_per_sample):
     L, nf = valid.shape
     nbytes = (n_samples * bytes_per_sample
               + L * nf * (5 * cfg.Nbits + 4 * M + 13)
-              + 2 * L * (4 * half + 8 * M + 24))
+              + 2 * L * (4 * half + 8 * M + 24)
+              + (L * nf * (8 * M * NP + 4 * half + 8) if traces else 0))
     t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     one_sm = ops / (FP32_OPS_PER_S / SMS * min(L, SMS))
     return (max(t_ops, t_bytes) * 1e3,
@@ -439,6 +461,202 @@ def channelize_bound(n, N, T, nsel, in_bytes=8):
                     F * (N * T * 4 + nsel * N * 8))
 
 
+def probe_phase(cfg, raw, dev, smi) -> dict:
+    """probe: utils/probe.probe_demod on PROBE_FRAMES v2 frames (one launch
+    of the PROBE variant, the count read around the call), held against
+    the plain loop with traces on the card (valid, nin, high sample exact;
+    soft bits within DEMOD_SOFT_TOL of the mean |soft|; f_int and the EMA
+    within TRACE_TOL of their rms; rx_timing within 1e-4), and its rx_sd
+    bit-equal to demod_iq_np (the flight kernel) on the same capture.
+    Times: the PROBE variant and the flight kernel on the same tensor, in
+    turns (flight, probe, probe, flight), and the plain loop once."""
+    import torch
+    from wenet_tpu_torch.kernels import fsk_demod
+    from wenet_tpu_torch.ops import fsk
+    from wenet_tpu_torch.utils import probe
+
+    iq = fsk.iq_from_cu8(raw[: 2 * PROBE_FRAMES * cfg.N])
+    fsk_demod.launches = fsk_demod.probe_launches = 0
+    traces = probe.probe_demod(cfg, iq)
+    launches = fsk_demod.probe_launches
+    require(launches == 1 and fsk_demod.launches == 0,
+            f"probe: {launches} PROBE and {fsk_demod.launches} flight "
+            "launches")
+    x = torch.from_numpy(iq).to(dev)
+    nf = cfg.num_frames(len(iq))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, wo, wt = fsk.demod_stream_reference(cfg, x, nf, with_probe=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    v = wo.valid.cpu().numpy()
+    require(np.array_equal(traces["valid"], v) and v.sum() >= PROBE_FRAMES - 2,
+            f"probe: {int(v.sum())} valid frames")
+    for k, want in (("t_nin", wo.nin), ("t_high_sample", wt.high_sample),
+                    ("t_f_est", wo.f_est)):
+        require(np.array_equal(traces[k][v], want.cpu().numpy()[v]),
+                f"probe: {k} differs from the plain loop")
+    soft_w = wo.soft.cpu().numpy()[v]
+    scale = float(np.abs(soft_w).mean())
+    err = float(np.abs(traces["rx_sd"][v] - soft_w).max())
+    require(err <= DEMOD_SOFT_TOL * scale, f"probe: soft {err} of {scale}")
+    require(np.allclose(traces["t_rx_timing"][v],
+                        wt.rx_timing.cpu().numpy()[v], rtol=1e-4, atol=1e-4),
+            "probe: rx_timing")
+    rel = {}
+    for k, want in (("t_f_int", wt.f_int), ("t_fft_est", wt.fft_est)):
+        w = want.cpu().numpy()[v]
+        rel[k] = float(np.abs(traces[k][v] - w).max()
+                       / np.sqrt(np.mean(np.abs(w) ** 2)))
+        require(rel[k] <= TRACE_TOL, f"probe: {k} {rel[k]:.3e} of its rms")
+    soft_k, _, _ = fsk.demod_iq_np(cfg, iq)
+    require(np.array_equal(traces["rx_sd"][v].reshape(-1), soft_k),
+            "probe: rx_sd differs from demod_iq_np on the same capture")
+
+    def flight():
+        return fsk.demod_stream(cfg, x, nf)
+
+    def probed():
+        return fsk.demod_stream(cfg, x, nf, with_probe=True)
+    t = [event_ms(fn, 5) for fn in (flight, probed, probed, flight)]
+    ms, flight_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    bound, by, bound_sm = demod_bound(   # wo with a lane axis of 1
+        cfg, type(wo)(*(t[None] for t in wo)), len(iq), 8, traces=True)
+    frames = int(v.sum())
+    say("probe", kernel="fsk_demod_probe", frames=frames,
+        max_abs_err=f"{err:.3e}", rel_err=f"{err / scale:.3e}",
+        tol=DEMOD_SOFT_TOL, f_int_rel_err=f"{rel['t_f_int']:.3e}",
+        fft_est_rel_err=f"{rel['t_fft_est']:.3e}", trace_tol=TRACE_TOL,
+        rx_sd_equals_demod_iq_np=True, launches=launches,
+        kernel_ms=f"{ms:.4f}", kernel_ms_per_frame=f"{ms / frames:.5f}",
+        flight_kernel_ms=f"{flight_ms:.4f}",
+        flight_ms_per_frame=f"{flight_ms / frames:.5f}",
+        turns_ms=[round(x_, 4) for x_ in t], plain_ms=f"{plain_ms:.2f}",
+        plain_ms_per_frame=f"{plain_ms / frames:.4f}",
+        bound_ms=f"{bound:.6f}", bound_by=by,
+        share_of_bound=f"{bound / ms:.5f}", bound_one_sm_ms=f"{bound_sm:.6f}",
+        card=repr(smi))
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "flight_ms": flight_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "bound_one_sm_ms": bound_sm, "frames": frames,
+            "trace_rel_err": max(rel.values())}
+
+
+def selftest_phase(smi):
+    """selftest: rx/selftest.run on the card returns 0, through the BP,
+    demod and CRC kernels (counts zeroed before, read after)."""
+    from wenet_tpu_torch.kernels import bp_decode, crc_pack, fsk_demod
+    from wenet_tpu_torch.rx import selftest
+
+    bp_decode.launches = fsk_demod.launches = crc_pack.launches = 0
+    t0 = time.perf_counter()
+    rc = selftest.run(verbose=True, device="cuda")
+    dt = time.perf_counter() - t0
+    counts = {"bp_decode": bp_decode.launches,
+              "fsk_demod": fsk_demod.launches, "crc_pack": crc_pack.launches}
+    require(rc == 0, f"selftest returned {rc}")
+    require(all(counts.values()), f"selftest: launches {counts}")
+    say("selftest", rc=rc, wall_s=f"{dt:.3f}", launches=counts,
+        card=repr(smi))
+
+
+def run_module(*args, timeout=600):
+    """`python -m wenet_tpu_torch *args` -> (rc, stderr, seconds)."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "wenet_tpu_torch", *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    return proc.returncode, proc.stderr, time.perf_counter() - t0
+
+
+def tx_rx_phase(tmp, modes, smi):
+    """tx_rx: `python -m wenet_tpu_torch tx` writes TXRX_TEXTS[mode] text
+    messages at each flight geometry as c64, and `python -m wenet_tpu_torch
+    rx --format c64` (on the card) recovers every one, read back from its
+    text log."""
+    import glob
+    for mode, cfg in modes:
+        texts = [f"tx_rx {mode} message {i}" for i in range(TXRX_TEXTS[mode])]
+        cap = os.path.join(tmp, f"tx_{mode}.c64")
+        geom = ("--fs", str(cfg.Fs), "--rs", str(cfg.Rs))
+        rc, err, tx_s = run_module("tx", "--out", cap, "--mode", mode,
+                                   "--text", *texts, *geom)
+        require(rc == 0, f"tx_rx {mode}: tx exit {rc}: {err}")
+        logs = os.path.join(tmp, f"tx_rx_logs_{mode}")
+        rc, err, rx_s = run_module(
+            "rx", cap, "--format", "c64", "--mode", mode, *geom, "--no-udp",
+            "--image-dir", os.path.join(tmp, f"tx_rx_img_{mode}"),
+            "--log-dir", logs)
+        require(rc == 0, f"tx_rx {mode}: rx exit {rc}: {err}")
+        got = []
+        for path in glob.glob(os.path.join(logs, "*_text.log")):
+            with open(path) as fh:
+                got += [json.loads(ln)["text"] for ln in fh]
+        require(sorted(got) == sorted(texts),
+                f"tx_rx {mode}: {len(got)} of {len(texts)} texts back")
+        line = err.strip().splitlines()[-1]
+        say("tx_rx", mode=mode, texts=f"{len(got)}/{len(texts)}",
+            capture_bytes=os.path.getsize(cap), tx_wall_s=f"{tx_s:.2f}",
+            rx_wall_s=f"{rx_s:.2f}", rx_stderr=repr(line), card=repr(smi))
+
+
+def ber_phase(cfg, smi):
+    """ber: cli/ber.run_ber on BER_SECONDS of the v2 flight geometry at
+    each of BER_EBNO_DB through the demod kernel (one launch a level); at
+    the higher level the testframe syncs with a BER under 1e-3."""
+    from wenet_tpu_torch.cli import ber
+    from wenet_tpu_torch.kernels import fsk_demod
+
+    fsk_demod.launches = 0
+    t0 = time.perf_counter()
+    res = [ber.run_ber(cfg, e, BER_SECONDS) for e in BER_EBNO_DB]
+    dt = time.perf_counter() - t0
+    require(fsk_demod.launches == len(BER_EBNO_DB),
+            f"ber: {fsk_demod.launches} fsk_demod launches")
+    require(res[-1]["sync_found"] and res[-1]["ber"] < 1e-3,
+            f"ber at {BER_EBNO_DB[-1]} dB: {res[-1]}")
+    say("ber", ebno_db=list(BER_EBNO_DB), seconds=BER_SECONDS,
+        bits=[r["bits"] for r in res], errs=[r["errs"] for r in res],
+        ber=[f"{r['ber']:.3e}" for r in res],
+        sync_found=[r["sync_found"] for r in res],
+        launches=fsk_demod.launches, wall_s=f"{dt:.3f}", card=repr(smi))
+
+
+def bench_phase(smi):
+    """bench: cli/bench_demod.run_sweep("v2", BENCH_PACKETS, BENCH_EBNO_DB)
+    through the Receiver on the card (counts zeroed before, read after),
+    its table printed; the decoded bytes at each level equal the plain
+    path's (device="cpu") on the same captures, all packets at the top
+    level."""
+    from wenet_tpu_torch.cli import bench_demod
+    from wenet_tpu_torch.kernels import bp_decode, crc_pack, fsk_demod
+
+    bp_decode.launches = fsk_demod.launches = crc_pack.launches = 0
+    lines = []
+    res = bench_demod.run_sweep("v2", BENCH_PACKETS, BENCH_EBNO_DB,
+                                log=lines.append)
+    counts = {"bp_decode": bp_decode.launches,
+              "fsk_demod": fsk_demod.launches, "crc_pack": crc_pack.launches}
+    require(all(counts.values()), f"bench: launches {counts}")
+    t0 = time.perf_counter()
+    plain = bench_demod.run_sweep("v2", BENCH_PACKETS, BENCH_EBNO_DB,
+                                  log=lambda *a: None, device="cpu")
+    plain_s = time.perf_counter() - t0
+    require([r[1] for r in res] == [r[1] for r in plain],
+            f"bench: {[r[1] for r in res]} bytes against the plain path's "
+            f"{[r[1] for r in plain]}")
+    require(res[-1][1] == 256 * BENCH_PACKETS, f"bench: {res[-1]}")
+    for ln in lines:
+        print(f"[bench] {ln}", flush=True)
+    say("bench", ebno_db=list(BENCH_EBNO_DB), packets=BENCH_PACKETS,
+        decoded_bytes=[r[1] for r in res],
+        runtime_s=[f"{r[2]:.4f}" for r in res],
+        plain_decoded_bytes=[r[1] for r in plain],
+        plain_wall_s=f"{plain_s:.2f}", launches=counts, card=repr(smi))
+
+
 def main() -> int:
     import torch
 
@@ -497,14 +715,15 @@ def main() -> int:
                 and lib_t.deframe_topk_pick_smem_bytes(nlive_t, ntiles_t)
                 == smem_t, "deframe_topk scratch accounting")
     for n_ch, t_ch in ((1, 12), (4, 12), (6, 12), (8, 16), (16, 12),
-                       (100, 12), (256, 12), (1024, 12)):
+                       (100, 12), (256, 12), (1024, 12), (2600, 4), REACH,
+                       (6456, 1)):
         for fmt_c, (code, _) in kchan.FORMATS.items():
             for nsel in (1, 3, n_ch):
-                tile, tw_smem = kchan.plan(n_ch, t_ch, nsel, fmt_c)
+                tile, tw_smem, fl = kchan.plan(n_ch, t_ch, nsel, fmt_c)
                 require(kchan._lib().channelize_smem_bytes(
-                    n_ch, t_ch, tile, nsel, code, int(tw_smem))
+                    n_ch, t_ch, tile, nsel, code, int(tw_smem), fl)
                         == kchan.smem_bytes(n_ch, t_ch, tile, nsel, fmt_c,
-                                            tw_smem),
+                                            tw_smem, fl),
                         "channelize smem accounting")
     region = ldpc_onehot.kernel_tables(dev).shape[1]
     clusters = bp_onehot.card_clusters(dev, region)
@@ -999,6 +1218,9 @@ def main() -> int:
     iq_q = fsk.iq_from_cu8(raw_w)
     pairs_q = torch.from_numpy(iq_q.view(np.float32).reshape(-1, 2)).to(dev)
     chan_times = {}
+    # unit Gaussian pairs, as many as the capture: the reach case's input
+    gauss_w = torch.from_numpy(np.random.default_rng(SEED + 900).normal(
+        size=(n_w, 2)).astype(np.float32)).to(dev)
     # (label, channels, the kernel's input, its format, the plain
     # version's pairs, N, taps a phase)
     for label, sel, x_c, fmt_c, plain_x, n_ch, t_ch in (
@@ -1009,7 +1231,9 @@ def main() -> int:
             ("runtime_n", None, pairs_w, "c64", pairs_w, RUNTIME_N, 12),
             ("wide_n", WIDE_N_SELECT, pairs_w, "c64", pairs_w, WIDE_N, 12),
             ("taps", None, pairs_w, "c64", pairs_w, WIDE_CHANNELS,
-             RUNTIME_TAPS)):
+             RUNTIME_TAPS),
+            ("reach", (REACH[0] - 1, 2, 0), gauss_w, "c64", gauss_w,
+             *REACH)):
         def call():
             return channelizer.channelize_pairs(x_c, n_ch, t_ch,
                                                 channels=sel,
@@ -1033,13 +1257,14 @@ def main() -> int:
         nsel = n_ch if sel is None else len(sel)
         bound, by = channelize_bound(n_w, n_ch, t_ch, nsel,
                                      2 if fmt_c == "cu8" else 8)
+        tile_c, tw_smem_c, fl_c = kchan.plan(n_ch, t_ch, nsel, fmt_c)
         m = {"ms": graph_ms(call), "call_ms": event_ms(call, 20),
              "plain_ms": event_ms(lambda: channelizer.channelize_reference(
                  torch.view_as_complex(plain_x), n_ch, t_ch, channels=sel),
                  3),
              "bound_ms": bound, "bound_by": by, "rel_err": err / rms}
+        m["in_flight"] = fl_c
         chan_times[label] = m
-        tile_c, tw_smem_c = kchan.plan(n_ch, t_ch, nsel, fmt_c)
         say("channelize_vs_plain", kernel="channelize", channels=label,
             input_format=fmt_c, n_channels=n_ch, taps=t_ch, selected=nsel,
             samples=n_w, max_abs_err=f"{err:.3e}",
@@ -1048,12 +1273,16 @@ def main() -> int:
             plain_ms=f"{m['plain_ms']:.3f}", bound_ms=f"{bound:.6f}",
             bound_by=by, share_of_bound=f"{bound / m['ms']:.5f}",
             tile_frames=tile_c, twiddles_in_smem=tw_smem_c,
-            templated=kchan.templated(n_ch, t_ch, tile_c, tw_smem_c),
+            in_flight=fl_c,
+            templated=kchan.templated(n_ch, t_ch, tile_c, tw_smem_c, fl_c),
             blocks_tiles=kchan.geometry(
                 n_w // n_ch, tile_c, kchan._sms(0),
                 kchan.smem_bytes(n_ch, t_ch, tile_c, nsel, fmt_c,
-                                 tw_smem_c)),
+                                 tw_smem_c, fl_c)),
             card=repr(smi), **extra)
+
+    require(chan_times["reach"]["in_flight"] == 0,
+            "channelize reach: the plan keeps a tile in flight")
 
     # the fused mode's front end, as demod_multichannel runs it
     F_w = n_w // WIDE_CHANNELS
@@ -1441,6 +1670,15 @@ def main() -> int:
             without_acquire=repr(plain_line.split(" images")[0]),
             cli_wall_s=f"{dt_cli:.2f}")
 
+        # 14. the modem tools (each with its launch counts zeroed before
+        # and read after) and the transmit side
+        probe_m = probe_phase(cfg2, raw_d, dev, smi)
+        selftest_phase(smi)
+        tx_rx_phase(tmp, (("v2", cfg2), ("v1", cfg1)), smi)
+        ber_phase(cfg2, smi)
+        bench_phase(smi)
+    main_launches["fsk_demod_probe"] = probe_m["launches"]
+
     sources = {
         "bp_decode": ("wenet_tpu_torch/csrc/bp_decode.cu",
                       "wenet_tpu/ops/ldpc_pallas2.py:114"),
@@ -1487,6 +1725,21 @@ def main() -> int:
                 "wideband_c64_plain_ms": dw["plain_ms"],
                 "wideband_c64_bound_ms": dw["bound_ms"],
                 "wideband_c64_max_abs_err": dw["max_abs_err"]})
+    # the PROBE variant of the same kernel, as probe_demod runs it: it
+    # replaces the per-frame trace scan of wenet_tpu/utils/probe.py
+    out.append({"name": "fsk_demod_probe", "route": "cuda",
+                "source": "wenet_tpu_torch/csrc/fsk_demod.cu",
+                "replaces": "wenet_tpu/utils/probe.py:22",
+                "launches": main_launches["fsk_demod_probe"],
+                "max_abs_err": probe_m["max_abs_err"], "ms": probe_m["ms"],
+                "plain_ms": probe_m["plain_ms"],
+                "bound_ms": probe_m["bound_ms"],
+                "bound_by": probe_m["bound_by"], "library_ms": None,
+                "lanes": 1, "frames": probe_m["frames"],
+                "ms_per_frame": probe_m["ms"] / probe_m["frames"],
+                "flight_kernel_ms": probe_m["flight_ms"],
+                "trace_rel_err": probe_m["trace_rel_err"],
+                "bound_one_sm_ms": probe_m["bound_one_sm_ms"]})
     c176, c128 = crc_times[CRC_BATCHES[1]], crc_times[CRC_BATCHES[0]]
     out.append({"name": "crc_pack", "route": "cuda",
                 "source": "wenet_tpu_torch/csrc/crc_pack.cu",
@@ -1521,8 +1774,8 @@ def main() -> int:
                 "wideband_picks": tw["picks"], "wideband_ms": tw["ms"],
                 "wideband_plain_ms": tw["plain_ms"],
                 "wideband_bound_ms": tw["bound_ms"]})
-    ca, cs, cq, cr, cw, ct = (chan_times[lb] for lb in (
-        "all", "select", "cu8", "runtime_n", "wide_n", "taps"))
+    ca, cs, cq, cr, cw, ct, cn = (chan_times[lb] for lb in (
+        "all", "select", "cu8", "runtime_n", "wide_n", "taps", "reach"))
     out.append({"name": "channelize", "route": "cuda",
                 "source": "wenet_tpu_torch/csrc/channelize.cu",
                 "replaces": "wenet_tpu/ops/channelizer.py:37",
@@ -1547,7 +1800,12 @@ def main() -> int:
                 "wide_n_bound_ms": cw["bound_ms"],
                 "runtime_taps": RUNTIME_TAPS, "runtime_taps_ms": ct["ms"],
                 "runtime_taps_plain_ms": ct["plain_ms"],
-                "runtime_taps_bound_ms": ct["bound_ms"]})
+                "runtime_taps_bound_ms": ct["bound_ms"],
+                "reach_n": REACH[0], "reach_taps": REACH[1],
+                "reach_selected": 3, "reach_in_flight": cn["in_flight"],
+                "reach_ms": cn["ms"], "reach_plain_ms": cn["plain_ms"],
+                "reach_bound_ms": cn["bound_ms"],
+                "reach_rel_err": cn["rel_err"]})
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

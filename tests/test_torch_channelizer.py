@@ -114,23 +114,29 @@ def _emulate_kernel(buf, o, fmt, N, T, F, sel, sms):
     aligned buffer whose bytes from offset o on are the capture (float32
     pairs or cu8 bytes), with garbage around it as the card's memory has.
     Each block walks its run of tiles of kch.plan and kch.geometry: the
-    first tile's T frames of history and IN_FLIGHT tiles copied ahead as
+    first tile's T frames of history and the plan's tiles in flight
+    (IN_FLIGHT, or fewer at large N) copied ahead as
     whole 16-byte chunks into a ring of kch.ring_samples that maps global
     byte b to b mod R (each copy lands at once, the worst case for a copy
     that overwrites live data), the zeros before the stream written after
     the block's first tile arrives, the FIR of each output with taps s =
     T-1 .. 0 (cu8: b - 127 times the taps / 128; the register window and
     the single-output loop round alike), and the DFT of each channel over
-    the phases in order (re += yr c - yi s, im += yr s + yi c).  Frames
+    the phases in order (re += yr c - yi s, im += yr s + yi c); at run
+    time, where a tile has few DFT items, in kch.dft_split(items) strided
+    partial sums joined by a butterfly, as the kernel's lanes do.  Frames
     past F are never written (NaN left)."""
-    SB, D = kch.FORMATS[fmt][1], kch.IN_FLIGHT
-    tile, _ = kch.plan(N, T, len(sel), fmt)
+    SB = kch.FORMATS[fmt][1]
+    tile, tw_smem, D = kch.plan(N, T, len(sel), fmt)
+    items = (tile + 1) // 2 * -(-len(sel) // kch.SG)
+    S = (1 if kch.templated(N, T, tile, tw_smem, D)
+         else kch.dft_split(items))
     hp, tw = (t.numpy() for t in kch._tables(N, T, tuple(sel),
                                              torch.device("cpu")))
     if fmt == "cu8":
         hp = hp * np.float32(0.0078125)
     blocks, per = kch.geometry(F, tile, sms)
-    TN, RS = tile * N, kch.ring_samples(N, T, tile, fmt)
+    TN, RS = tile * N, kch.ring_samples(N, T, tile, fmt, D)
     R = RS * SB
     total, ntiles, os_ = F * N, -(-F // tile), o // SB
     nsel = len(sel)
@@ -174,13 +180,18 @@ def _emulate_kernel(buf, o, fmt, N, T, F, sel, sms):
                 y = _fma(hp[s][None, :, None], x, y)
             m0 = q * tile
             frames = min(tile, F - m0)
-            acc = np.zeros((nsel, tile, 2), np.float32)
+            acc = np.zeros((S, nsel, tile, 2), np.float32)
             for pp in range(N):
                 c, sn = tw[:nsel, pp, 0][:, None], tw[:nsel, pp, 1][:, None]
                 yr, yi = y[None, :, pp, 0], y[None, :, pp, 1]
-                acc[..., 0] = _fma(-yi, sn, _fma(yr, c, acc[..., 0]))
-                acc[..., 1] = _fma(yi, c, _fma(yr, sn, acc[..., 1]))
-            out[:, m0:m0 + frames] = acc[:, :frames]
+                a = acc[pp % S]
+                a[..., 0] = _fma(-yi, sn, _fma(yr, c, a[..., 0]))
+                a[..., 1] = _fma(yi, c, _fma(yr, sn, a[..., 1]))
+            off = S // 2
+            while off:
+                acc = acc + acc[np.arange(S) ^ off]
+                off //= 2
+            out[:, m0:m0 + frames] = acc[0, :, :frames]
     return out[..., 0] + 1j * out[..., 1]
 
 
@@ -193,20 +204,46 @@ def _aligned_buffer(data: bytes, o: int) -> np.ndarray:
     return buf
 
 
-@pytest.mark.parametrize("N,T", [(8, 12), (6, 12), (256, 12), (8, 16),
-                                 (1300, 12)])
-def test_channelize_kernel_tiling_emulated(N, T):
+def _direct_channels(x, N, T, sel):
+    """The selected channels of the polyphase filterbank computed directly
+    in float64 (the FIR of each phase, then each selected bin's DFT term
+    alone): a reference for N too large for the plain version's N x N
+    DFT matrix."""
+    h = tch.prototype_lowpass(N, T).astype(np.float64).reshape(T, N)
+    F = len(x) // N
+    xm = x[:F * N].astype(np.complex128).reshape(F, N)
+    xf = np.zeros((F, N), np.complex128)       # xf[m, p] = x[m N - p]
+    xf[:, 0] = xm[:, 0]
+    xf[1:, 1:] = xm[:-1, :0:-1]
+    y = np.zeros((F, N), np.complex128)
+    for s in range(T):
+        y[s:] += h[s] * xf[:F - s]
+    p = np.arange(N)
+    return np.stack([y @ np.exp(2j * np.pi * k * p / N) for k in sel])
+
+
+@pytest.mark.parametrize("N,T,in_flight", [
+    (8, 12, 2), (6, 12, 2), (256, 12, 2), (8, 16, 2), (1300, 12, 2),
+    (2600, 4, 1), (3228, 4, 0), (6456, 1, 0)])
+def test_channelize_kernel_tiling_emulated(N, T, in_flight):
     """The numpy emulation of csrc/channelize.cu against the plain version
     within REL_TOL, on float pairs 8 bytes past an aligned address: a
     templated N (8), N read at run time (6; 256, more phases than FIR
     threads), taps read at run time (16) and an N whose tile shrinks to 2
-    frames (1300); two persistent blocks of several tiles (the second
-    starts mid-stream and reads its own history, which for 2-frame tiles
-    reaches before the stream; the ring wraps), zeros before the stream,
-    a ragged last tile, a length that is not a multiple of N, and a
-    selection with a repeated channel and an odd count."""
-    tile, _ = kch.plan(N, T, 6, "c64")
-    assert tile % 2 == 0 and kch.templated(N, T, tile) == (N == 8 and T == 12)
+    frames (1300); at 4 taps a phase, N whose block fits only with one
+    tile in flight (2600) or none (3228: the first version's largest N at
+    T = 4), and at 1 tap N = 6456 (its largest at T = 1), which takes
+    1-frame tiles (these three against a direct float64 filterbank: the
+    plain version's N x N DFT matrix is too large); two persistent blocks
+    of several tiles (the second starts mid-stream and reads its own
+    history, which for short tiles reaches before the stream; the ring
+    wraps), zeros before the stream, a ragged last tile, a length that is
+    not a multiple of N, and a selection with a repeated channel and an
+    odd count."""
+    tile, _, fl = kch.plan(N, T, 6, "c64")
+    assert fl == in_flight
+    assert (tile % 2 == 0) != (tile == 1) and (tile == 1) == (T == 1)
+    assert kch.templated(N, T, tile) == (N == 8 and T == 12)
     F = 5 * tile + max(tile // 2 - 1, 1)     # six tiles, the last ragged
     rng = np.random.default_rng(N + T)
     n = N * F + 3
@@ -216,7 +253,10 @@ def test_channelize_kernel_tiling_emulated(N, T):
     assert blocks == 2 and per == 3
     got = _emulate_kernel(_aligned_buffer(x.tobytes(), 8), 8, "c64", N, T,
                           F, sel, 1)
-    want = tch.channelize(x, N, T, channels=sel, device="cpu").numpy()
+    if N > 2000:
+        want = _direct_channels(x, N, T, sel)
+    else:
+        want = tch.channelize(x, N, T, channels=sel, device="cpu").numpy()
     assert not np.isnan(got).any()
     assert _rel_err(got, want) <= REL_TOL
 
@@ -233,14 +273,15 @@ def test_channelize_kernel_plan():
     for N in (4, 8, 16):
         assert kch.templated(N, 12, kch.plan(N, 12, N)[0])
         assert not kch.templated(N, 16, kch.plan(N, 16, N)[0])
-    assert kch.plan(8, 12, 8) == (252, True)
-    assert kch.plan(6, 12, 6) == (324, True)
-    assert kch.plan(256, 12, 256, "c64") == (18, False)
-    assert kch.plan(1300, 12, 3, "c64")[0] == 2
+    assert kch.plan(8, 12, 8) == (252, True, 2)
+    assert kch.plan(6, 12, 6) == (324, True, 2)
+    assert kch.plan(256, 12, 256, "c64") == (18, False, 2)
+    assert kch.plan(1300, 12, 3, "c64")[0::2] == (2, 2)
     assert kch.plan(1383, 12, 1, "c64")[0] == 2
     for N in range(1, 1025):
         for fmt in ("c64", "cu8"):
-            tile, tw_smem = kch.plan(N, 12, N, fmt)
+            tile, tw_smem, fl = kch.plan(N, 12, N, fmt)
+            assert fl == kch.IN_FLIGHT
             assert kch.smem_bytes(N, 12, tile, N, fmt, tw_smem) \
                 <= kch.SMEM_LIMIT
             assert kch.ring_samples(N, 12, tile, fmt) \
@@ -251,6 +292,48 @@ def test_channelize_kernel_plan():
     # two blocks a SM where two fit its shared memory, else one
     assert kch.geometry(18 * 300, 18, 132, 60_000) == (150, 2)
     assert kch.geometry(18 * 300, 18, 132, 150_000) == (100, 3)
+
+
+def _first_version_limit(T: int) -> int:
+    """The largest N the first version of the channelizer kernel took at T
+    taps a phase: its block (a tile of frames with its T frames of
+    history as float pairs, the FIR outputs of one frame more, the taps)
+    had to fit at a 1-frame tile."""
+    def smem(N):
+        def a16(b):
+            return (b + 15) // 16 * 16
+        return a16((1 + T) * N * 8) + a16(N * 2 * 8) + a16(T * N * 4)
+    lo, hi = 1, 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if smem(mid) <= kch.SMEM_LIMIT else (lo, mid - 1)
+    return lo
+
+
+@pytest.mark.parametrize("fmt", ["c64", "cu8"])
+def test_channelize_kernel_plan_reaches_the_first_version(fmt):
+    """At every T in 1..16 the plan takes every N up to the first
+    version's largest (3228 at T = 4), within the block's shared memory
+    and the launch's rules: as few tiles in flight as the block needs
+    (IN_FLIGHT wherever it fits), tiles even or of 1 frame, a ring of at
+    least one 16-byte chunk a thread; the templated geometries keep
+    IN_FLIGHT."""
+    assert _first_version_limit(4) == 3228
+    for T in range(1, 17):
+        limit = _first_version_limit(T)
+        for N in sorted({1, 2, 3, 7, 64, 255, 1000, limit // 2, limit - 1,
+                         limit}):
+            tile, tw_smem, fl = kch.plan(N, T, 3, fmt)
+            assert kch.smem_bytes(N, T, tile, 3, fmt, tw_smem, fl) \
+                <= kch.SMEM_LIMIT
+            assert 0 <= fl <= kch.IN_FLIGHT and (tile == 1 or tile % 2 == 0)
+            assert kch.ring_samples(N, T, tile, fmt, fl) \
+                * kch.FORMATS[fmt][1] >= 16 * 256
+            if fl < kch.IN_FLIGHT:       # only where the block needs it
+                assert kch.smem_bytes(N, T, 2, 3, fmt, False, fl + 1) \
+                    > kch.SMEM_LIMIT
+    for N in kch.TEMPLATED_N:
+        assert kch.plan(N, kch.TAPS, N, fmt)[2] == kch.IN_FLIGHT
 
 
 def test_channelize_kernel_ring_emulated_cu8():

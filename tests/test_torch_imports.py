@@ -34,7 +34,15 @@ NEW_MODULES = ("wenet_tpu_torch.ops.ldpc_onehot, wenet_tpu_torch.ops.channel, "
                "wenet_tpu_torch.ops.channelizer, "
                "wenet_tpu_torch.kernels.channelize, "
                "wenet_tpu_torch.kernels.crc_pack, "
-               "wenet_tpu_torch.kernels.deframe_topk")
+               "wenet_tpu_torch.kernels.deframe_topk, "
+               # the modem tools, the transmit side and their helpers
+               "wenet_tpu_torch.core.tuning, wenet_tpu_torch.utils.probe, "
+               "wenet_tpu_torch.rx.selftest, wenet_tpu_torch.cli.ber, "
+               "wenet_tpu_torch.cli.bench_demod, wenet_tpu_torch.cli.tx, "
+               "wenet_tpu_torch.cli.ssdv_cli, wenet_tpu_torch.tx, "
+               "wenet_tpu_torch.tx.packet_tx, wenet_tpu_torch.tx.radios, "
+               "wenet_tpu_torch.tx.sx127x, wenet_tpu_torch.ssdv.external, "
+               "wenet_tpu_torch.__main__")
 
 
 def test_port_imports_no_jax():
@@ -202,13 +210,17 @@ def test_cuda_requests_raise_without_card():
                                   "deframe_topk", "decode_iq_fused",
                                   "decode_iq_fused_overlap", "FusedReceiver",
                                   "decode_iq_parallel", "channelize",
-                                  "demod_multichannel"])
+                                  "demod_multichannel", "demod_iq_np",
+                                  "decode_np", "probe_demod", "selftest",
+                                  "run_ber", "run_sweep"])
 def test_public_functions_default_to_the_card(name, monkeypatch):
     """Called without a device, the port's public demod and deframe entry
     points ask for CUDA, and without a card they raise instead of running
     on the CPU."""
+    from wenet_tpu_torch.cli import bench_demod, ber
     from wenet_tpu_torch.ops import channelizer, deframe
-    from wenet_tpu_torch.rx import pipeline
+    from wenet_tpu_torch.rx import pipeline, selftest
+    from wenet_tpu_torch.utils import probe
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tfsk.FSKConfig(Fs=96000, Rs=9600)
     syms = framing.V2_SYMBOLS_PER_PACKET
@@ -236,6 +248,15 @@ def test_public_functions_default_to_the_card(name, monkeypatch):
             np.zeros(64, np.complex64), 8),
         "demod_multichannel": lambda: channelizer.demod_multichannel(
             np.zeros(8 * 4000, np.complex64), 8 * cfg.Fs, 8, cfg),
+        "demod_iq_np": lambda: tfsk.demod_iq_np(
+            cfg, np.zeros(4000, np.complex64)),
+        "decode_np": lambda: ldpc.decode_np(np.zeros((1, 2580), np.float32)),
+        "probe_demod": lambda: probe.probe_demod(
+            cfg, np.zeros(4000, np.complex64)),
+        "selftest": lambda: selftest.run(verbose=False),
+        "run_ber": lambda: ber.run_ber(cfg, 10.0, 0.1),
+        "run_sweep": lambda: bench_demod.run_sweep(
+            "v2", 1, [10.0], cfg=cfg, log=lambda *a: None),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[name]()

@@ -810,6 +810,97 @@ def test_demod_stream_and_lanes_launch_the_kernel():
     assert_demod_close(got_l, want_l)
 
 
+def assert_probe_close(got, want, valid, final_fft):
+    """The PROBE variant's traces against the plain loop's on valid frames:
+    high_sample exact, rx_timing within 1e-4 (rtol and atol, as
+    norm_rx_timing), f_int and the EMA within 1e-5 of their rms (float32
+    sums in another order, as the CPU test holds the port to JAX);
+    frames past a lane's end: zeros, and the kernel's final EMA
+    (final_fft, (L, Ndft/2))."""
+    v = valid.cpu()
+    g = fsk.ProbeTrace(*(t.cpu() for t in got))
+    w = fsk.ProbeTrace(*(t.cpu() for t in want))
+    assert torch.equal(g.high_sample[v], w.high_sample[v])
+    assert torch.allclose(g.rx_timing[v], w.rx_timing[v], rtol=1e-4,
+                          atol=1e-4)
+    for name in ("f_int", "fft_est"):
+        a, b = getattr(g, name)[v], getattr(w, name)[v]
+        rms = float(b.abs().square().mean().sqrt())
+        assert float((a - b).abs().max()) <= 1e-5 * rms, name
+    assert not bool(g.f_int[~v].abs().any())
+    assert not bool(g.high_sample[~v].any() or g.rx_timing[~v].any())
+    for lane in range(v.shape[0]):
+        past = g.fft_est[lane][~v[lane]]
+        assert torch.equal(past, final_fft[lane].cpu().expand_as(past))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_eye", [False, True], ids=["", "eye"])
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("mode", ["v2", "v1"])
+def test_demod_probe_variant_matches_plain(mode, lanes, with_eye):
+    """with_probe launches the PROBE instantiation once (counted apart from
+    the flight path's launches): its traces match the plain loop's, its
+    frame outputs and state are bit-equal to the non-probe kernel's on the
+    same lanes, and its eye probe (before the trace) is the last valid
+    frame's trace.  Lanes end at their own n_valid, with frames past it."""
+    dev = _card()
+    cfg = DEMOD_CFG[mode]
+    span = 30 * cfg.N
+    raw = _demod_raw(mode, "cu8", span // 2 * (lanes + 1), 21 + lanes)
+    data = torch.from_numpy(raw).to(dev)
+    starts = torch.arange(lanes, dtype=torch.int64, device=dev) * (span // 2)
+    n_valid = span - 5 * cfg.N * torch.arange(lanes, dtype=torch.int64,
+                                               device=dev)
+    nf = cfg.num_frames(span)
+    before, before_probe = fsk_demod.launches, fsk_demod.probe_launches
+    got = fsk.demod_raw(cfg, data, "cu8", nf, starts, n_valid,
+                        with_eye=with_eye, with_probe=True)
+    torch.cuda.synchronize()
+    assert fsk_demod.probe_launches == before_probe + 1
+    assert fsk_demod.launches == before
+    plain_kernel = fsk.demod_raw(cfg, data, "cu8", nf, starts, n_valid,
+                                 with_eye=with_eye)
+    for a, b in zip(got[:-1], plain_kernel):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    want = fsk.demod_raw_reference(cfg, data, "cu8", nf, starts, n_valid,
+                                   with_eye=with_eye, with_probe=True)
+    assert_demod_close(got[:-1], want[:-1])
+    assert_probe_close(got[-1], want[-1], want[1].valid, got[0].fft_est)
+    assert not bool(want[1].valid[-1].all())
+    if with_eye:
+        for lane in range(lanes):
+            last = int(torch.nonzero(got[1].valid[lane])[-1])
+            assert torch.equal(got[-1].f_int[lane, last],
+                               got[2].f_int[lane])
+            assert int(got[-1].high_sample[lane, last]) == \
+                int(got[2].high_sample[lane])
+
+
+@pytest.mark.cuda
+def test_probe_demod_on_the_card():
+    """utils/probe.probe_demod on the card (one PROBE launch) against the
+    same call on the CPU, and its rx_sd bit-equal to demod_iq_np on the
+    card."""
+    from wenet_tpu_torch.utils import probe
+    _card()
+    cfg = fsk.V2_CONFIG
+    iq = _demod_raw("v2", "c64", 40 * cfg.N, 31).view(np.complex64)[:, 0]
+    before = fsk_demod.probe_launches
+    got = probe.probe_demod(cfg, iq)
+    assert fsk_demod.probe_launches == before + 1
+    want = probe.probe_demod(cfg, iq, device="cpu")
+    v = want["valid"]
+    assert np.array_equal(got["valid"], v) and v.sum() >= 35
+    for k in ("t_nin", "t_high_sample", "t_f_est"):
+        assert np.array_equal(got[k][v], want[k][v]), k
+    scale = np.abs(want["rx_sd"][v]).mean()
+    assert np.abs(got["rx_sd"][v] - want["rx_sd"][v]).max() <= SOFT_TOL * scale
+    soft, _, _ = fsk.demod_iq_np(cfg, iq)
+    assert np.array_equal(got["rx_sd"][v].reshape(-1), soft)
+
+
 @pytest.mark.cuda
 def test_demod_wrapper_rejects_bad_inputs():
     dev = _card()
@@ -1224,6 +1315,39 @@ def test_channelize_kernel_unaligned_capture(fmt, offset):
     got = channelizer.channelize_pairs(moved, N, input_format=fmt)
     want = channelizer.channelize_pairs(x, N, input_format=fmt)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,T,fmt,in_flight", [
+    (3228, 4, "c64", 0), (3228, 4, "cu8", 2), (2600, 4, "c64", 1),
+    (6456, 1, "c64", 0)])
+def test_channelize_kernel_at_the_first_versions_reach(N, T, fmt,
+                                                       in_flight):
+    """The largest N of the first version of the kernel at T = 4 (3228)
+    and T = 1 (6456, 1-frame tiles), and an N that needs one tile in
+    flight: 3 channels within 1e-5 of the output's (complex) rms of the
+    plain version, as chip_smoke.py holds the channelizer (the kernel's
+    32 lanes an item sum 3228 phases to about 4e-7 of it in the numpy
+    emulation), one launch."""
+    from wenet_tpu_torch.kernels import channelize as kch
+    from wenet_tpu_torch.ops import channelizer
+    dev = _card()
+    assert kch.plan(N, T, 3, fmt)[2] == in_flight
+    n = N * 64 + 5
+    if fmt == "cu8":
+        x, pairs = _chan_inputs(n, N, dev)
+    else:
+        x = pairs = _chan_gaussian(n, N, dev)
+    sel = [N - 1, 2, 0]
+    before = kch.launches
+    got = channelizer.channelize_pairs(x, N, T, channels=sel,
+                                       input_format=fmt)
+    torch.cuda.synchronize()
+    assert kch.launches == before + 1
+    want = _chan_plain(pairs, N, sel, T)
+    assert got.shape == want.shape
+    rms = float(want.square().sum(1).mean().sqrt())
+    assert float((got - want).abs().max()) <= 1e-5 * rms
 
 
 @pytest.mark.cuda

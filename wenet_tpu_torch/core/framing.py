@@ -1,5 +1,5 @@
 """Wenet wire-format primitives: CRC table, frame layout, scramblers, RS232
-words (copy of the parts of wenet_tpu/core/framing.py the port uses).
+words (copy of wenet_tpu/core/framing.py; every public name of it is here).
 
 Frame layout (both modes):
 
@@ -17,15 +17,23 @@ import os
 import numpy as np
 
 PAYLOAD_BYTES = 256
+CRC_BYTES = 2
+PARITY_BYTES = 65
+PARITY_BITS = 516
 PREAMBLE = b"\x55" * 16
 UNIQUE_WORD = b"\xab\xcd\xef\x01"
+IDLE_SEQUENCE = b"\x56" * PAYLOAD_BYTES
 
 # v2 deframer parameters (wenet_ldpc.c:65-73)
+V2_UW_BITS = 32
 V2_UW_ALLOWED_ERRORS = 4
-V2_SYMBOLS_PER_PACKET = (256 + 2 + 65) * 8    # 2584
+V2_SYMBOLS_PER_PACKET = (PAYLOAD_BYTES + CRC_BYTES + PARITY_BYTES) * 8  # 2584
+V2_CODEWORD_BITS = 2580  # first 2580 of the 2584 collected are the codeword
 # v1 deframer parameters (drs232_ldpc.c:65-73)
+V1_UW_BITS = 40
 V1_UW_ALLOWED_ERRORS = 5
-V1_SYMBOLS_PER_PACKET = (256 + 2 + 65) * 10   # 3230
+V1_BITS_PER_BYTE = 10
+V1_SYMBOLS_PER_PACKET = (PAYLOAD_BYTES + CRC_BYTES + PARITY_BYTES) * 10  # 3230
 
 _DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
 
@@ -52,9 +60,24 @@ def crc16_ccitt(data: bytes | np.ndarray) -> int:
     return crc
 
 
-_SCRAMBLE = np.load(os.path.join(_DATA_DIR, "scramble.npz"))
-SCRAMBLE_PM1 = _SCRAMBLE["scramble_pm1"].astype(np.float32)
-TX_XOR = _SCRAMBLE["tx_xor"].astype(np.uint8)
+def crc16_ccitt_batch(packets: np.ndarray) -> np.ndarray:
+    """CRC16 over a batch: packets (B, L) uint8 -> (B,) uint16, the byte
+    axis in order and the batch axis at once."""
+    packets = np.asarray(packets, dtype=np.uint8)
+    crc = np.full(packets.shape[0], 0xFFFF, dtype=np.uint16)
+    for i in range(packets.shape[1]):
+        idx = ((crc >> 8) ^ packets[:, i]).astype(np.uint16) & 0xFF
+        crc = ((crc << 8) ^ CRC16_TABLE[idx]).astype(np.uint16)
+    return crc
+
+
+def load_scramble_tables():
+    """(scramble_pm1 (1000,) float32, tx_xor (125,) uint8)."""
+    d = np.load(os.path.join(_DATA_DIR, "scramble.npz"))
+    return d["scramble_pm1"].astype(np.float32), d["tx_xor"].astype(np.uint8)
+
+
+SCRAMBLE_PM1, TX_XOR = load_scramble_tables()
 
 
 def tx_scramble(data: bytes) -> bytes:
@@ -74,6 +97,10 @@ def rx_descramble_soft(symbols: np.ndarray) -> np.ndarray:
 
 def bytes_to_bits_msb(data: bytes) -> np.ndarray:
     return np.unpackbits(np.frombuffer(data, dtype=np.uint8))
+
+
+def bits_to_bytes_msb(bits: np.ndarray) -> bytes:
+    return np.packbits(np.asarray(bits, dtype=np.uint8)).tobytes()
 
 
 def rs232_expand(data: bytes) -> np.ndarray:

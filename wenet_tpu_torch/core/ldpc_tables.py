@@ -1,5 +1,5 @@
-"""H2064_516 rate-0.8 repeat-accumulate LDPC code tables (copy of the parts
-of wenet_tpu/core/ldpc_tables.py the port uses).
+"""H2064_516 rate-0.8 repeat-accumulate LDPC code tables (copy of
+wenet_tpu/core/ldpc_tables.py; every public name of it is here).
 
 n=2580, k=2064, m=516, up to 12 data taps per check, column weight <= 3.
 Check i is also connected to parity vars (2064+i-1, 2064+i); check 0 only
@@ -17,7 +17,8 @@ N_DATA = 2064
 CODE_LEN = 2580
 MAX_COL_W = 3
 MAX_ITER = 10
-MAX_CHECK_DEG = 12 + 2   # data taps + two RA parity-chain vars
+MAX_ROW_W = 12           # data taps per check
+MAX_CHECK_DEG = MAX_ROW_W + 2   # + two RA parity-chain vars
 
 _DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
 
@@ -56,6 +57,17 @@ def check_edges():
     return var_idx, mask
 
 
+def edges_flat():
+    """(var_of_edge (E,) int32, edge_slot (516, 14) int32): the variable of
+    each valid edge in flat order, and each dense slot's flat edge id
+    (invalid slots map to E, a dump slot)."""
+    var_idx, mask = check_edges()
+    var_of_edge = var_idx[mask].astype(np.int32)
+    edge_slot = np.full(var_idx.shape, var_of_edge.size, dtype=np.int32)
+    edge_slot[mask] = np.arange(var_of_edge.size, dtype=np.int32)
+    return var_of_edge, edge_slot
+
+
 @lru_cache(maxsize=1)
 def var_edges():
     """(slots (2580, 3) int32, mask (2580, 3) bool): for each variable, the
@@ -71,3 +83,27 @@ def var_edges():
         mask[v, fill[v]] = True
         fill[v] += 1
     return slots, mask
+
+
+@lru_cache(maxsize=1)
+def var_onehot_f32() -> np.ndarray:
+    """(E, 2580) one-hot scatter matrix: vars = edges @ onehot."""
+    var_of_edge, _ = edges_flat()
+    m = np.zeros((var_of_edge.size, CODE_LEN), dtype=np.float32)
+    m[np.arange(var_of_edge.size), var_of_edge] = 1.0
+    return m
+
+
+def sanity_check():
+    """True where the tables describe the code: check degrees within
+    bounds, every parity var on two checks but the last (one), and the
+    data vars' degrees those of H_cols; raises ValueError otherwise."""
+    var_idx, mask = check_edges()
+    degs = mask.sum(axis=1)
+    counts = np.bincount(var_idx[mask], minlength=CODE_LEN)
+    col_deg = (load_raw()[1] > 0).sum(axis=1)
+    if not (degs[0] >= 2 and degs.max() <= MAX_CHECK_DEG
+            and counts[N_DATA:-1].max() == 2 and counts[-1] == 1
+            and np.array_equal(counts[:N_DATA], col_deg)):
+        raise ValueError("ldpc_tables: the edge tables do not match H2064_516")
+    return True

@@ -66,6 +66,16 @@
 //     stream, it writes zeros (cu8: byte 127) for those samples.
 //  5. The shared-memory attribute and the carveout are set once a device
 //     (channelize_init), not at each launch.
+//  6. Reach at few taps.  Where not even a 2-frame tile fits beside two
+//     tiles in flight (large N), the run-time instantiation keeps one
+//     tile in flight, then none (the tile's copy waited for at once), and
+//     last takes 1-frame tiles (the DFT item's second frame computed and
+//     not stored): every N the first version of this kernel took still
+//     fits, at every T.  The templated geometries keep IN_FLIGHT.  At run
+//     time a tile with fewer DFT items than threads (a large N, few
+//     channels) gives each item S lanes of a warp, each summing every
+//     S-th phase, joined by shuffles: the N-phase chain of one thread
+//     becomes N / S steps and a log2 S butterfly.
 // Each channel's two frames are written as one 16-byte store where the
 // address allows.  float32 throughout (no tensor cores: TF32 stays off);
 // the multiply-adds are explicit fmaf.
@@ -94,6 +104,8 @@ struct ChanArgs {
     int tile;            // frames a tile: even
     int tw_smem;         // 1: the twiddles are copied to shared memory
     int blocks, tiles_per_block;
+    int in_flight;       // tiles copied ahead: IN_FLIGHT, or fewer where
+                         // the block does not fit otherwise (run time)
 };
 
 #ifdef CHANNELIZE_PHASES
@@ -126,30 +138,39 @@ __host__ __device__ static inline int fir_groups(int N) {
 // of 8, so that a half-warp's stores of neighbouring phases spread over
 // the banks (a tile shrunk below two groups keeps every byte for the ring)
 __host__ __device__ static inline int y_stride(int tile) {
-    if (tile < 2 * KF) return tile;
+    if (tile < 2 * KF) return tile + (tile & 1);
     const int ys = tile + 2;
     return ys % 8 ? ys : ys + 2;
 }
 __host__ __device__ static inline int sample_bytes(int fmt) {
     return fmt == FMT_CU8 ? 2 : 8;
 }
-// samples the ring holds: the tile filtered, IN_FLIGHT tiles, T frames of
-// history, rounded up to whole 16-byte chunks, and one chunk more
+// samples the ring holds: the tile filtered, d tiles in flight, T frames
+// of history, rounded up to whole 16-byte chunks, and one chunk more
 __host__ __device__ static inline long long ring_samples(int N, int T,
-                                                         int tile, int fmt) {
+                                                         int tile, int fmt,
+                                                         int d) {
     const long long u = 16 / sample_bytes(fmt);
-    const long long s = ((long long)(IN_FLIGHT + 1) * tile + T) * N;
+    const long long s = ((long long)(d + 1) * tile + T) * N;
     return (s + u - 1) / u * u + u;
 }
+// lanes of a warp that share a DFT item at run time: the largest power
+// of two up to 32 with items x S <= THREADS
+__host__ __device__ static inline int dft_split(int items) {
+    int S = 1;
+    while (S < 32 && items * 2 * S <= THREADS) S *= 2;
+    return S;
+}
 // the kernel instantiated with N a template constant for this call
-static inline bool templated(int N, int T, int tile, int tw_smem) {
+static inline bool templated(int N, int T, int tile, int tw_smem, int d) {
     return (N == 4 || N == 8 || N == 16) && T == TAPS &&
-           tile == fir_groups(N) * KF && tw_smem;
+           tile == fir_groups(N) * KF && tw_smem && d == IN_FLIGHT;
 }
 
 extern "C" long long channelize_smem_bytes(int N, int T, int tile, int nsel,
-                                           int fmt, int tw_smem) {
-    return ring_samples(N, T, tile, fmt) * sample_bytes(fmt)
+                                           int fmt, int tw_smem,
+                                           int in_flight) {
+    return ring_samples(N, T, tile, fmt, in_flight) * sample_bytes(fmt)
            + (long long)N * y_stride(tile) * 8
            + (tw_smem ? (long long)(nsel + SG - 1) / SG * SG * N * 8 : 0);
 }
@@ -200,11 +221,13 @@ __device__ __forceinline__ void dft_term(const float4 y, const float2 w,
 }
 
 // channel c's frames m and m + 1 (v: re, im of each), one 16-byte store
-// where the address allows; m + 1 = F: frame m alone
+// where the address allows; m + 1 = F, or not two (a 1-frame tile): frame
+// m alone
 __device__ __forceinline__ void store_pair(float2* out, int c, long long F,
-                                           long long m, const float v[4]) {
+                                           long long m, const float v[4],
+                                           bool two) {
     float2* dst = out + (long long)c * F + m;
-    if (m + 1 >= F) {
+    if (m + 1 >= F || !two) {
         dst[0] = make_float2(v[0], v[1]);
     } else if ((((long long)c * F + m) & 1) == 0) {
         *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
@@ -215,13 +238,14 @@ __device__ __forceinline__ void store_pair(float2* out, int c, long long F,
 }
 
 // NT: the channel count as a template constant (T = 12, whole FIR
-// groups a tile, the twiddles in shared memory), 0 to read N, T, the
-// tile and where the twiddles are from g
+// groups a tile, the twiddles in shared memory, IN_FLIGHT tiles in
+// flight), 0 to read N, T, the tile, the tiles in flight and where the
+// twiddles are from g
 template <int NT, int FMT>
 __global__ void __launch_bounds__(THREADS, 2)
 channelize_kernel(const ChanArgs g) {
     constexpr int SB = FMT == FMT_CU8 ? 2 : 8;     // bytes a sample
-    constexpr int D = IN_FLIGHT;
+    const int D = NT ? IN_FLIGHT : g.in_flight;
     constexpr int W = KF + TAPS - 1;               // a FIR thread's window
     constexpr float SCALE = FMT == FMT_CU8 ? 0.0078125f : 1.f;
     const int N = NT ? NT : g.N;
@@ -231,7 +255,7 @@ channelize_kernel(const ChanArgs g) {
     const bool windowed = NT || (T == TAPS && TILE % KF == 0);
     const int G = TILE / KF;
     const int YS = y_stride(TILE), TN = TILE * N;
-    const int RS = (int)ring_samples(N, T, TILE, FMT);
+    const int RS = (int)ring_samples(N, T, TILE, FMT, D);
     const int R = RS * SB, R16 = R / 16;
     extern __shared__ __align__(16) unsigned char smem[];
     unsigned char* ring = smem;
@@ -299,8 +323,10 @@ channelize_kernel(const ChanArgs g) {
             tws[i] = i < g.nsel * N ? reinterpret_cast<const float2*>(g.tw)[i]
                                     : make_float2(0.f, 0.f);
 
-    const int FP = TILE / 2;                       // frame pairs a tile
+    const int FP = (TILE + 1) / 2;                 // frame pairs a tile
     const int items = FP * (npad / SG);
+    const int S = NT ? 1 : dft_split(items);       // lanes an item
+    const int logS = __ffs(S) - 1;
 #ifdef CHANNELIZE_PHASES
     long long t_copy = 0, t_wait = 0, t_fir = 0, t_dft = 0;
     CLOCK(t_start);
@@ -313,7 +339,13 @@ channelize_kernel(const ChanArgs g) {
         if (q + D < q1) fetch((q + D) * TN, (q + D + 1) * TN);
         cp_async_commit();
         CLOCK(tb);
-        cp_async_wait<D>();
+        if (NT || D == 2) {
+            cp_async_wait<2>();
+        } else if (D == 1) {
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
         __syncthreads();
         if (q == q0 && h0 < 0) {      // zeros before the stream: [h0, 0)
             const unsigned char zero = FMT == FMT_CU8 ? 127 : 0;
@@ -395,20 +427,25 @@ channelize_kernel(const ChanArgs g) {
         CLOCK(td);
 
         // DFT: channels SG cg .. SG cg + SG-1 of frames m, m + 1 (m = m0
-        // + 2 fp), the phases in order
+        // + 2 fp), the phases in order; at run time S lanes of a warp share
+        // an item where the tile has few (S = dft_split(items)): lane s sums
+        // the phases s, s + S, s + 2 S, ... and a butterfly of shuffles adds
+        // the S partial sums (a large N with few channels is no longer one
+        // thread's N-phase chain)
         const long long m0 = q * TILE;
         const float4* yv = reinterpret_cast<const float4*>(ys);
-        for (int i = tid; i < items; i += THREADS) {
-            const int cg = i / FP, fp = i - cg * FP;
-            const long long m = m0 + 2 * fp;
-            if (m >= F) continue;
-            float acc[SG][4];
-            #pragma unroll
-            for (int c = 0; c < SG; ++c)
+        if constexpr (NT > 0) {
+            for (int i = tid; i < items; i += THREADS) {
+                const int cg = i / FP, fp = i - cg * FP;
+                const long long m = m0 + 2 * fp;
+                if (m >= F) continue;
+                float acc[SG][4];
                 #pragma unroll
-                for (int j = 0; j < 4; ++j) acc[c][j] = 0.f;
-            const float2* w = tw + cg * SG * N;
-            if constexpr (NT > 0) {     // two phases' twiddles a float4
+                for (int c = 0; c < SG; ++c)
+                    #pragma unroll
+                    for (int j = 0; j < 4; ++j) acc[c][j] = 0.f;
+                const float2* w = tw + cg * SG * NT;
+                // two phases' twiddles a float4
                 #pragma unroll
                 for (int pp = 0; pp < NT; pp += 2) {
                     const float4 y0 = yv[pp * (YS / 2) + fp];
@@ -421,19 +458,52 @@ channelize_kernel(const ChanArgs g) {
                         dft_term(y1, make_float2(ww.z, ww.w), acc[c]);
                     }
                 }
-            } else {
-                #pragma unroll 4
-                for (int pp = 0; pp < N; ++pp) {
-                    const float4 y = yv[pp * (YS / 2) + fp];
+                #pragma unroll
+                for (int c = 0; c < SG; ++c)
+                    if (cg * SG + c < g.nsel)
+                        store_pair(g.out, cg * SG + c, F, m, acc[c], true);
+            }
+        } else {
+            const int sub = tid & (S - 1);
+            #pragma unroll 1
+            for (int i0 = 0; i0 < items; i0 += THREADS / S) {   // uniform
+                const int i = i0 + (tid >> logS);
+                const int cg = i / FP, fp = i - cg * FP;
+                const long long m = m0 + 2 * fp;
+                const bool live = i < items && m < F;
+                float acc[SG][4];
+                #pragma unroll
+                for (int c = 0; c < SG; ++c)
+                    #pragma unroll
+                    for (int j = 0; j < 4; ++j) acc[c][j] = 0.f;
+                if (live) {
+                    const float2* w = tw + cg * SG * N;
+                    #pragma unroll 4
+                    for (int pp = sub; pp < N; pp += S) {
+                        const float4 y = yv[pp * (YS / 2) + fp];
+                        #pragma unroll
+                        for (int c = 0; c < SG; ++c)
+                            dft_term(y, w[c * N + pp], acc[c]);
+                    }
+                }
+                #pragma unroll 1
+                for (int off = S >> 1; off > 0; off >>= 1)
                     #pragma unroll
                     for (int c = 0; c < SG; ++c)
-                        dft_term(y, w[c * N + pp], acc[c]);
+                        #pragma unroll
+                        for (int j = 0; j < 4; ++j)
+                            acc[c][j] = __fadd_rn(
+                                acc[c][j], __shfl_xor_sync(0xffffffffu,
+                                                           acc[c][j], off));
+                if (live && sub == 0) {
+                    const bool two = 2 * fp + 1 < TILE;
+                    #pragma unroll
+                    for (int c = 0; c < SG; ++c)
+                        if (cg * SG + c < g.nsel)
+                            store_pair(g.out, cg * SG + c, F, m, acc[c],
+                                       two);
                 }
             }
-            #pragma unroll
-            for (int c = 0; c < SG; ++c)
-                if (cg * SG + c < g.nsel)
-                    store_pair(g.out, cg * SG + c, F, m, acc[c]);
         }
 #ifdef CHANNELIZE_PHASES
         CLOCK(te);
@@ -491,17 +561,18 @@ extern "C" int channelize_init() {
 
 extern "C" int channelize_launch(const ChanArgs* a, void* stream) {
     if (a->N < 1 || a->T < 1 || a->nsel < 0 || a->F < 0 ||
-        (a->fmt != FMT_PAIRS && a->fmt != FMT_CU8) || a->tile < 2 ||
-        (a->tile & 1) ||
+        (a->fmt != FMT_PAIRS && a->fmt != FMT_CU8) || a->tile < 1 ||
+        (a->tile > 1 && (a->tile & 1)) || a->in_flight < 0 ||
+        a->in_flight > IN_FLIGHT ||
         (long long)a->tile * a->N * sample_bytes(a->fmt) < 16 ||
         ((uintptr_t)a->x % sample_bytes(a->fmt)) != 0 ||
         ((uintptr_t)a->out & 15) != 0)
         return (int)cudaErrorInvalidValue;
-    const long long smem = channelize_smem_bytes(a->N, a->T, a->tile, a->nsel,
-                                                 a->fmt, a->tw_smem);
+    const long long smem = channelize_smem_bytes(
+        a->N, a->T, a->tile, a->nsel, a->fmt, a->tw_smem, a->in_flight);
     if (smem > SMEM_LIMIT ||
-        ring_samples(a->N, a->T, a->tile, a->fmt) * sample_bytes(a->fmt) <
-            16 * THREADS)
+        ring_samples(a->N, a->T, a->tile, a->fmt, a->in_flight) *
+                sample_bytes(a->fmt) < 16 * THREADS)
         return (int)cudaErrorInvalidValue;
     if (a->F == 0 || a->nsel == 0) return 0;
     const long long ntiles = (a->F + a->tile - 1) / a->tile;
@@ -509,7 +580,8 @@ extern "C" int channelize_launch(const ChanArgs* a, void* stream) {
         (long long)a->blocks * a->tiles_per_block < ntiles ||
         (long long)(a->tile / 2) * ((a->nsel + SG - 1) / SG) > 0x7FFFFFFFLL)
         return (int)cudaErrorInvalidValue;
-    const int n = templated(a->N, a->T, a->tile, a->tw_smem) ? a->N : 0;
+    const int n =
+        templated(a->N, a->T, a->tile, a->tw_smem, a->in_flight) ? a->N : 0;
     const void* k = a->fmt == FMT_CU8 ? kernel_for<FMT_CU8>(n)
                                       : kernel_for<FMT_PAIRS>(n);
     void* params[] = {(void*)a};

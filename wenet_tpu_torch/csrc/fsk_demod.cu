@@ -60,6 +60,17 @@
 //    run-time trip count are not unrolled, powers of two are shifted, the
 //    kernel is a template on M (its tone loops unroll, its arrays stay in
 //    registers), and one copy of the DFT loop serves every caller.
+// 6. Per-frame probe traces (the PROBE template flag; the instantiation
+//    without it is the flight path's code).  wenet_tpu/utils/probe.py
+//    traces each frame's integrators, EMA, timing and high sample.  The
+//    integrators and the EMA live in shared memory that the next frame
+//    overwrites (the next frame's DFT runs under this frame's tail, 4.),
+//    so each is stored where its value is final and before the barrier
+//    that lets the next frame rewrite it: the integrators by the threads
+//    that sum them, as they form them (5. in the loop), the EMA during the
+//    downconvert (after the peak picks' barrier, before the next frame's
+//    update), the timing and high sample by warp 0's lane 0 where it forms
+//    them.  The stores are fire-and-forget: nothing waits on them.
 
 // Bound: per frame a lane reads about N samples and writes Nbits soft bits,
 // Nbits hard bits and a few stats, a few kB; the work is about 8 fs Ndft/2
@@ -145,6 +156,10 @@ struct DemodPtrs {
     float* eye_im;
     int* eye_high;          // (lanes,)
     uint8_t* eye_ok;        // (lanes,)
+    float2* tr_fint;        // (lanes, frames, M, NP) or null: the PROBE
+    float* tr_fft;          // (lanes, frames, half)      variant's traces
+    float* tr_rx;           // (lanes, frames): norm_rx_timing * P
+    int* tr_high;           // (lanes, frames)
 };
 
 #ifdef FSK_DEMOD_PHASES
@@ -417,7 +432,7 @@ __device__ void dft_common(const DemodGeom& g, const char* ring, float2* wbn,
 
 // ----------------------------------------------------------------- kernel
 
-template <int M>
+template <int M, bool PROBE>
 __global__ void __launch_bounds__(THREADS, 1)
 fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
     extern __shared__ __align__(16) char smem[];
@@ -655,7 +670,13 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
         PHASE(3);
 
         // 4. downconvert: old samples at the latched tones, new ones at this
-        // frame's, phase-continuous: stream * e^{-j ang}
+        // frame's, phase-continuous: stream * e^{-j ang}; PROBE: the EMA
+        // after this frame's update
+        if constexpr (PROBE) {
+#pragma unroll 1
+            for (int k = tid; k < half; k += THREADS)
+                p.tr_fft[frame * half + k] = fft[k];
+        }
         {
             const float noldf = (float)nold;
 #pragma unroll
@@ -694,6 +715,9 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
                         im = im + x[u].y;
                     }
                     fi[m * NP + q] = make_float2(re, im);
+                    if constexpr (PROBE)
+                        p.tr_fint[(frame * M + m) * NP + q] =
+                            make_float2(re, im);
                     const float v = fma1(re, re, im * im);
                     ft = m == 0 ? v : ft + v;
                 }
@@ -741,6 +765,10 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
                 low = floorf(rx);
                 fract = rx - low;
                 high = low + (fract > 0.0f ? 1.0f : 0.0f);
+                if constexpr (PROBE) {
+                    p.tr_rx[frame] = rx;
+                    p.tr_high[frame] = (int)high;
+                }
             }
             low = __shfl_sync(0xffffffffu, low, 0);
             fract = __shfl_sync(0xffffffffu, fract, 0);
@@ -841,6 +869,18 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
             p.o_ppm[frame] = 0.0f;
             p.o_nin[frame] = st_nin;
         }
+        if constexpr (PROBE) {
+#pragma unroll 1
+            for (int e = tid; e < M * NP; e += THREADS)
+                p.tr_fint[frame * M * NP + e] = make_float2(0.0f, 0.0f);
+#pragma unroll 1
+            for (int k = tid; k < half; k += THREADS)
+                p.tr_fft[frame * half + k] = fft[k];
+            if (tid == 0) {
+                p.tr_rx[frame] = 0.0f;
+                p.tr_high[frame] = 0;
+            }
+        }
     }
 
     // the eye probe: the last valid frame's integrators, on chip still
@@ -879,17 +919,17 @@ extern "C" int fsk_demod_smem_bytes(const DemodGeom* g) {
     return (int)layout(*g).total;
 }
 
-template <int M>
+template <int M, bool PROBE>
 static int launch(const DemodGeom* g, const DemodPtrs* p, void* stream) {
     const size_t smem = layout(*g).total;
     if (smem > 232448) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
-        fsk_demod_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        fsk_demod_kernel<M, PROBE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     if (g->lanes == 0) return 0;
-    fsk_demod_kernel<M><<<g->lanes, THREADS, smem, (cudaStream_t)stream>>>(
-        *g, *p);
+    fsk_demod_kernel<M, PROBE>
+        <<<g->lanes, THREADS, smem, (cudaStream_t)stream>>>(*g, *p);
     return (int)cudaGetLastError();
 }
 
@@ -900,7 +940,16 @@ extern "C" int fsk_demod_launch(const DemodGeom* g, const DemodPtrs* p,
         ((uintptr_t)p->data & 15) != 0 || (g->fs_common & 3) != 0 ||
         (g->span_common & 3) != 0 || (g->tail_len & 3) != 0)
         return (int)cudaErrorInvalidValue;
-    if (g->M == 2) return launch<2>(g, p, stream);
-    if (g->M == 4) return launch<4>(g, p, stream);
+    // PROBE: every trace buffer given, or none
+    const int traces = (p->tr_fint != nullptr) + (p->tr_fft != nullptr) +
+                       (p->tr_rx != nullptr) + (p->tr_high != nullptr);
+    if (traces != 0 && traces != 4) return (int)cudaErrorInvalidValue;
+    const bool probe = traces == 4;
+    if (g->M == 2)
+        return probe ? launch<2, true>(g, p, stream)
+                     : launch<2, false>(g, p, stream);
+    if (g->M == 4)
+        return probe ? launch<4, true>(g, p, stream)
+                     : launch<4, false>(g, p, stream);
     return (int)cudaErrorInvalidValue;
 }

@@ -24,6 +24,8 @@ KF = 9                             # frames a FIR thread filters
 FIR_THREADS = 224                  # FIR threads a tile where N allows
 SG = 4                             # channels a DFT item
 IN_FLIGHT = 2                      # tiles copied ahead of the one filtered
+#                                    (fewer at run time where a block does
+#                                    not fit otherwise)
 TEMPLATED_N = (4, 8, 16)           # N a template constant (with T = 12)
 BLOCKS_PER_SM = 2
 SM_SMEM = 233472                   # shared memory of an SM (1 KiB a block
@@ -39,7 +41,8 @@ class Args(ctypes.Structure):
                 + [("F", ctypes.c_longlong)]
                 + [(f, ctypes.c_int) for f in ("N", "T", "nsel", "fmt",
                                                "tile", "tw_smem", "blocks",
-                                               "tiles_per_block")])
+                                               "tiles_per_block",
+                                               "in_flight")])
 
 
 @functools.lru_cache(maxsize=1)
@@ -49,7 +52,7 @@ def _lib():
     lib.channelize_launch.argtypes = [ctypes.POINTER(Args), ctypes.c_void_p]
     lib.channelize_init.restype = ctypes.c_int
     lib.channelize_smem_bytes.restype = ctypes.c_longlong
-    lib.channelize_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.channelize_smem_bytes.argtypes = [ctypes.c_int] * 7
     return lib
 
 
@@ -67,55 +70,75 @@ def fir_groups(N: int) -> int:
     return max((FIR_THREADS // N) & ~1, 2)
 
 
+def dft_split(items: int) -> int:
+    """Lanes of a warp that share a DFT item in the run-time instantiation:
+    the largest power of two up to 32 with items * S <= 256 threads (the
+    templated instantiation: 1)."""
+    S = 1
+    while S < 32 and items * 2 * S <= 256:
+        S *= 2
+    return S
+
+
 def y_stride(tile: int) -> int:
     """Row stride of the FIR outputs (frames a phase's row): for a tile of
     whole FIR groups padded, even and not a multiple of 8; a tile shrunk
-    below two groups is not padded."""
+    below two groups is not padded (a 1-frame tile: to 2)."""
     if tile < 2 * KF:
-        return tile
+        return tile + tile % 2
     ys = tile + 2
     return ys if ys % 8 else ys + 2
 
 
-def ring_samples(N: int, T: int, tile: int, fmt: str = "c64") -> int:
-    """Samples the ring holds: the tile filtered, IN_FLIGHT tiles and T
+def ring_samples(N: int, T: int, tile: int, fmt: str = "c64",
+                 in_flight: int = IN_FLIGHT) -> int:
+    """Samples the ring holds: the tile filtered, in_flight tiles and T
     frames of history, rounded up to whole 16-byte chunks, and one chunk
     more (a tile's end chunks reach up to 15 bytes past its samples)."""
     u = 16 // FORMATS[fmt][1]
-    return -(-((IN_FLIGHT + 1) * tile + T) * N // u) * u + u
+    return -(-((in_flight + 1) * tile + T) * N // u) * u + u
 
 
 def smem_bytes(N: int, T: int, tile: int, nsel: int, fmt: str = "c64",
-               tw_smem: bool = True) -> int:
+               tw_smem: bool = True, in_flight: int = IN_FLIGHT) -> int:
     """Dynamic shared memory of one block (`channelize_smem_bytes` of
     csrc/channelize.cu, mirrored so that a launch can be planned without
     the card): the ring, the FIR outputs and, with tw_smem, the selected
     channels' twiddles (rounded up to a multiple of SG)."""
-    return (ring_samples(N, T, tile, fmt) * FORMATS[fmt][1]
+    return (ring_samples(N, T, tile, fmt, in_flight) * FORMATS[fmt][1]
             + N * y_stride(tile) * 8
             + (-(-nsel // SG) * SG * N * 8 if tw_smem else 0))
 
 
 @functools.lru_cache(maxsize=256)
 def plan(N: int, T: int, nsel: int, fmt: str = "c64") -> tuple:
-    """(frames a tile, twiddles in shared memory) of a call: a tile of
-    whole FIR groups (fir_groups(N) * KF frames), halved (to even) until
-    the block fits; the twiddles in shared memory where they fit beside
-    it.  Raises ValueError where not even a 2-frame tile fits."""
-    tile = fir_groups(N) * KF
-    while tile > 2 and smem_bytes(N, T, tile, nsel, fmt, False) > SMEM_LIMIT:
-        tile = max((tile // 2) & ~1, 2)
-    if smem_bytes(N, T, tile, nsel, fmt, False) > SMEM_LIMIT:
-        raise ValueError(f"channelize: N={N}, T={T} does not fit a block")
-    return tile, smem_bytes(N, T, tile, nsel, fmt, True) <= SMEM_LIMIT
+    """(frames a tile, twiddles in shared memory, tiles in flight) of a
+    call: IN_FLIGHT tiles in flight and a tile of whole FIR groups
+    (fir_groups(N) * KF frames), halved (to even) until the block fits;
+    where not even a 2-frame tile fits, one tile in flight, then none, and
+    last a 1-frame tile; the twiddles in shared memory where they fit
+    beside it.  Raises ValueError where nothing fits."""
+    def fits(tile, d):
+        return smem_bytes(N, T, tile, nsel, fmt, False, d) <= SMEM_LIMIT
+    for d in range(IN_FLIGHT, -1, -1):
+        tile = fir_groups(N) * KF
+        while tile > 2 and not fits(tile, d):
+            tile = max((tile // 2) & ~1, 2)
+        if d == 0 and not fits(tile, d):
+            tile = 1
+        if fits(tile, d):
+            return (tile, smem_bytes(N, T, tile, nsel, fmt, True, d)
+                    <= SMEM_LIMIT, d)
+    raise ValueError(f"channelize: N={N}, T={T} does not fit a block")
 
 
-def templated(N: int, T: int, tile: int, tw_smem: bool = True) -> bool:
+def templated(N: int, T: int, tile: int, tw_smem: bool = True,
+              in_flight: int = IN_FLIGHT) -> bool:
     """True where the call runs the instantiation with N a template
     constant (T = 12, N in TEMPLATED_N, a tile of whole FIR groups, the
-    twiddles in shared memory)."""
+    twiddles in shared memory, IN_FLIGHT tiles in flight)."""
     return (N in TEMPLATED_N and T == TAPS and tile == fir_groups(N) * KF
-            and tw_smem)
+            and tw_smem and in_flight == IN_FLIGHT)
 
 
 def geometry(F: int, tile: int, sms: int, smem: int = 0):
@@ -167,13 +190,14 @@ def launch_args(x: torch.Tensor, out: torch.Tensor, N: int, T: int,
     into out, on the current device."""
     fmt, sb = FORMATS[input_format]
     F = x.numel() * x.element_size() // sb // N
-    tile, tw_smem = plan(N, T, len(channels), input_format)
+    tile, tw_smem, in_flight = plan(N, T, len(channels), input_format)
     hp, tw = _tables(N, T, channels, x.device)
     blocks, per = geometry(F, tile, _sms(torch.cuda.current_device()),
                            smem_bytes(N, T, tile, len(channels),
-                                      input_format, tw_smem))
+                                      input_format, tw_smem, in_flight))
     return Args(x.data_ptr(), hp.data_ptr(), tw.data_ptr(), out.data_ptr(),
-                F, N, T, len(channels), fmt, tile, int(tw_smem), blocks, per)
+                F, N, T, len(channels), fmt, tile, int(tw_smem), blocks, per,
+                in_flight)
 
 
 def channelize(x: torch.Tensor, n_channels: int, taps_per_phase: int,

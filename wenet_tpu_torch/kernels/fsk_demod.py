@@ -31,6 +31,8 @@ FORMATS = {"c64": 0, "cu8": 1, "cs16": 2}
 RAW_DTYPES = {"c64": torch.float32, "cu8": torch.uint8, "cs16": torch.int16}
 
 launches = 0          # kernel launches, counted where the launch succeeds
+probe_launches = 0    # launches of the PROBE variant (with_probe), counted
+#                       apart from `launches`
 
 _INT_FIELDS = ("lanes", "num_frames", "fmt", "Ts", "P", "S", "M", "Nsym",
                "Nmem", "N", "Ndft", "half", "NP", "Nbits", "f_min_bin",
@@ -43,6 +45,7 @@ _STATE_OUT = tuple(f.replace("_in", "_out") for f in _STATE_IN)
 _FRAME_OUT = ("soft", "bits", "valid", "o_fest", "o_ebno", "o_norm", "o_ppm",
               "o_nin")
 _EYE_OUT = ("eye_re", "eye_im", "eye_high", "eye_ok")
+_TRACE_OUT = ("tr_fint", "tr_fft", "tr_rx", "tr_high")
 _EXTRA_FIELDS = ("ring", "ahead", "max_blocks", "n_tab", "idx_smem",
                  "fs_common", "span_common", "tail_len")
 SMEM_LIMIT = 232448                   # a block's shared memory on Hopper
@@ -65,7 +68,8 @@ class Ptrs(ctypes.Structure):
     """`DemodPtrs` of csrc/fsk_demod.cu."""
     _fields_ = [(f, ctypes.c_void_p) for f in (
         "data", "starts", "n_valid", "hann", "tw_tab", "tw_idx", "spin_re",
-        "spin_im", *_STATE_IN, *_STATE_OUT, *_FRAME_OUT, *_EYE_OUT)]
+        "spin_im", *_STATE_IN, *_STATE_OUT, *_FRAME_OUT, *_EYE_OUT,
+        *_TRACE_OUT)]
 
 
 @functools.lru_cache(maxsize=1)
@@ -264,7 +268,8 @@ def _check(t: torch.Tensor, name: str, dtype, shape):
 
 def demod(cfg: fsk.FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
           starts: torch.Tensor, n_valid: torch.Tensor,
-          state: fsk.DemodState | None = None, with_eye: bool = False):
+          state: fsk.DemodState | None = None, with_eye: bool = False,
+          with_probe: bool = False):
     """Launch the frame loop on L lanes of one raw buffer.
 
     data: (n, 2) contiguous CUDA tensor of raw pairs (uint8 for cu8, int16
@@ -274,10 +279,14 @@ def demod(cfg: fsk.FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
     outside [0, n_valid[l]) and past the buffer, and its frames are valid
     while pos + nin <= n_valid[l].  state: lane-stacked DemodState, or None
     for the initial one.  Returns (final DemodState, FrameOut) with a
-    leading lane axis, and with_eye an `ops.fsk.EyeProbe` per lane;
-    frames past a lane's end are invalid with zeroed fields.
+    leading lane axis, with_eye an `ops.fsk.EyeProbe` per lane, and
+    with_probe an `ops.fsk.ProbeTrace` per lane after it (the kernel's
+    PROBE variant, which writes each frame's integrators, EMA, timing and
+    high sample; the trace buffers are allocated only then); frames past a
+    lane's end are invalid with zeroed fields (the trace's EMA: the final
+    one).
     """
-    global launches
+    global launches, probe_launches
     if fmt not in FORMATS:
         raise ValueError(f"fsk_demod: unknown sample format {fmt!r}")
     if data.dim() != 2:
@@ -316,13 +325,21 @@ def demod(cfg: fsk.FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
             torch.empty((L,), dtype=torch.bool, device=dev))
            if with_eye else None)
 
+    trace = (fsk.ProbeTrace(
+        f_int=new(M, NP, dtype=torch.complex64), fft_est=new(half),
+        rx_timing=new(), high_sample=new(dtype=torch.int32))
+        if with_probe else None)
+
     geom = geometry(cfg, fmt, L, num_frames, data.shape[0])
     tables = _tables(cfg, dev)
     ptrs = Ptrs(*(t.data_ptr() for t in (
         data, starts, n_valid, *tables, *state_in, *final,
         outs.soft, outs.bits, outs.valid, outs.f_est, outs.ebno_db,
-        outs.norm_rx_timing, outs.ppm, outs.nin)),
-        *(t.data_ptr() for t in eye or ()))
+        outs.norm_rx_timing, outs.ppm, outs.nin)))
+    for name, t in zip(_EYE_OUT, eye or ()):
+        setattr(ptrs, name, t.data_ptr())
+    for name, t in zip(_TRACE_OUT, trace or ()):
+        setattr(ptrs, name, t.data_ptr())
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -331,8 +348,11 @@ def demod(cfg: fsk.FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
     if rc != 0:
         raise RuntimeError(f"fsk_demod launch failed ({L} lanes, "
                            f"{num_frames} frames): cudaError_t {rc}")
-    launches += L > 0
-    if not with_eye:
-        return final, outs
-    return final, outs, fsk.EyeProbe(torch.complex(eye[0], eye[1]), eye[2],
-                                      eye[3])
+    if with_probe:
+        probe_launches += L > 0
+    else:
+        launches += L > 0
+    res = (final, outs)
+    if with_eye:
+        res += (fsk.EyeProbe(torch.complex(eye[0], eye[1]), eye[2], eye[3]),)
+    return res + ((trace,) if with_probe else ())

@@ -1,7 +1,8 @@
 """2/4-FSK modem on tensors (counterpart of wenet_tpu/ops/fsk.py).
 
 The host-side pieces (config, modulator, sample conversion) are numpy
-copies of the reference.  The demodulator runs the same per-frame algebra
+copies of the reference; `fsk_mod` is the modulator on the tensor's
+device, and `demod_iq_np` the demod of a whole host capture.  The demodulator runs the same per-frame algebra
 as the reference's scan body — Hann-windowed DFT tone estimate with a slow
 EMA and first-max peak picks, phase-continuous downconvert, integrate-and-
 dump at P phases as a banded matmul, timing from the spectral line at Rs,
@@ -159,6 +160,46 @@ def fsk_mod_np(cfg: FSKConfig, bits: np.ndarray, f1: int, shift: int,
     return out.reshape(-1).astype(np.complex64 if complex_out else np.float32), final
 
 
+def fsk_mod_ext_vco(cfg: FSKConfig, bits: np.ndarray, f1: int,
+                    shift: int) -> np.ndarray:
+    """Per-sample VCO drive voltage (= instantaneous tone frequency in Hz),
+    for an external-VCO transmitter (fsk.c:1207-1243)."""
+    syms = bits_to_symbols(np.asarray(bits), cfg.M)
+    freqs = _sym_freqs(cfg, f1, shift)[syms].astype(np.float32)
+    return np.repeat(freqs, cfg.Ts)
+
+
+def _phase_acc(cfg: FSKConfig, bits: torch.Tensor, f1: int,
+               shift: int) -> torch.Tensor:
+    """The modulator's integer phase accumulator, (..., nsym, Ts) int64:
+    an int64 exclusive cumsum of the symbols' phase advances taken modulo
+    Fs (the JAX package's two-level int32 wrap gives the same integers)."""
+    dev = bits.device
+    freqs_tab = torch.as_tensor(_sym_freqs(cfg, f1, shift), device=dev)
+    if cfg.M == 2:
+        syms = bits.long()
+    else:
+        syms = (bits.reshape(*bits.shape[:-1], -1, 2).long()
+                * torch.tensor([2, 1], device=dev)).sum(-1)
+    freqs = freqs_tab[syms]                                   # (..., nsym)
+    sym_adv = (freqs * cfg.Ts) % cfg.Fs
+    start = (torch.cumsum(sym_adv, dim=-1) - sym_adv) % cfg.Fs
+    j = torch.arange(1, cfg.Ts + 1, dtype=torch.int64, device=dev)
+    return (start[..., None] + freqs[..., None] * j) % cfg.Fs
+
+
+def fsk_mod(cfg: FSKConfig, bits: torch.Tensor, f1: int,
+            shift: int) -> torch.Tensor:
+    """Modulator on the tensor's device: bits (..., nbits) -> complex64
+    (..., nsym*Ts), from the exact integer phase accumulator of
+    `fsk_mod_np` (`_phase_acc`); the angle and its cos/sin in float32, as
+    the JAX package's fsk_mod forms them."""
+    acc = _phase_acc(cfg, bits, f1, shift)
+    theta = acc.float() * np.float32(TWO_PI / cfg.Fs)
+    out = 2.0 * torch.complex(torch.cos(theta), torch.sin(theta))
+    return out.reshape(*bits.shape[:-1], -1)
+
+
 # ------------------------------------------------------- sample conversion
 
 
@@ -226,6 +267,17 @@ class EyeProbe(NamedTuple):
     f_int: torch.Tensor           # (M, (Nsym+1)*P) complex64
     high_sample: torch.Tensor     # int32
     ok: torch.Tensor              # bool — some frame was valid
+
+
+class ProbeTrace(NamedTuple):
+    """Per-frame internals of the demod, stacked over frames: what the JAX
+    package's `_demod_frame(with_probe=True)` returns, and the estimator's
+    EMA after the frame's update.  Frames past the capture's end keep the
+    final EMA; their other fields are garbage (the kernel zeroes them)."""
+    f_int: torch.Tensor           # (frames, M, (Nsym+1)*P) complex64
+    fft_est: torch.Tensor         # (frames, Ndft/2) f32
+    rx_timing: torch.Tensor       # (frames,) f32, norm_rx_timing * P
+    high_sample: torch.Tensor     # (frames,) int32
 
 
 _STATE_DTYPES = {"pos": torch.int32, "nin": torch.int32}
@@ -458,7 +510,7 @@ def _demod_frame(cfg: FSKConfig, state: DemodState, stream, new_blocks,
     out = FrameOut(soft=soft, bits=bits, valid=None, f_est=f_new,
                    ebno_db=ebno_db, norm_rx_timing=norm_rx_timing, ppm=ppm,
                    nin=nin)
-    probe = (torch.complex(fi_re, fi_im), high.to(torch.int32))
+    probe = (torch.complex(fi_re, fi_im), high.to(torch.int32), rx_timing)
     return new_state, out, probe
 
 
@@ -488,9 +540,10 @@ def eye_diagram(f_int: np.ndarray, P: int, high_sample: int, M: int,
 
 def demod_stream_reference(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
                            state: DemodState | None = None, n_valid=None,
-                           with_eye: bool = False):
+                           with_eye: bool = False, with_probe: bool = False):
     """The plain frame loop: iq (n,) complex64 -> (final state, FrameOut
-    with every field stacked over `num_frames` frames[, EyeProbe]).
+    with every field stacked over `num_frames` frames[, EyeProbe][,
+    ProbeTrace]).
 
     Frame k reads the Nmem samples ending at pos + nin (history plus its
     nin fresh samples) and the estimator block starting at pos, both as
@@ -499,6 +552,8 @@ def demod_stream_reference(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
     the state; their other outputs are garbage and must be masked.
     with_eye: also return the last valid frame's integrator outputs and
     high sample (`EyeProbe`), as the JAX `demod_stream(with_eye=True)`.
+    with_probe: also return each frame's internals (`ProbeTrace`), as the
+    JAX `utils/probe.probe_demod` traces them.
     """
     device = iq.device
     n = iq.shape[0] if n_valid is None else n_valid
@@ -514,7 +569,7 @@ def demod_stream_reference(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
                            device=device)])
 
     st = state
-    outs = []
+    outs, trace = [], []
     eye = EyeProbe(
         torch.zeros((cfg.M, (cfg.Nsym + 1) * cfg.P), dtype=torch.complex64,
                     device=device),
@@ -532,8 +587,13 @@ def demod_stream_reference(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
             eye = EyeProbe(torch.where(valid, probe[0], eye.f_int),
                            torch.where(valid, probe[1], eye.high_sample),
                            eye.ok | valid)
+        if with_probe:
+            trace.append((probe[0], st.fft_est, probe[2], probe[1]))
     outs = FrameOut(*(torch.stack(f) for f in zip(*outs)))
-    return (st, outs, eye) if with_eye else (st, outs)
+    res = (st, outs) + ((eye,) if with_eye else ())
+    if with_probe:
+        res += (ProbeTrace(*(torch.stack(f) for f in zip(*trace))),)
+    return res
 
 
 def lane_state(state: DemodState, lanes: int) -> DemodState:
@@ -544,11 +604,11 @@ def lane_state(state: DemodState, lanes: int) -> DemodState:
 
 def demod_lanes_reference(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
                           state: DemodState | None = None, n_valid=None,
-                          with_eye: bool = False):
+                          with_eye: bool = False, with_probe: bool = False):
     """The plain frame loop over L lanes: iq (L, n) complex64, state and
     n_valid (L,) with a leading lane axis (default: the initial state and
-    n) -> (final state, FrameOut[, EyeProbe]), every field with a leading
-    lane axis.
+    n) -> (final state, FrameOut[, EyeProbe][, ProbeTrace]), every field
+    with a leading lane axis.
 
     `torch.func.vmap` of `demod_stream_reference` (the JAX sweeps vmap the
     demod over trials and offsets the same way): each lane computes what
@@ -560,11 +620,12 @@ def demod_lanes_reference(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
     if n_valid is None:
         n_valid = torch.full((L,), n, dtype=torch.int64, device=iq.device)
     res = torch.func.vmap(
-        lambda x, s, nv: demod_stream_reference(cfg, x, num_frames, s, nv,
-                                                with_eye))(iq, state, n_valid)
-    if with_eye:
-        return res[0], res[1], EyeProbe(*res[2])
-    return res
+        lambda x, s, nv: demod_stream_reference(
+            cfg, x, num_frames, s, nv, with_eye, with_probe))(
+                iq, state, n_valid)
+    kinds = (DemodState, FrameOut) + ((EyeProbe,) if with_eye else ()) + (
+        (ProbeTrace,) if with_probe else ())
+    return tuple(kind(*part) for kind, part in zip(kinds, res))
 
 
 def to_iq(data: torch.Tensor, fmt: str) -> torch.Tensor:
@@ -583,7 +644,8 @@ def to_iq(data: torch.Tensor, fmt: str) -> torch.Tensor:
 
 def demod_raw(cfg: FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
               starts: torch.Tensor, n_valid: torch.Tensor,
-              state: DemodState | None = None, with_eye: bool = False):
+              state: DemodState | None = None, with_eye: bool = False,
+              with_probe: bool = False):
     """Demodulate L lanes of one raw buffer: the entry point of every demod.
 
     data: (n, 2) raw pairs (uint8 cu8, int16 cs16 or float32 c64);
@@ -591,24 +653,26 @@ def demod_raw(cfg: FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
     and frames are valid while pos + nin <= n_valid[l]; samples before the
     lane's start or past the buffer read as 0.0.  state: lane-stacked, or
     None for the initial state.  Returns (final state, FrameOut) with a
-    leading lane axis, and with_eye an `EyeProbe` per lane as well.
+    leading lane axis, with_eye an `EyeProbe` per lane as well, and
+    with_probe a `ProbeTrace` per lane after it.
 
     On a CUDA tensor this launches the persistent frame-loop kernel
-    (`kernels.fsk_demod`); on a CPU tensor it runs the plain loop.
+    (`kernels.fsk_demod`; with_probe its variant that writes the traces);
+    on a CPU tensor it runs the plain loop.
     """
     if data.device.type == "cuda":
         from ..kernels import fsk_demod
         return fsk_demod.demod(cfg, data, fmt, num_frames, starts, n_valid,
-                               state, with_eye)
+                               state, with_eye, with_probe)
     return demod_raw_reference(cfg, data, fmt, num_frames, starts, n_valid,
-                               state, with_eye)
+                               state, with_eye, with_probe)
 
 
 def demod_raw_reference(cfg: FSKConfig, data: torch.Tensor, fmt: str,
                         num_frames: int, starts: torch.Tensor,
                         n_valid: torch.Tensor,
                         state: DemodState | None = None,
-                        with_eye: bool = False):
+                        with_eye: bool = False, with_probe: bool = False):
     """The plain version of `demod_raw`, on any device: the lanes gathered
     into (L, max n_valid) complex64 and run through the plain loop (the
     unbatched loop for one lane)."""
@@ -623,26 +687,24 @@ def demod_raw_reference(cfg: FSKConfig, data: torch.Tensor, fmt: str,
     lanes = padded[torch.where(inside, idx, n)]       # index n reads 0.0
     if starts.shape[0] != 1:
         return demod_lanes_reference(cfg, lanes, num_frames, state, n_valid,
-                                     with_eye)
+                                     with_eye, with_probe)
     res = demod_stream_reference(     # one lane: the unbatched loop
         cfg, lanes[0], num_frames,
         None if state is None else DemodState(*(t[0] for t in state)),
-        n_valid[0], with_eye)
+        n_valid[0], with_eye, with_probe)
     return _lift(res)
 
 
 def _lift(res):
-    """An unbatched (state, FrameOut[, EyeProbe]) with a lane axis of 1."""
-    kinds = (DemodState, FrameOut, EyeProbe)
-    return tuple(kind(*(t[None] for t in part))
-                 for kind, part in zip(kinds, res))
+    """An unbatched (state, FrameOut[, EyeProbe][, ProbeTrace]) with a lane
+    axis of 1."""
+    return tuple(type(part)(*(t[None] for t in part)) for part in res)
 
 
 def _drop(res):
-    """(state, FrameOut[, EyeProbe]) of one lane without its lane axis."""
-    kinds = (DemodState, FrameOut, EyeProbe)
-    return tuple(kind(*(t[0] for t in part))
-                 for kind, part in zip(kinds, res))
+    """(state, FrameOut[, EyeProbe][, ProbeTrace]) of one lane without its
+    lane axis."""
+    return tuple(type(part)(*(t[0] for t in part)) for part in res)
 
 
 def _as_pairs(iq: torch.Tensor) -> torch.Tensor:
@@ -652,20 +714,22 @@ def _as_pairs(iq: torch.Tensor) -> torch.Tensor:
 
 def demod_stream(cfg: FSKConfig, iq: torch.Tensor, num_frames: int,
                  state: DemodState | None = None, n_valid=None,
-                 with_eye: bool = False):
+                 with_eye: bool = False, with_probe: bool = False):
     """Demodulate a capture: iq (n,) complex64 -> (final state, FrameOut
-    stacked over frames[, EyeProbe]), as `demod_stream_reference` computes
-    it.  On a CUDA tensor the frame-loop kernel runs it as one lane."""
+    stacked over frames[, EyeProbe][, ProbeTrace]), as
+    `demod_stream_reference` computes it.  On a CUDA tensor the frame-loop
+    kernel runs it as one lane."""
     if iq.device.type != "cuda":
         return demod_stream_reference(cfg, iq, num_frames, state, n_valid,
-                                      with_eye)
+                                      with_eye, with_probe)
     n = iq.shape[0] if n_valid is None else int(n_valid)
     dev = iq.device
     return _drop(demod_raw(
         cfg, _as_pairs(iq), "c64", num_frames,
         torch.zeros(1, dtype=torch.int64, device=dev),
         torch.full((1,), n, dtype=torch.int64, device=dev),
-        None if state is None else lane_state(state, 1), with_eye))
+        None if state is None else lane_state(state, 1), with_eye,
+        with_probe))
 
 
 def demod_lanes(cfg: FSKConfig, iq: torch.Tensor, num_frames: int):
@@ -680,3 +744,17 @@ def demod_lanes(cfg: FSKConfig, iq: torch.Tensor, num_frames: int):
     return demod_raw(cfg, _as_pairs(iq), "c64", num_frames,
                      torch.arange(L, dtype=torch.int64, device=dev) * n,
                      torch.full((L,), n, dtype=torch.int64, device=dev))
+
+
+def demod_iq_np(cfg: FSKConfig, iq: np.ndarray,
+                state: DemodState | None = None, device="cuda"):
+    """Host convenience: demodulate a whole capture on `device` (CUDA
+    unless the caller asks for another; raises without a card) -> (the
+    valid frames' soft bits concatenated, as `fsk_demod -s` writes them,
+    FrameOut of numpy arrays, final DemodState)."""
+    iq = np.asarray(iq, np.complex64)
+    dev = resolve_device(device)
+    final, outs = demod_stream(cfg, torch.from_numpy(iq).to(dev),
+                               cfg.num_frames(len(iq)), state)
+    outs = FrameOut(*(t.cpu().numpy() for t in outs))
+    return outs.soft[outs.valid].reshape(-1), outs, final

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core import ldpc_tables as T
+from ..device import resolve_device
 from ..kernels import bp_decode
 
 # ------------------------------------------------------------------ encode
@@ -158,6 +159,16 @@ def decode(llr: torch.Tensor, max_iter: int = T.MAX_ITER):
     if llr.device.type == "cpu":
         return decode_reference(llr, max_iter)
     raise ValueError(f"decode: unsupported device {llr.device}")
+
+
+def decode_np(llr: np.ndarray, max_iter: int = T.MAX_ITER, device="cuda"):
+    """Host wrapper of `decode`: numpy LLRs (a batch dimension is added
+    where missing; kept float32) -> numpy (bits, iters, parity_ok), decoded
+    on `device` (CUDA unless the caller asks for another; raises without a
+    card)."""
+    llr = np.atleast_2d(np.asarray(llr, np.float32))
+    out = decode(torch.from_numpy(llr).to(resolve_device(device)), max_iter)
+    return tuple(t.cpu().numpy() for t in out)
 
 
 MINSUM_BIG = 1e30        # magnitude of the invalid edge slots
