@@ -64,7 +64,16 @@ of 40 (v2) and 20 (v1) text messages at the flight geometries decoded
 by `python -m wenet_tpu_torch rx --format c64` (every text back),
 `cli/ber.run_ber` at two levels (at the higher, sync and a BER under
 1e-3) and `cli/bench_demod.run_sweep` at three levels (decoded bytes
-equal to the plain path's on the CPU, its table printed).
+equal to the plain path's on the CPU, its table printed); then the apps
+that the receiver feeds, at the v2 flight geometry: `LinkEmulator(
+through_modem=True)` (texts and SimulatedGPS fixes all back, the same
+packets as on the CPU), a flight capture made in-process (SimulatedGPS
+fixes, texts and one SSDV image through PacketTX into an IQRadio c64
+file) decoded by `python -m wenet_tpu_torch rx --format c64` (every GPS
+record in the router's log, the image byte-equal to ssdv.decode of the
+packets sent), and that capture through a Receiver with the eye probe
+into a router whose UDP side-channels feed the web server's SSE stream
+and /latest.jpg, the telemetry console and the modem-stats GUI model.
 Each phase prints one line (the receive paths their Msamples/s beside
 real time); any failed check raises, so the script exits non-zero before
 its last line.  The last three lines are a JSON object with the kernels'
@@ -144,6 +153,11 @@ BENCH_PACKETS = 20            # bench: run_sweep("v2", 20, BENCH_EBNO_DB)
 BENCH_EBNO_DB = (7.0, 7.5, 12.0)  # a few, most, all packets at flight rate
 REACH = (3228, 4)             # channelize: the first version's largest N
 #                               at 4 taps a phase (no tile in flight)
+LINK_TEXTS, LINK_FIXES = 4, 4  # link: texts and GPS fixes through the
+#                               link emulator at the v2 flight geometry
+FLIGHT_FIXES, FLIGHT_TEXTS = 10, 3   # flight: GPS fixes and texts
+FLIGHT_IDLES = 4              # flight: idle packets before the capture's
+FLIGHT_IMAGE = (320, 240)     # flight: the SSDV image's width, height
 
 
 def require(ok, msg: str):
@@ -302,13 +316,13 @@ def noisy_llrs(n, snr_db, rng, dev):
 
 
 def run_receiver(cfg, mode, raw, pipelined=False, chunk_seconds=2.0,
-                 with_eye=False):
+                 with_eye=False, input_format="cu8"):
     from wenet_tpu_torch.rx.pipeline import Receiver
     import torch
 
-    rx = Receiver(mode=mode, cfg=cfg, input_format="cu8", device="cuda",
-                  pipelined=pipelined, with_eye=with_eye)
-    step = 2 * int(cfg.Fs * chunk_seconds)
+    rx = Receiver(mode=mode, cfg=cfg, input_format=input_format,
+                  device="cuda", pipelined=pipelined, with_eye=with_eye)
+    step = (2 if input_format == "cu8" else 1) * int(cfg.Fs * chunk_seconds)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = []
@@ -542,18 +556,28 @@ def probe_phase(cfg, raw, dev, smi) -> dict:
             "trace_rel_err": max(rel.values())}
 
 
+def receive_counts():
+    """Launch counts of the three kernels every receive path runs."""
+    from wenet_tpu_torch.kernels import bp_decode, crc_pack, fsk_demod
+    return {"fsk_demod": fsk_demod.launches, "bp_decode": bp_decode.launches,
+            "crc_pack": crc_pack.launches}
+
+
+def zero_receive_counts():
+    from wenet_tpu_torch.kernels import bp_decode, crc_pack, fsk_demod
+    fsk_demod.launches = bp_decode.launches = crc_pack.launches = 0
+
+
 def selftest_phase(smi):
     """selftest: rx/selftest.run on the card returns 0, through the BP,
     demod and CRC kernels (counts zeroed before, read after)."""
-    from wenet_tpu_torch.kernels import bp_decode, crc_pack, fsk_demod
     from wenet_tpu_torch.rx import selftest
 
-    bp_decode.launches = fsk_demod.launches = crc_pack.launches = 0
+    zero_receive_counts()
     t0 = time.perf_counter()
     rc = selftest.run(verbose=True, device="cuda")
     dt = time.perf_counter() - t0
-    counts = {"bp_decode": bp_decode.launches,
-              "fsk_demod": fsk_demod.launches, "crc_pack": crc_pack.launches}
+    counts = receive_counts()
     require(rc == 0, f"selftest returned {rc}")
     require(all(counts.values()), f"selftest: launches {counts}")
     say("selftest", rc=rc, wall_s=f"{dt:.3f}", launches=counts,
@@ -631,14 +655,12 @@ def bench_phase(smi):
     path's (device="cpu") on the same captures, all packets at the top
     level."""
     from wenet_tpu_torch.cli import bench_demod
-    from wenet_tpu_torch.kernels import bp_decode, crc_pack, fsk_demod
 
-    bp_decode.launches = fsk_demod.launches = crc_pack.launches = 0
+    zero_receive_counts()
     lines = []
     res = bench_demod.run_sweep("v2", BENCH_PACKETS, BENCH_EBNO_DB,
                                 log=lines.append)
-    counts = {"bp_decode": bp_decode.launches,
-              "fsk_demod": fsk_demod.launches, "crc_pack": crc_pack.launches}
+    counts = receive_counts()
     require(all(counts.values()), f"bench: launches {counts}")
     t0 = time.perf_counter()
     plain = bench_demod.run_sweep("v2", BENCH_PACKETS, BENCH_EBNO_DB,
@@ -655,6 +677,323 @@ def bench_phase(smi):
         runtime_s=[f"{r[2]:.4f}" for r in res],
         plain_decoded_bytes=[r[1] for r in plain],
         plain_wall_s=f"{plain_s:.2f}", launches=counts, card=repr(smi))
+
+
+
+def free_ports(n):
+    """n localhost UDP ports the OS reports free (bound to 0, released)."""
+    import socket
+    socks = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+             for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def tx_payload(frame: bytes) -> bytes:
+    """The 256-byte payload of a v2 frame (preamble and UW stripped,
+    descrambled, CRC and parity dropped)."""
+    from wenet_tpu_torch.core import framing
+    return framing.tx_scramble(frame[20:])[:framing.PAYLOAD_BYTES]
+
+
+def link_phase(cfg, smi):
+    """link: examples/link_emulation.LinkEmulator(through_modem=True) at
+    the v2 flight geometry on the card: LINK_TEXTS text messages and
+    LINK_FIXES SimulatedGPS fixes through PacketTX, drained, a trailing
+    idle.  Every message comes back, and the packets received equal those
+    of a second emulator on the CPU fed the same frames (the GPS packets
+    carry the host's load and temperature, so the frames are replayed,
+    not made again)."""
+    from wenet_tpu_torch.examples.link_emulation import LinkEmulator
+    from wenet_tpu_torch.tx.gps import SimulatedGPS
+
+    tel_port, = free_ports(1)
+    zero_receive_counts()
+    t0 = time.perf_counter()
+    emu = LinkEmulator(tx_port=None, telemetry_port=tel_port,
+                       through_modem=True, cfg=cfg, device="cuda")
+    frames = []
+    on_frame = emu.tx.radio.on_frame
+    emu.tx.radio.on_frame = lambda f: (frames.append(f), on_frame(f))
+    texts = [f"link message {i}" for i in range(LINK_TEXTS)]
+    for t in texts:
+        emu.tx.transmit_text_message(t)
+    gps = SimulatedGPS(realtime=False)
+    for _ in range(LINK_FIXES):
+        emu.tx.transmit_gps_telemetry(gps.step())
+    emu.drain()
+    emu.tx.radio.transmit_packet(emu.tx.idle_message)
+    emu.close()
+    dt = time.perf_counter() - t0
+    counts = receive_counts()
+    sent = [tx_payload(f) for f in frames if f != emu.tx.idle_message]
+    require(len(sent) == LINK_TEXTS + LINK_FIXES, f"link: {len(sent)} sent")
+    require(emu.packets_received == sent,
+            f"link: {len(emu.packets_received)} of {len(sent)} back")
+    require(all(counts.values()), f"link: launches {counts}")
+    t0 = time.perf_counter()
+    plain = LinkEmulator(tx_port=None, telemetry_port=tel_port,
+                         through_modem=True, cfg=cfg, device="cpu")
+    for f in frames:
+        plain.tx.radio.transmit_packet(f)
+    plain.close()
+    plain_s = time.perf_counter() - t0
+    require(plain.packets_received == emu.packets_received,
+            "link: the card's packets differ from the CPU's")
+    say("link", texts=LINK_TEXTS, fixes=LINK_FIXES, frames=len(frames),
+        packets=f"{len(emu.packets_received)}/{len(sent)}",
+        equal_to_cpu=True, wall_s=f"{dt:.3f}", cpu_wall_s=f"{plain_s:.3f}",
+        launches=counts, card=repr(smi))
+
+
+def synthetic_jpeg(width, height, rng):
+    """A baseline 4:2:0 JPEG made by the port's own writer from random
+    low-order coefficients (no Pillow on the card)."""
+    from wenet_tpu_torch.ssdv import codec
+    from wenet_tpu_torch.ssdv import jpeg as J
+    lum, chroma = codec.quant_tables(6)
+    comps = [J.Component(1, 2, 2, 0), J.Component(2, 1, 1, 1),
+             J.Component(3, 1, 1, 1)]
+    n_mcus = (width // 16) * (height // 16)
+    mcus = np.zeros((n_mcus, 6, 64), np.int32)
+    mcus[:, :, 0] = rng.integers(-40, 40, (n_mcus, 6))
+    mcus[:, :, 1:10] = rng.integers(-6, 7, (n_mcus, 6, 9))
+    return J.write_jpeg(J.JpegImage(width, height, comps,
+                                    {0: lum, 1: chroma}, mcus))
+
+
+def flight_capture(cfg, tmp, rng):
+    """The flight side in-process: FLIGHT_FIXES SimulatedGPS fixes and
+    FLIGHT_TEXTS texts through PacketTX, one SSDV image queued with
+    queue_image_file, all through an IQRadio into a c64 file (FLIGHT_IDLES
+    idle packets before, one after).  -> (path, the payloads sent in
+    order, the SSDV packets, the JPEG ssdv.decode makes of them)."""
+    from wenet_tpu_torch import ssdv
+    from wenet_tpu_torch.tx import IQRadio, PacketTX
+    from wenet_tpu_torch.tx.gps import SimulatedGPS
+
+    jpg = synthetic_jpeg(*FLIGHT_IMAGE, rng)
+    pkts = ssdv.encode(jpg, "VK5QI", 3, 6)
+    ssdv_path = os.path.join(tmp, "flight.ssdv")
+    with open(ssdv_path, "wb") as fh:
+        fh.write(b"".join(pkts))
+    path = os.path.join(tmp, "flight.c64")
+    fout = open(path, "wb")
+    radio = IQRadio(lambda iq: fout.write(iq.tobytes()), cfg=cfg, mode="v2")
+    tx = PacketTX(radio, callsign="VK5QI")
+    for _ in range(FLIGHT_IDLES):
+        radio.transmit_packet(tx.idle_message)
+    gps = SimulatedGPS(realtime=False)
+    frames = []
+    for i in range(FLIGHT_FIXES):
+        tx.transmit_gps_telemetry(gps.step())
+        if i < FLIGHT_TEXTS:
+            tx.transmit_text_message(f"flight message {i}")
+    require(tx.queue_image_file(ssdv_path), "flight: queue_image_file")
+    while not (tx.telemetry_queue_empty() and tx.image_queue_empty()):
+        q = tx.telemetry_queue if tx.telemetry_queue.qsize() else tx.ssdv_queue
+        frames.append(q.get_nowait())
+        radio.transmit_packet(frames[-1])
+    radio.transmit_packet(tx.idle_message)
+    radio.shutdown()
+    fout.close()
+    return path, [tx_payload(f) for f in frames], pkts, ssdv.decode(pkts)
+
+
+def flight_phase(cfg, tmp, smi):
+    """flight: the flight capture (flight_capture) decoded by `python -m
+    wenet_tpu_torch rx --format c64` on the card: every GPS record is back
+    in the router's gps log as the decoder reads the packet sent, every
+    text in the text log, and the image reassembled byte-equal to
+    ssdv.decode of the packets sent.  The CLI runs in a process of its
+    own, whose launch counts this one cannot read, so the capture is
+    also pushed through a Receiver here, counts zeroed before and read
+    after, with the same payloads.  `wenet_tpu_torch.cli.flight` and
+    `wenet_tpu_torch.tx.camera` import, and `python -m wenet_tpu_torch
+    flight --help` exits 0, on this machine without Pillow."""
+    import glob
+    import importlib
+    from wenet_tpu_torch.core import packets as wp
+
+    t0 = time.perf_counter()
+    path, sent, pkts, want_jpg = flight_capture(
+        cfg, tmp, np.random.default_rng(SEED + 11))
+    build_s = time.perf_counter() - t0
+    zero_receive_counts()
+    iq = np.fromfile(path, np.complex64)
+    got, dt, _ = run_receiver(cfg, "v2", iq, input_format="c64")
+    counts = receive_counts()
+    require(all(counts.values()), f"flight: launches {counts}")
+    require([p for p in got if wp.decode_packet_type(p)
+             != wp.PacketType.IDLE] == sent,
+            f"flight: the Receiver gave {len(got)} of {len(sent)} payloads")
+    logs, img_dir = os.path.join(tmp, "flight_logs"), \
+        os.path.join(tmp, "flight_img")
+    rc, line, err, dt_cli = run_cli(path, "--mode", "v2", "--log-dir", logs,
+                                    "--image-dir", img_dir, fmt="c64")
+    require(rc == 0, f"flight: rx exit {rc}: {err}")
+
+    def log(kind):
+        out = []
+        for p in glob.glob(os.path.join(logs, f"*_{kind}.log")):
+            with open(p) as fh:
+                out += [json.loads(ln) for ln in fh]
+        return out
+    gps_sent = [json.loads(json.dumps(wp.gps_telemetry_decoder(p)))
+                for p in sent
+                if wp.decode_packet_type(p) == wp.PacketType.GPS_TELEMETRY]
+    text_sent = [json.loads(json.dumps(wp.decode_text_message(p)))
+                 for p in sent
+                 if wp.decode_packet_type(p) == wp.PacketType.TEXT_MESSAGE]
+    require(len(gps_sent) == FLIGHT_FIXES and log("gps") == gps_sent,
+            f"flight: {len(log('gps'))} of {len(gps_sent)} GPS records")
+    require(log("text") == text_sent, "flight: text records differ")
+    jpgs = glob.glob(os.path.join(img_dir, "*_VK5QI_3.jpg"))
+    require(len(jpgs) == 1, f"flight: images {jpgs}")
+    with open(jpgs[0], "rb") as fh:
+        require(fh.read() == want_jpg, "flight: image differs from "
+                "ssdv.decode of the packets sent")
+    for name in ("wenet_tpu_torch.cli.flight", "wenet_tpu_torch.tx.camera"):
+        importlib.import_module(name)
+    help_rc, help_err, help_s = run_module("flight", "--help", timeout=120)
+    require(help_rc == 0, f"flight --help exit {help_rc}: {help_err}")
+    try:
+        import PIL  # noqa: F401
+        pillow = True
+    except ImportError:
+        pillow = False
+    say("flight", fixes=FLIGHT_FIXES, texts=FLIGHT_TEXTS,
+        ssdv_packets=len(pkts), payloads=f"{len(got)}/{len(sent)}",
+        gps_records=f"{len(log('gps'))}/{FLIGHT_FIXES}", image_equal=True,
+        capture_bytes=os.path.getsize(path), build_s=f"{build_s:.3f}",
+        receiver_wall_s=f"{dt:.3f}", cli_wall_s=f"{dt_cli:.2f}",
+        cli_stderr=repr(line), help_wall_s=f"{help_s:.2f}", pillow=pillow,
+        launches=counts, card=repr(smi))
+    return path, sent, want_jpg
+
+
+def apps_phase(cfg, path, sent, want_jpg, tmp, smi):
+    """apps: the card's Receiver (with the eye probe) on the flight capture
+    feeds a headless PacketRouter whose UDPEmitter points at free ports;
+    a WenetWebServer on the image port and telemetry_console.listen on
+    the telemetry port listen.  The console prints one line per telemetry
+    packet, the SSE stream carries the GPS, TEXT and MODEM_STATS events,
+    /latest.jpg serves the decoded image, and a ModemStatsModel takes the
+    receiver's stats records through FSKDemodStats.to_wire (eye diagram
+    included)."""
+    import http.client
+    import threading
+    from wenet_tpu_torch.core import packets as wp
+    from wenet_tpu_torch.rx import stats as rxstats
+    from wenet_tpu_torch.rx import telemetry_console, web
+    from wenet_tpu_torch.rx.gui import ModemStatsModel
+    from wenet_tpu_torch.rx.pipeline import Receiver
+    from wenet_tpu_torch.rx.router import PacketRouter, UDPEmitter
+    import torch
+
+    n_tel = sum(wp.decode_packet_type(p) != wp.PacketType.SSDV for p in sent)
+    img_port, tel_port = free_ports(2)
+    srv = web.WenetWebServer(port=0, udp_port=img_port,
+                             image_dir=os.path.join(tmp, "apps_img"))
+    lines, events = [], []
+    console = threading.Thread(
+        target=telemetry_console.listen, daemon=True,
+        kwargs=dict(port=tel_port, max_packets=n_tel,
+                    print_fn=lines.append))
+    console.start()
+    conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=10)
+    conn.request("GET", "/events")
+    stream = conn.getresponse()
+
+    def read_events():
+        try:
+            while True:
+                ln = stream.fp.readline()
+                if not ln:
+                    return
+                if ln.startswith(b"data:"):
+                    events.append(json.loads(ln[5:]))
+        except (OSError, ValueError):
+            return
+    reader = threading.Thread(target=read_events, daemon=True)
+    reader.start()
+    time.sleep(0.5)                  # the listeners bind
+    try:
+        router = PacketRouter(
+            image_dir=os.path.join(tmp, "apps_rx"), headless=True,
+            emitter=UDPEmitter(image_port=img_port, telemetry_port=tel_port))
+        acc = rxstats.FSKDemodStats(averaging_time=1.0, peak_hold=True,
+                                    sample_rate=cfg.Fs)
+        model = ModemStatsModel()
+        zero_receive_counts()
+        rx = Receiver(mode="v2", cfg=cfg, device="cuda", with_eye=True)
+        iq = np.fromfile(path, np.complex64)
+        step = int(cfg.Fs * 0.25)
+        got = []
+
+        def route(payloads):
+            got.extend(payloads)
+            for p in payloads:
+                router.handle_packet(p)
+            rec = rxstats.receiver_stats_record(rx)
+            if rec:
+                acc.update(rec)
+                wire = acc.to_wire()
+                model.update(wire | rec)
+                rxstats.send_modem_stats(wire, udp_port=img_port)
+        t0 = time.perf_counter()
+        for i in range(0, len(iq), step):
+            route(rx.push(iq[i:i + step]))
+        route(rx.flush())
+        router.flush()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = receive_counts()
+        require(all(counts.values()), f"apps: launches {counts}")
+        require([p for p in got if wp.decode_packet_type(p)
+                  != wp.PacketType.IDLE] == sent, "apps: payloads differ")
+        console.join(timeout=10)
+        deadline = time.time() + 10
+        kinds = set()
+        while time.time() < deadline:
+            kinds = {e.get("type") for e in events}
+            if {"GPS", "TEXT", "MODEM_STATS", "IMAGE"} <= kinds:
+                break
+            time.sleep(0.05)
+        require(not console.is_alive() and len(lines) == n_tel,
+                f"apps: console printed {len(lines)} of {n_tel} lines")
+        want_lines = [wp.packet_to_string(p) for p in sent
+                      if wp.decode_packet_type(p) != wp.PacketType.SSDV]
+        require(sorted(ln.split(" \t", 1)[1] for ln in lines)
+                == sorted(want_lines), "apps: console lines differ")
+        require({"GPS", "TEXT", "MODEM_STATS", "IMAGE"} <= kinds,
+                f"apps: SSE events {sorted(map(str, kinds))}")
+        n_gps = sum(e.get("type") == "GPS" for e in events)
+        n_text = sum(e.get("type") == "TEXT" for e in events)
+        require(n_gps == FLIGHT_FIXES and n_text == FLIGHT_TEXTS,
+                f"apps: SSE GPS {n_gps}, TEXT {n_text}")
+        c = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=10)
+        c.request("GET", "/latest.jpg")
+        r = c.getresponse()
+        body = r.read()
+        c.close()
+        require(r.status == 200 and body == want_jpg,
+                f"apps: /latest.jpg status {r.status}, {len(body)} bytes")
+        snap = model.snapshot()
+        require(snap["frames"] > 0 and snap["eye_lines"] == 8
+                and snap["EbNodB"] is not None,
+                f"apps: modem stats model {snap}")
+    finally:
+        conn.close()
+        srv.close()
+    say("apps", console_lines=f"{len(lines)}/{n_tel}",
+        sse_events=len(events), sse_gps=n_gps, sse_text=n_text,
+        latest_jpg_bytes=len(body), modem_stats=snap,
+        receiver_wall_s=f"{dt:.3f}", launches=counts, card=repr(smi))
 
 
 def main() -> int:
@@ -1677,6 +2016,13 @@ def main() -> int:
         tx_rx_phase(tmp, (("v2", cfg2), ("v1", cfg1)), smi)
         ber_phase(cfg2, smi)
         bench_phase(smi)
+
+        # 15. the ground-station apps, the link emulator and the flight
+        # side, fed by the card's receiver (counts zeroed before, read
+        # after, in each phase)
+        link_phase(cfg2, smi)
+        flight = flight_phase(cfg2, tmp, smi)
+        apps_phase(cfg2, *flight, tmp, smi)
     main_launches["fsk_demod_probe"] = probe_m["launches"]
 
     sources = {

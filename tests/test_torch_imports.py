@@ -42,7 +42,17 @@ NEW_MODULES = ("wenet_tpu_torch.ops.ldpc_onehot, wenet_tpu_torch.ops.channel, "
                "wenet_tpu_torch.cli.ssdv_cli, wenet_tpu_torch.tx, "
                "wenet_tpu_torch.tx.packet_tx, wenet_tpu_torch.tx.radios, "
                "wenet_tpu_torch.tx.sx127x, wenet_tpu_torch.ssdv.external, "
-               "wenet_tpu_torch.__main__")
+               "wenet_tpu_torch.__main__, "
+               # the ground-station apps, the examples and the flight side
+               "wenet_tpu_torch.rx.telemetry_console, "
+               "wenet_tpu_torch.rx.uploader, wenet_tpu_torch.rx.web, "
+               "wenet_tpu_torch.rx.gui, wenet_tpu_torch.examples, "
+               "wenet_tpu_torch.examples.link_emulation, "
+               "wenet_tpu_torch.examples.rx_tester, "
+               "wenet_tpu_torch.examples.sec_payload_rx, "
+               "wenet_tpu_torch.tx.gps, wenet_tpu_torch.tx.ubx, "
+               "wenet_tpu_torch.tx.pi_utils, wenet_tpu_torch.tx.camera, "
+               "wenet_tpu_torch.cli.flight")
 
 
 def test_port_imports_no_jax():
@@ -91,6 +101,30 @@ def test_receive_path_imports_nothing_of_the_jax_package(tmp_path):
     for path in sources:
         with open(path) as fh:
             assert not pat.search(fh.read()), path
+
+
+def test_flight_side_imports_without_pillow_or_requests():
+    """`tx.camera` and `cli.flight` (and the apps that post with
+    `requests`) import where Pillow and `requests` are absent, as on the
+    machine with the card; the flight CLI's --help runs there."""
+    code = ("import sys\n"
+            "sys.modules['PIL'] = sys.modules['PIL.Image'] = None\n"
+            "sys.modules['requests'] = None\n"
+            "import wenet_tpu_torch.tx.camera, wenet_tpu_torch.cli.flight\n"
+            "import wenet_tpu_torch.rx.uploader, wenet_tpu_torch.rx.web\n"
+            "from wenet_tpu_torch.cli.flight import main\n"
+            "try:\n"
+            "    main(['--help'])\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "print(sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('PIL', 'requests', 'jax')\n"
+            "             and sys.modules[m] is not None))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_port_sources_have_no_jax_import():
@@ -212,12 +246,13 @@ def test_cuda_requests_raise_without_card():
                                   "decode_iq_parallel", "channelize",
                                   "demod_multichannel", "demod_iq_np",
                                   "decode_np", "probe_demod", "selftest",
-                                  "run_ber", "run_sweep"])
+                                  "run_ber", "run_sweep", "LinkEmulator"])
 def test_public_functions_default_to_the_card(name, monkeypatch):
     """Called without a device, the port's public demod and deframe entry
     points ask for CUDA, and without a card they raise instead of running
     on the CPU."""
     from wenet_tpu_torch.cli import bench_demod, ber
+    from wenet_tpu_torch.examples.link_emulation import LinkEmulator
     from wenet_tpu_torch.ops import channelizer, deframe
     from wenet_tpu_torch.rx import pipeline, selftest
     from wenet_tpu_torch.utils import probe
@@ -257,6 +292,8 @@ def test_public_functions_default_to_the_card(name, monkeypatch):
         "run_ber": lambda: ber.run_ber(cfg, 10.0, 0.1),
         "run_sweep": lambda: bench_demod.run_sweep(
             "v2", 1, [10.0], cfg=cfg, log=lambda *a: None),
+        "LinkEmulator": lambda: LinkEmulator(tx_port=None, telemetry_port=0,
+                                             through_modem=True, cfg=cfg),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[name]()

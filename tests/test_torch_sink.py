@@ -243,4 +243,5 @@ def test_stats_to_wire_matches(monkeypatch, peak_hold):
         assert a.pop("time")[:10] == b.pop("time")[:10]
         assert a == b
     assert tstats.FSK_STATS_FIELDS == jstats.FSK_STATS_FIELDS
-    assert not hasattr(tstats, "receiver_stats_record")
+    from wenet_tpu_torch.rx import pipeline
+    assert tstats.receiver_stats_record is pipeline.receiver_stats_record

@@ -11,9 +11,13 @@ module names so every counterpart is easy to find:
              use with nvcc and bound with ctypes
   csrc/      the CUDA sources of those kernels
   parallel/  Monte-Carlo sweeps and the coarse acquisition search
-  rx/        the streaming Receiver, the payload router and stats bus
+  rx/        the streaming Receiver, the payload router and stats bus,
+             the ground-station apps (web, console, GUI models, uploader)
+  tx/        the transmit side and the flight side (packet engine,
+             radios, GPS, UBX, camera)
   ssdv/      the native SSDV codec (JPEG packetiser)
-  cli/       `python -m wenet_tpu_torch rx ...`
+  examples/  link emulation, a router feeder, a secondary-payload listener
+  cli/       `python -m wenet_tpu_torch {rx,tx,flight,ber,bench,ssdv}`
   utils/     DFT-as-matmul, polynomial atan2
 
 It imports `torch` and never `jax`, and no module of it imports the JAX

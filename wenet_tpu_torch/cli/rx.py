@@ -24,10 +24,37 @@ only the channels it names.
 from __future__ import annotations
 
 import argparse
+import queue
 import sys
+import threading
 import time
 
 import numpy as np
+
+
+def _chunk_reader(fin, chunk_bytes: int, depth: int = 2):
+    """Background-thread chunk prefetcher: file and stdin reads overlap the
+    device's work (the role the Unix pipe buffer plays between rtl_sdr and
+    fsk_demod in the reference).  A read that raises ends the stream, as
+    the end of the file does."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+
+    def pump():
+        try:
+            while True:
+                raw = fin.read(chunk_bytes)
+                q.put(raw)
+                if not raw:
+                    return
+        except Exception:
+            q.put(b"")
+
+    threading.Thread(target=pump, daemon=True).start()
+    while True:
+        raw = q.get()
+        if not raw:
+            return
+        yield raw
 
 
 def add_args(ap: argparse.ArgumentParser):
@@ -162,8 +189,9 @@ def main(argv=None):
     t0 = time.time()
     next_deadline = t0
     try:
+        reader = _chunk_reader(fin, chunk_bytes)
         while True:
-            raw = pending + fin.read(chunk_bytes)
+            raw = pending + next(reader, b"")
             pending = b""
             if not raw:
                 break

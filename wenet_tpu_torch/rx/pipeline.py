@@ -19,6 +19,7 @@ import torch
 from ..core import framing
 from ..device import resolve_device
 from ..ops import deframe, fsk
+from .stats import receiver_stats_record  # noqa: F401  (its home is rx.stats)
 
 MODE_CONFIGS = {
     "v1": fsk.V1_CONFIG,     # 115177 baud RS232 framing
@@ -690,26 +691,3 @@ class FusedReceiver:
         self._base = self._next = self._received
         return self._emit_ready()
 
-
-def receiver_stats_record(rx: Receiver) -> dict:
-    """fsk_demod-style stats record (`--stats` JSON fields) from a live
-    Receiver, for `rx.stats.FSKDemodStats`; the state tensors are
-    copied to the host here.  A `with_eye=True` receiver's record carries
-    the eye-diagram traces of its last valid frame (fsk_demod.c:366-377)."""
-    st = rx.state
-    if st is None:
-        return {}
-    f_est = st.f_est.cpu().numpy()
-    rec = {
-        "secs": int(time.time()),
-        "EbNodB": float(st.ebno_db),
-        "ppm": int(float(st.ppm)),
-        "f1_est": float(f_est[0]),
-        "f2_est": float(f_est[1]),
-        "samp_fft": [float(x) for x in st.fft_est.cpu().numpy()],
-    }
-    if rx.last_eye is not None:
-        f_int, high = rx.last_eye
-        eye = fsk.eye_diagram(f_int, rx.cfg.P, high, rx.cfg.M)
-        rec["eye_diagram"] = [[float(x) for x in row] for row in eye]
-    return rec

@@ -110,6 +110,32 @@ class FSKDemodStats:
         }
 
 
+def receiver_stats_record(rx) -> dict:
+    """fsk_demod-style stats record (`--stats` JSON fields) from a live
+    `rx.pipeline.Receiver`, for `FSKDemodStats`; the state tensors are
+    copied to the host here.  A `with_eye=True` receiver's record carries
+    the eye-diagram traces of its last valid frame (fsk_demod.c:366-377);
+    without it the record omits `eye_diagram`."""
+    st = rx.state
+    if st is None:
+        return {}
+    f_est = st.f_est.cpu().numpy()
+    rec = {
+        "secs": int(time.time()),
+        "EbNodB": float(st.ebno_db),
+        "ppm": int(float(st.ppm)),
+        "f1_est": float(f_est[0]),
+        "f2_est": float(f_est[1]),
+        "samp_fft": [float(x) for x in st.fft_est.cpu().numpy()],
+    }
+    if getattr(rx, "last_eye", None) is not None:
+        from ..ops import fsk
+        f_int, high = rx.last_eye
+        eye = fsk.eye_diagram(f_int, rx.cfg.P, high, rx.cfg.M)
+        rec["eye_diagram"] = [[float(x) for x in row] for row in eye]
+    return rec
+
+
 def send_modem_stats(stats: dict, udp_port: int = WENET_IMAGE_UDP_PORT):
     try:
         s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
