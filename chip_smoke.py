@@ -73,7 +73,16 @@ file) decoded by `python -m wenet_tpu_torch rx --format c64` (every GPS
 record in the router's log, the image byte-equal to ssdv.decode of the
 packets sent), and that capture through a Receiver with the eye probe
 into a router whose UDP side-channels feed the web server's SSE stream
-and /latest.jpg, the telemetry console and the modem-stats GUI model.
+and /latest.jpg, the telemetry console and the modem-stats GUI model;
+then the scale-out layer (`mesh`): two gloo ranks sharing the card,
+started fresh by `parallel.dryrun.launch`, run decode_iq_fused and
+decode_iq_parallel with the chunks split over them, chain_per_sweep and
+ldpc_ber_sweep split over them, and decode_sharded (B = 128, tp = 2),
+each equal to the unsharded call (to bp_decode.cu for the BP), every
+rank launching the four receive kernels, and one NCCL rank runs
+decode_iq_fused with its gather through NCCL; and the JAX package's
+golden flight-rate tables (`golden`: tests/golden/, every row within
+two packets, the cliff and the envelope) through the port's Receiver.
 Each phase prints one line (the receive paths their Msamples/s beside
 real time); any failed check raises, so the script exits non-zero before
 its last line.  The last three lines are a JSON object with the kernels'
@@ -82,6 +91,7 @@ device.  Without a CUDA device the script fails at once.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import struct
@@ -158,6 +168,10 @@ LINK_TEXTS, LINK_FIXES = 4, 4  # link: texts and GPS fixes through the
 FLIGHT_FIXES, FLIGHT_TEXTS = 10, 3   # flight: GPS fixes and texts
 FLIGHT_IDLES = 4              # flight: idle packets before the capture's
 FLIGHT_IMAGE = (320, 240)     # flight: the SSDV image's width, height
+MESH_RANKS = 2                # mesh: gloo ranks sharing the card
+MESH_CHAIN_DB, MESH_CHAIN_TRIALS = [4.0, 20.0], 8   # chain_per_sweep
+MESH_BER_DB, MESH_BER_CODEWORDS = [2.5, 3.5], 2048  # ldpc_ber_sweep
+MESH_BP = (128, 2.5)          # decode_sharded: codewords, Es/N0 dB; tp = 2
 
 
 def require(ok, msg: str):
@@ -748,6 +762,200 @@ def link_phase(cfg, smi):
         packets=f"{len(emu.packets_received)}/{len(sent)}",
         equal_to_cpu=True, wall_s=f"{dt:.3f}", cpu_wall_s=f"{plain_s:.3f}",
         launches=counts, card=repr(smi))
+
+
+def payload_digest(payloads):
+    """[count, sha256 of the payloads in order]: a list compared whole."""
+    return [len(payloads), hashlib.sha256(b"".join(payloads)).hexdigest()]
+
+
+def as_lists(result: dict) -> dict:
+    """A sweep's dict with its arrays as lists (as JSON carries them)."""
+    return {k: np.asarray(v).tolist() for k, v in result.items()}
+
+
+def bits_digest(bits) -> str:
+    """sha256 of a decode's bits tensor."""
+    return hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()
+
+
+def mesh_rank(path, stages, device="cuda"):
+    """The rank side of the mesh phase, run in every rank by
+    `parallel.dryrun.launch`: each of `stages` once on the parent's inputs
+    (the v2 capture's cu8 bytes, the LLRs), with the four receive kernels'
+    launch counts zeroed before it and read after, and its wall."""
+    import torch
+    from wenet_tpu_torch.kernels import bp_decode, crc_pack, deframe_topk
+    from wenet_tpu_torch.kernels import fsk_demod
+    from wenet_tpu_torch.ops import fsk
+    from wenet_tpu_torch.parallel import sharded_ldpc, sweep
+    from wenet_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+    from wenet_tpu_torch.rx import pipeline
+
+    kern = {"fsk_demod": fsk_demod, "deframe_topk": deframe_topk,
+            "bp_decode": bp_decode, "crc_pack": crc_pack}
+    d = np.load(path)
+    mesh = make_mesh(device=device)
+    out = {"backend": mesh.backend, "device": str(mesh.device),
+           "launches": {}}
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    def run(name, fn):
+        for m in kern.values():
+            m.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        out[f"{name}_wall_s"] = time.perf_counter() - t0
+        out["launches"][name] = {k: m.launches for k, m in kern.items()}
+        return res
+
+    digest, listed = payload_digest, as_lists
+    meshes = [mesh]
+    if "fused" in stages:
+        out["fused"] = digest(run("fused", lambda: pipeline.decode_iq_fused(
+            d["raw"], "v2", n_chunks=FUSED_CHUNKS, mesh=mesh)))
+    if "parallel" in stages:
+        out["parallel"] = digest(run(
+            "parallel", lambda: pipeline.decode_iq_parallel(
+                d["raw"], "v2", n_chunks=FUSED_CHUNKS, input_format="cu8",
+                mesh=mesh)))
+    if "sweeps" in stages:
+        out["chain"] = listed(run("chain", lambda: sweep.chain_per_sweep(
+            fsk.V2_CONFIG, MESH_CHAIN_DB, MESH_CHAIN_TRIALS, mesh=mesh)))
+        out["ber"] = listed(run("ber", lambda: sweep.ldpc_ber_sweep(
+            MESH_BER_DB, MESH_BER_CODEWORDS, mesh=mesh)))
+    if "sharded" in stages:
+        mesh2 = make_mesh_2d(mesh.size // 2, 2, device=device)
+        meshes.append(mesh2)
+        llr = torch.from_numpy(d["llr"]).to(mesh2.device)
+        bits, iters, ok = run("sharded", lambda: sharded_ldpc.decode_sharded(
+            llr, mesh2))
+        loops = int(iters.max())          # the loop stops at the slowest
+        wall = out["sharded_wall_s"]
+        out["sharded"] = {
+            "bits": bits_digest(bits), "iters": iters.tolist(), "ok": ok.tolist(), "loops": loops,
+            "ms_per_iter": wall * 1e3 / loops,
+            "collective_share": mesh2.collective_s / wall,
+            "collectives": mesh2.collectives,
+            "staged_bytes": mesh2.staged_bytes}
+    out["staged_bytes"] = sum(m.staged_bytes for m in meshes)
+    return out
+
+
+def mesh_phase(cfg, raw, tmp, smi):
+    """mesh: the scale-out layer on the card.  (a) MESH_RANKS gloo ranks,
+    each on cuda:0 (NCCL refuses two ranks on one card), started fresh by
+    `parallel.dryrun.launch`: decode_iq_fused(mesh=) and
+    decode_iq_parallel(mesh=) on the v2 capture (C=16) give every packet,
+    in every rank the unsharded call's list; chain_per_sweep and
+    ldpc_ber_sweep equal the one-rank sweeps; decode_sharded at
+    MESH_BP with tp=2 equals bp_decode.cu on the same LLRs; each rank
+    launched fsk_demod, deframe_topk, bp_decode and crc_pack.  (b) one
+    NCCL rank: decode_iq_fused(mesh=) equal to the unsharded call, its
+    gather through NCCL.  Several NCCL ranks need a card each: unproven on
+    one card."""
+    import torch
+    from wenet_tpu_torch.ops import ldpc
+    from wenet_tpu_torch.parallel import dryrun, sweep
+    from wenet_tpu_torch.rx import pipeline
+
+    dev = torch.device("cuda")
+    fused = pipeline.decode_iq_fused(raw, "v2", n_chunks=FUSED_CHUNKS,
+                                     device=dev)
+    par = pipeline.decode_iq_parallel(raw, "v2", n_chunks=FUSED_CHUNKS,
+                                      input_format="cu8", device=dev)
+    require(len(fused) == len(par) == V2_PACKETS,
+            f"mesh: {len(fused)} and {len(par)} of {V2_PACKETS} unsharded")
+    want = {"fused": payload_digest(fused), "parallel": payload_digest(par),
+            "chain": as_lists(sweep.chain_per_sweep(
+                cfg, MESH_CHAIN_DB, MESH_CHAIN_TRIALS, device=dev)),
+            "ber": as_lists(sweep.ldpc_ber_sweep(
+                MESH_BER_DB, MESH_BER_CODEWORDS, device=dev))}
+    llr = noisy_llrs(*MESH_BP, np.random.default_rng(SEED + 12), dev)
+    bits, iters, ok = ldpc.decode(llr)            # bp_decode.cu
+    want["sharded"] = {"bits": bits_digest(bits), "iters": iters.tolist(),
+                       "ok": ok.tolist()}
+    path = os.path.join(tmp, "mesh_inputs.npz")
+    np.savez(path, raw=raw, llr=llr.cpu().numpy())
+
+    worlds = {}
+    for label, n, backend, stages, keys in (
+            ("gloo", MESH_RANKS, None,
+             ["fused", "parallel", "sweeps", "sharded"],
+             ["fused", "parallel", "chain", "ber", "sharded"]),
+            ("nccl", 1, "nccl", ["fused"], ["fused"])):
+        t0 = time.perf_counter()
+        ranks = dryrun.launch(n, "chip_smoke:mesh_rank", [path, stages],
+                              backend, "cuda", timeout=300)
+        worlds[label] = (ranks, time.perf_counter() - t0)
+        for r in ranks:
+            require(r["backend"] == label and r["device"] == "cuda:0",
+                    f"mesh {label}: rank {r['rank']} {r['backend']} "
+                    f"{r['device']}")
+            for key in keys:
+                got = r[key]
+                if key == "sharded":
+                    got = {k: got[k] for k in want[key]}
+                require(got == want[key], f"mesh {label}: rank {r['rank']} "
+                        f"{key} differs from the unsharded call")
+            counts = r["launches"]
+            require(all(counts["fused"].values()),
+                    f"mesh {label}: rank {r['rank']} launches {counts}")
+    gloo, wall = worlds["gloo"]
+    sh = gloo[0]["sharded"]
+    say("mesh", world="gloo", ranks=MESH_RANKS, device=gloo[0]["device"],
+        packets=f"{want['fused'][0]}/{V2_PACKETS}", equal_to_unsharded=True,
+        launch_s=f"{wall:.2f}",
+        stage_wall_s={k[:-7]: [round(r[k], 4) for r in gloo]
+                      for k in gloo[0] if k.endswith("_wall_s")},
+        launches=gloo[0]["launches"],
+        sharded_batch=MESH_BP[0], sharded_snr_db=MESH_BP[1], tp=2,
+        sharded_loops=sh["loops"],
+        sharded_ms_per_iter=[round(r["sharded"]["ms_per_iter"], 4)
+                             for r in gloo],
+        sharded_collective_share=[round(r["sharded"]["collective_share"],
+                                        4) for r in gloo],
+        sharded_collectives=sh["collectives"],
+        staged_bytes=[r["staged_bytes"] for r in gloo], card=repr(smi))
+    nccl, wall = worlds["nccl"]
+    say("mesh", world="nccl", ranks=1, device=nccl[0]["device"],
+        packets=f"{nccl[0]['fused'][0]}/{V2_PACKETS}",
+        equal_to_unsharded=True, launch_s=f"{wall:.2f}",
+        fused_wall_s=round(nccl[0]["fused_wall_s"], 4),
+        staged_bytes=nccl[0]["staged_bytes"],
+        launches=nccl[0]["launches"], card=repr(smi))
+
+
+def golden_phase(smi):
+    """golden: the JAX package's flight-rate tables (tests/golden/) through
+    the port's Receiver on the card, whole grids (wenet_tpu_torch/tools):
+    every row within 2 packets of the golden, the floor and above-cliff
+    rows, and the baud-error and shift envelope; counts zeroed before each
+    table and mode, read after."""
+    from wenet_tpu_torch.tools import load_golden, per_table
+    from wenet_tpu_torch.tools import robustness_table
+
+    for name, tool in (("per_table", per_table),
+                       ("robustness", robustness_table)):
+        for mode in ("v1", "v2"):
+            golden = load_golden(f"{name}_{mode}")
+            zero_receive_counts()
+            t0 = time.perf_counter()
+            table = tool.sweep(mode, device="cuda")
+            dt = time.perf_counter() - t0
+            counts = receive_counts()
+            bad = tool.violations(table, golden)
+            require(not bad, f"golden {name} {mode}: {bad}")
+            require(all(counts.values()), f"golden: launches {counts}")
+            say("golden", table=name, mode=mode, rows=len(table["rows"]),
+                packets_ok=[r["packets_ok"] for r in table["rows"]],
+                golden_packets_ok=[r["packets_ok"] for r in golden["rows"]],
+                wall_s=f"{dt:.3f}", launches=counts, card=repr(smi))
 
 
 def synthetic_jpeg(width, height, rng):
@@ -1928,8 +2136,8 @@ def main() -> int:
             bp_decode.launches = bp_decode.minsum_launches = 0
             t0 = time.perf_counter()
             gen = torch.Generator(device=dev).manual_seed(SEED)
-            r = sweep.ldpc_ber_sweep(SWEEP_EBNO_DB, STAGE_BATCH, gen, dev,
-                                     algo=algo)
+            r = sweep.ldpc_ber_sweep(SWEEP_EBNO_DB, STAGE_BATCH, gen,
+                                     device=dev, algo=algo)
             dt = time.perf_counter() - t0
             n = (bp_decode.launches if count == "bp_decode"
                  else bp_decode.minsum_launches)
@@ -2023,6 +2231,11 @@ def main() -> int:
         link_phase(cfg2, smi)
         flight = flight_phase(cfg2, tmp, smi)
         apps_phase(cfg2, *flight, tmp, smi)
+
+        # 16. the scale-out layer: ranks in processes of their own, each
+        # with its own launch counts; then the golden flight-rate tables
+        mesh_phase(cfg2, raw2, tmp, smi)
+        golden_phase(smi)
     main_launches["fsk_demod_probe"] = probe_m["launches"]
 
     sources = {

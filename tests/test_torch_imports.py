@@ -52,7 +52,11 @@ NEW_MODULES = ("wenet_tpu_torch.ops.ldpc_onehot, wenet_tpu_torch.ops.channel, "
                "wenet_tpu_torch.examples.sec_payload_rx, "
                "wenet_tpu_torch.tx.gps, wenet_tpu_torch.tx.ubx, "
                "wenet_tpu_torch.tx.pi_utils, wenet_tpu_torch.tx.camera, "
-               "wenet_tpu_torch.cli.flight")
+               "wenet_tpu_torch.cli.flight, "
+               # the scale-out layer
+               "wenet_tpu_torch.parallel.mesh, "
+               "wenet_tpu_torch.parallel.sharded_ldpc, "
+               "wenet_tpu_torch.parallel.dryrun")
 
 
 def test_port_imports_no_jax():

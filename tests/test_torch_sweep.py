@@ -103,7 +103,8 @@ def test_ldpc_ber_sweep_cliff(algo):
     assert r["ber"][1] == 0.0
     assert 1.0 <= r["mean_iters"][1] < r["mean_iters"][0] <= 10.0
     again = sweep.ldpc_ber_sweep(
-        [3.0, 8.0], 16, torch.Generator().manual_seed(0), "cpu", algo=algo)
+        [3.0, 8.0], 16, torch.Generator().manual_seed(0), device="cpu",
+        algo=algo)
     for k in ("ber", "fer", "mean_iters"):
         np.testing.assert_array_equal(again[k], r[k])
     with pytest.raises(ValueError):

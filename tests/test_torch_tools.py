@@ -65,7 +65,17 @@ NAMESPACES = CALLED + (
     "rx.telemetry_console", "rx.uploader", "rx.web", "rx.gui",
     "examples.link_emulation", "examples.rx_tester",
     "examples.sec_payload_rx", "tx.gps", "tx.ubx", "tx.pi_utils",
-    "tx.camera", "cli.flight")
+    "tx.camera", "cli.flight",
+    # the scale-out layer
+    "parallel.mesh", "parallel.sharded_ldpc")
+# the functions that take a mesh, and the JAX parameters they do not take
+# (the PRNG keys and XLA knobs of the TPU build)
+MESH_FUNCTIONS = ("parallel.sweep.ldpc_ber_sweep",
+                  "parallel.sweep.chain_per_sweep",
+                  "parallel.sweep.acquisition_search",
+                  "rx.pipeline.decode_iq_parallel",
+                  "rx.pipeline.decode_iq_fused")
+NOT_PORTED_PARAMS = {"key", "scan_unroll", "frames_per_step"}
 
 
 def _params(fn):
@@ -124,6 +134,23 @@ def test_namespaces_are_supersets_with_equal_values(name):
                 assert _same(x, y), key
         else:
             assert _same(value, other), key
+
+
+@pytest.mark.parametrize("name", MESH_FUNCTIONS,
+                         ids=[n.split(".")[-1] for n in MESH_FUNCTIONS])
+def test_mesh_functions_keep_the_jax_parameters(name):
+    """The JAX parameters that the port takes come in JAX's order with
+    JAX's defaults, `mesh=None` among them, and the port's `device=`
+    after `mesh`."""
+    module, fn = name.rsplit(".", 1)
+    jfn = getattr(importlib.import_module("wenet_tpu." + module), fn)
+    tfn = getattr(importlib.import_module("wenet_tpu_torch." + module), fn)
+    want = [(n, d) for n, d in _params(jfn) if n not in NOT_PORTED_PARAMS]
+    got = _params(tfn)
+    assert [(n, d) for n, d in got if n in dict(want)] == want
+    names = [n for n, _ in got]
+    assert dict(got)["mesh"] is None
+    assert names.index("device") > names.index("mesh")
 
 
 def test_framing_and_table_helpers_match():

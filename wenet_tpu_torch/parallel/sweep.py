@@ -8,7 +8,13 @@ trials and candidate offsets are lanes of one demod call
 device) followed by one batched UW search and decode.
 Random bits and noise come from an explicit `torch.Generator`, so a sweep
 is reproducible from its seed (not bit-for-bit the JAX package's draws).
-The device-mesh option of the JAX sweeps (`mesh=`) is not ported yet.
+
+With a `mesh=` (`parallel.mesh`; call SPMD, in every rank) the trials,
+codewords or offsets round up to a multiple of the mesh size, as JAX's
+do.  Every rank draws the whole padded batch from the same seeded
+generator and keeps its own rows, so an n-rank sweep equals the one-rank
+sweep of the padded count; counters are summed over the mesh as int64 and
+acquisition scores gathered in rank order.
 
 Soft bits of demod frames that fall past the capture end (`valid` False)
 are masked to zero before the UW correlation and the decode; the JAX
@@ -21,9 +27,9 @@ import torch
 
 from ..core import framing
 from ..core import ldpc_tables as T
-from ..device import resolve_device
 from ..ops import channel, deframe, fsk, ldpc
 from ..ops import crc as dcrc
+from .mesh import Mesh, mesh_device, shard_rows
 
 ALGOS = ("sum-product", "min-sum")
 
@@ -62,29 +68,43 @@ def ldpc_trial_counts(ibits: torch.Tensor, noise: torch.Tensor, ebno_db,
             iters.sum(dtype=torch.int64))
 
 
+def _padded(n: int, mesh: Mesh | None) -> int:
+    """n rounded up to a multiple of the mesh size (JAX's padding)."""
+    return n if mesh is None else -(-n // mesh.size) * mesh.size
+
+
+def _mesh_sum(counts: torch.Tensor, mesh: Mesh | None) -> np.ndarray:
+    """int64 counters summed over the mesh, on the host."""
+    return (counts if mesh is None else mesh.sum(counts)).cpu().numpy()
+
+
 def ldpc_ber_sweep(ebno_grid, n_cw_per_point: int,
-                   generator: torch.Generator | None = None, device="cuda",
+                   generator: torch.Generator | None = None,
+                   mesh: Mesh | None = None, device=None,
                    max_iter: int = T.MAX_ITER, algo: str = "sum-product"):
     """BER/FER vs Eb/N0 for H2064_516, `n_cw_per_point` codewords per
-    point in one decode batch.
+    point in one decode batch (with a mesh, rounded up to a multiple of its
+    size and split over its ranks).
 
     algo: "sum-product" (reference-exact) or "min-sum" (normalized, the
-    fast Monte-Carlo engine).  generator: a torch.Generator on `device`
-    (default: seeded 0).  Returns a dict: ebno_db, ber, fer, mean_iters
-    (numpy arrays) and n_codewords.
+    fast Monte-Carlo engine).  generator: a torch.Generator on the device
+    (default: seeded 0).  device: CUDA (the mesh rank's, with a mesh)
+    unless the caller names another.  Returns a dict: ebno_db, ber, fer,
+    mean_iters (numpy arrays) and n_codewords.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
     gen = _generator(generator, dev, 0)
     grid = np.atleast_1d(np.asarray(ebno_grid, np.float32))
-    n = n_cw_per_point
+    n = _padded(n_cw_per_point, mesh)
+    rows = shard_rows(n, mesh)
     counts = []
     for e in grid:
         ibits = torch.randint(0, 2, (n, T.N_DATA), generator=gen, device=dev,
                               dtype=torch.uint8)
         noise = torch.randn((n, T.CODE_LEN), generator=gen, device=dev)
-        counts.append(torch.stack(ldpc_trial_counts(ibits, noise, e, algo,
-                                                    max_iter)))
-    be, fe, it = torch.stack(counts).cpu().numpy().T
+        counts.append(torch.stack(ldpc_trial_counts(
+            ibits[rows], noise[rows], e, algo, max_iter)))
+    be, fe, it = _mesh_sum(torch.stack(counts), mesh).T
     return {"ebno_db": grid, "ber": be / (n * float(T.N_DATA)),
             "fer": fe / n, "mean_iters": it / n, "n_codewords": n}
 
@@ -158,48 +178,57 @@ def _frame_soft(cfg: fsk.FSKConfig, outs: fsk.FrameOut):
 
 def chain_per_sweep(cfg: fsk.FSKConfig, ebno_grid, trials_per_point: int,
                     payload: bytes | None = None, mode: str = "v2",
-                    generator: torch.Generator | None = None, device="cuda",
+                    generator: torch.Generator | None = None,
+                    mesh: Mesh | None = None, device=None,
                     max_iter: int = T.MAX_ITER):
     """Full-chain PER vs Eb/N0: mod -> AWGN -> demod -> UW -> BP -> CRC on
     the device, the trials of a point as lanes of one vmapped demod and
-    rows of one decode batch.  generator: on `device` (default: seeded
-    42).  Returns a dict: ebno_db, per, mean_iters, trials."""
-    dev = resolve_device(device)
+    rows of one decode batch (with a mesh, rounded up to a multiple of its
+    size and split over its ranks).  generator: on the device (default:
+    seeded 42).  device: CUDA (the mesh rank's, with a mesh) unless the
+    caller names another.  Returns a dict: ebno_db, per, mean_iters,
+    trials."""
+    dev = mesh_device(device, mesh)
     gen = _generator(generator, dev, 42)
     payload = bytes(range(256)) if payload is None else payload
     sig, var = make_single_packet_stream(cfg, payload, mode)
     sig_t = torch.from_numpy(sig).to(dev)
     nf = cfg.num_frames(len(sig))
-    trials = trials_per_point
+    trials = _padded(trials_per_point, mesh)
+    rows = shard_rows(trials, mesh)
     grid = np.atleast_1d(np.asarray(ebno_grid, np.float32))
-    per, mean_iters = [], []
+    counts = []
     for e in grid:
         iq = channel.add_awgn_torch(sig_t.expand(trials, -1), float(e),
                                     cfg.Fs, cfg.Rs, var, gen)
-        _, outs = fsk.demod_lanes(cfg, iq, nf)
+        _, outs = fsk.demod_lanes(cfg, iq[rows].contiguous(), nf)
         soft, valid = _frame_soft(cfg, outs)
         ok, iters = _uw_window_decode(cfg, soft, mode, max_iter, valid)
-        per.append(1.0 - ok.float().mean())
-        mean_iters.append(iters.float().mean())
-    per, mean_iters = torch.stack(per).cpu(), torch.stack(mean_iters).cpu()
-    return {"ebno_db": grid, "per": per.double().numpy(),
-            "mean_iters": mean_iters.double().numpy(), "trials": trials}
+        counts.append(torch.stack([ok.sum(dtype=torch.int64),
+                                   iters.sum(dtype=torch.int64)]))
+    nok, it = _mesh_sum(torch.stack(counts), mesh).T
+    return {"ebno_db": grid, "per": 1.0 - nok / trials,
+            "mean_iters": it / trials, "trials": trials}
 
 
 # -------------------------------------------------- coarse acquisition search
 
 
 def acquisition_search(cfg: fsk.FSKConfig, iq, offsets_hz, mode: str = "v2",
-                       probe_frames: int | None = None, device="cuda"):
+                       probe_frames: int | None = None,
+                       mesh: Mesh | None = None, device=None):
     """Coarse frequency-offset acquisition over a candidate grid.
 
     For a capture whose tones sit outside the demod estimator's band: mix
     the probe span down by each candidate offset, demodulate all candidates
     as lanes of one vmapped demod, and score each by the strongest UW
-    correlation of its hard bits.  Returns (best offset in Hz, scores
-    ndarray aligned with offsets_hz); ties go to the first candidate.
+    correlation of its hard bits.  With a mesh the grid, padded to a
+    multiple of its size by repeating it (`np.resize`, as JAX pads), splits
+    over its ranks.  device: CUDA (the mesh rank's, with a mesh) unless the
+    caller names another.  Returns (best offset in Hz, scores ndarray
+    aligned with offsets_hz); ties go to the first candidate.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
     offsets = np.atleast_1d(np.asarray(offsets_hz, np.float32))
     uw, syms_pp = _uw_params(mode)
     # default probe: two packet lengths + estimator warmup, so at least one
@@ -209,7 +238,9 @@ def acquisition_search(cfg: fsk.FSKConfig, iq, offsets_hz, mode: str = "v2",
     npad = nf * cfg.N + cfg.Nmem + cfg.Ts
     probe = torch.as_tensor(np.asarray(iq, np.complex64)[:npad], device=dev)
     n = torch.arange(probe.shape[0], dtype=torch.float32, device=dev)
-    off = torch.as_tensor(offsets, device=dev)
+    grid = np.resize(offsets, _padded(len(offsets), mesh))
+    rows = shard_rows(len(grid), mesh)
+    off = torch.as_tensor(grid[rows], device=dev)
     # wrapped fractional phase in float32, as the JAX search computes it
     frac = fsk._fmod_floor(off / cfg.Fs, 1.0)
     ph = fsk._fmod_floor(n[None, :] * frac[:, None], 1.0) * np.float32(
@@ -218,5 +249,8 @@ def acquisition_search(cfg: fsk.FSKConfig, iq, offsets_hz, mode: str = "v2",
     _, outs = fsk.demod_lanes(cfg, mixed, nf)
     soft, valid = _frame_soft(cfg, outs)
     hard = torch.where(valid, torch.where(soft < 0, -1.0, 1.0), 0.0)
-    scores = _uw_correlation(hard, uw).amax(dim=1).cpu().numpy()
+    scores = _uw_correlation(hard, uw).amax(dim=1)
+    if mesh is not None:
+        scores = mesh.gather(scores)
+    scores = scores.cpu().numpy()[:len(offsets)]
     return float(offsets[int(np.argmax(scores))]), scores

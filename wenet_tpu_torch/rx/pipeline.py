@@ -19,6 +19,7 @@ import torch
 from ..core import framing
 from ..device import resolve_device
 from ..ops import deframe, fsk
+from ..parallel.mesh import Mesh, mesh_device, shard_rows
 from .stats import receiver_stats_record  # noqa: F401  (its home is rx.stats)
 
 MODE_CONFIGS = {
@@ -275,18 +276,24 @@ def _host_tensor(a: np.ndarray) -> torch.Tensor:
 def decode_iq_parallel(iq: np.ndarray, mode: str = "v2",
                        cfg: fsk.FSKConfig | None = None, n_chunks: int = 8,
                        warmup_frames: int = 8, max_iter: int = 10,
-                       input_format: str = "c64", device="cuda"):
+                       mesh: Mesh | None = None, input_format: str = "c64",
+                       device=None):
     """Overlap-save capture decode: the capture is cut into `n_chunks`
     chunks, each with a halo of `warmup_frames` estimator frames and one
     packet length before it and a flush tail after it, demodulated as
     lanes of one demod call; the host finds every UW correlation hit of
     every chunk and decodes all their windows as one batch on `device`
-    (CUDA unless the caller asks for another; raises without a card);
-    duplicates from the overlaps are dropped by (content, global bit
-    position).  `wenet_tpu/rx/pipeline.py::decode_iq_parallel` without
-    its `mesh=`.
+    (CUDA, or the mesh rank's, unless the caller names another; raises
+    without a card); duplicates from the overlaps are dropped by (content,
+    global bit position).  As `wenet_tpu/rx/pipeline.py::decode_iq_parallel`.
+
+    mesh: the chunk lanes split over the mesh's first axis (n_chunks must
+    divide by its size; call SPMD, in every rank): each rank demodulates
+    its lanes, the soft bits and validity are gathered in rank order, and
+    the acquisition and the decode batch run in every rank, which all
+    return the unsharded call's list.
     """
-    device = resolve_device(device)
+    device = mesh_device(device, mesh)
     cfg = MODE_CONFIGS[mode] if cfg is None else cfg
     if input_format == "cu8":
         raw = np.asarray(iq, np.uint8)
@@ -306,11 +313,18 @@ def decode_iq_parallel(iq: np.ndarray, mode: str = "v2",
         buf = np.zeros(n + chunk_len, np.complex64)
         buf[:n] = iq
         pairs, fmt = buf.view(np.float32).reshape(-1, 2), "c64"
+    axis = None if mesh is None else mesh.axis_names[0]
+    mine = shard_rows(n_chunks, mesh, axis)
     _, outs = fsk.demod_raw(
         cfg, torch.from_numpy(pairs).to(device), fmt, nf,
-        torch.as_tensor(starts, dtype=torch.int64, device=device),
-        torch.full((n_chunks,), chunk_len, dtype=torch.int64, device=device))
-    soft_all, valid_all = outs.soft.cpu().numpy(), outs.valid.cpu().numpy()
+        torch.as_tensor(starts[mine], dtype=torch.int64, device=device),
+        torch.full((len(starts[mine]),), chunk_len, dtype=torch.int64,
+                   device=device))
+    soft_all, valid_all = outs.soft, outs.valid
+    if mesh is not None:
+        soft_all = mesh.gather(soft_all, axis)
+        valid_all = mesh.gather(valid_all.to(torch.uint8), axis).bool()
+    soft_all, valid_all = soft_all.cpu().numpy(), valid_all.cpu().numpy()
 
     all_windows, metas = [], []
     for k in range(n_chunks):
@@ -494,26 +508,38 @@ def decode_iq_fused(raw: np.ndarray, mode: str = "v2",
                     cfg: fsk.FSKConfig | None = None, n_chunks: int = 16,
                     warmup_frames: int = 8, max_iter: int = 10,
                     input_format: str = "cu8", k_per_chunk: int | None = None,
-                    device="cuda"):
+                    mesh: Mesh | None = None, device=None):
     """Whole-capture decode in one device step: raw samples -> CRC-valid
-    payloads, as `wenet_tpu/rx/pipeline.py::decode_iq_fused` (without its
-    `mesh=`).
+    payloads, as `wenet_tpu/rx/pipeline.py::decode_iq_fused`.
 
     One host-to-device copy of the raw bytes; the chunks demodulate as
     lanes of the frame-loop kernel straight out of that buffer, deframe
     on the device (`deframe.deframe_topk`: top-k UW picks per chunk, one
     BP batch, CRC), and one device-to-host copy of the packed results;
     the host only dedups by (content, global bit position).  device: CUDA
-    unless the caller asks for another; raises without a card.
+    (the mesh rank's, with a mesh) unless the caller names another; raises
+    without a card.
+
+    mesh: the chunks split over the mesh's first axis (n_chunks must
+    divide by its size; call SPMD, in every rank, with the same bytes):
+    each rank runs the fused step on its chunks over the whole capture,
+    the packed results are gathered in rank order (a rank that found no
+    packet still sends its fixed-shape rows), and every rank returns the
+    unsharded call's list.
     """
-    device = resolve_device(device)
+    device = mesh_device(device, mesh)
     cfg = MODE_CONFIGS[mode] if cfg is None else cfg
     data, n, fmt = _normalize_fused_input(raw, input_format)
     syms_pp, chunk_len, starts, skips = _fused_geometry(
         cfg, mode, n, n_chunks, warmup_frames)
     k = k_per_chunk or _k_default(chunk_len, cfg, syms_pp)
-    step = _FusedStep(cfg, mode, fmt, chunk_len, starts, k, max_iter, device)
-    packed = step(_host_tensor(data).to(device), step.lanes(skips))
+    axis = None if mesh is None else mesh.axis_names[0]
+    mine = shard_rows(n_chunks, mesh, axis)
+    step = _FusedStep(cfg, mode, fmt, chunk_len, starts[mine], k, max_iter,
+                      device)
+    packed = step(_host_tensor(data).to(device), step.lanes(skips[mine]))
+    if mesh is not None:
+        packed = mesh.gather(packed, axis)
     return _dedup_payloads(_unpack_fused(packed.cpu().numpy(), starts, cfg),
                            syms_pp)
 
