@@ -83,6 +83,15 @@ rank launching the four receive kernels, and one NCCL rank runs
 decode_iq_fused with its gather through NCCL; and the JAX package's
 golden flight-rate tables (`golden`: tests/golden/, every row within
 two packets, the cliff and the envelope) through the port's Receiver.
+The host runtime (`native`): the C UW FSM of csrc/deframe_fsm.c, built
+with the host C compiler beside the kernels, against its numpy version
+(positions and final buffers exact) on the v2 and v1 captures, whole and
+across the Receiver's 2-s pushes, and on each wideband channel (the
+false lock in both), each FSM's ms per Msymbol, and the Receiver and the
+wideband FSM modes re-timed beside the numpy FSM's earlier figures; and
+the deploy script (`deploy`): wenet_tpu_torch/deploy/start_rx.sh with a fake
+rtl_sdr at the v1 and v2 flight rates, its rtl_sdr arguments and the
+router's image equal to an in-process Receiver's on the same bytes.
 Each phase prints one line (the receive paths their Msamples/s beside
 real time); any failed check raises, so the script exits non-zero before
 its last line.  The last three lines are a JSON object with the kernels'
@@ -98,7 +107,9 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -172,6 +183,25 @@ MESH_RANKS = 2                # mesh: gloo ranks sharing the card
 MESH_CHAIN_DB, MESH_CHAIN_TRIALS = [4.0, 20.0], 8   # chain_per_sweep
 MESH_BER_DB, MESH_BER_CODEWORDS = [2.5, 3.5], 2048  # ldpc_ber_sweep
 MESH_BP = (128, 2.5)          # decode_sharded: codewords, Es/N0 dB; tp = 2
+# native: PERF.md section 5's earlier figures of the numpy UW FSM (measured
+# on one NVIDIA H100 80GB HBM3 at 700.00 W), printed beside this run's
+# rates under the C FSM: (Msamples/s, demod_share, deframe_share), None
+# where PERF.md has no figure
+NUMPY_FSM_RATES = {"receiver_v2": (31.8650, 0.483, 0.515),
+                   "receiver_v1": (35.3828, None, None),
+                   "wideband_vectorized": (48.6092, None, None),
+                   "wideband_receiver": (24.5960, None, None)}
+FSM_REPS = 5                  # native: timed calls of each UW FSM
+PUSH_SECONDS = 2.0            # native: the Receiver's push, in seconds
+DEPLOY_IMAGE = (160, 128)     # deploy: the SSDV image's width, height
+# deploy: start_rx.sh's environment at each flight rate (the script's
+# defaults are v1's 115177 Bd x 8)
+DEPLOY_SETTINGS = (("v1", {}),
+                   ("v2", {"BAUD_RATE": "96000", "OVERSAMPLING": "10"}))
+DEPLOY_RXFREQ = 443500000     # start_rx.sh's default centre frequency
+DEPLOY_UNSET = ("MYCALL", "RXFREQ", "GAIN", "BIAS", "BAUD_RATE",
+                "OVERSAMPLING", "FRAMING_MODE", "DEVICE", "RX_DEVICE",
+                "RX_FLOW")    # start_rx.sh's variables, left at its defaults
 
 
 def require(ok, msg: str):
@@ -958,6 +988,328 @@ def golden_phase(smi):
                 wall_s=f"{dt:.3f}", launches=counts, card=repr(smi))
 
 
+def forced_fsm(force_numpy, log=None):
+    """A stand-in for ops.deframe.uw_detect_positions that always takes
+    the C FSM (force_numpy=False) or its numpy version, whatever its
+    caller asks, appending (symbols, positions, final buffer) of each call
+    to log."""
+    from wenet_tpu_torch.ops import deframe
+    real = deframe.uw_detect_positions
+
+    def fsm(hard, mode, init=None, **_):
+        pos, final = real(hard, mode, init, force_numpy=force_numpy)
+        if log is not None:
+            log.append((len(hard), pos.tolist(), final.tolist()))
+        return pos, final
+    return fsm
+
+
+def fsm_pushes(chunks, mode, force_numpy, dev):
+    """A StreamDeframer on dev fed chunks, its UW FSM forced to C or
+    numpy: (each FSM call's (symbols, positions, final buffer), payloads)."""
+    from wenet_tpu_torch.ops import deframe
+    log = []
+    with mock.patch.object(deframe, "uw_detect_positions",
+                           forced_fsm(force_numpy, log)):
+        d = deframe.StreamDeframer(mode, device=dev)
+        got = [p for c in chunks for p in d.push(c)]
+    return log, got
+
+
+def fsm_vs_plain(label, mode, chunks, dev):
+    """The C UW FSM against its numpy version on one soft stream: the
+    whole stream's positions and final buffer exact, and across the
+    pushes of chunks (the final buffer carried) every call's; -> (whole
+    positions, payloads of the pushes)."""
+    from wenet_tpu_torch.ops import deframe
+    hard = (np.concatenate(chunks) < 0).astype(np.uint8)
+    pc, fc = deframe.uw_detect_positions(hard, mode)
+    pn, fn = deframe.uw_detect_positions(hard, mode, force_numpy=True)
+    require(np.array_equal(pc, pn) and np.array_equal(fc, fn),
+            f"native {label}: the C FSM's whole-stream positions or final "
+            f"buffer differ from numpy's ({len(pc)} / {len(pn)})")
+    log_c, got_c = fsm_pushes(chunks, mode, False, dev)
+    log_n, got_n = fsm_pushes(chunks, mode, True, dev)
+    require(log_c == log_n and got_c == got_n,
+            f"native {label}: the pushes' positions, buffers or payloads "
+            "differ between the C and numpy FSMs")
+    return pc, got_c
+
+
+def native_phase(cfg1, cfg2, raw1, raw2, wide, fs_w, wide_out, dev, smi):
+    """native: the C UW FSM (`wenet_tpu_torch.native`, csrc/deframe_fsm.c)
+    against its numpy version, positions and final buffers exact, on the
+    hard bits of the v2 and v1 flight captures (whole, and across the
+    Receiver's 2-s pushes with the buffer carried) and of each wideband
+    channel (the false lock of WIDE_FALSE_LOCK in both: the FSM modes keep
+    one packet fewer than top-k there); each FSM's ms per Msymbol; then
+    Receiver v2 and v1 and the wideband vectorized and per-Receiver modes
+    re-timed under the C FSM, and under the numpy FSM in the same call,
+    each beside NUMPY_FSM_RATES."""
+    import torch
+    from wenet_tpu_torch import native
+    from wenet_tpu_torch.ops import channelizer, deframe
+    from wenet_tpu_torch.rx import pipeline
+
+    lib = native.load()
+    require(lib is not None, "native: no library")
+    out = {"build_s": native.build_seconds,
+           "library": os.path.relpath(native.library_path(), ROOT)}
+    for mode, cfg, raw in (("v2", cfg2, raw2), ("v1", cfg1, raw1)):
+        chunks = []
+        push = deframe.StreamDeframer.push
+
+        def record(self, soft, push=push):
+            chunks.append(np.array(soft, np.float32))
+            return push(self, soft)
+        with mock.patch.object(deframe.StreamDeframer, "push", record):
+            got, _, _ = run_receiver(cfg, mode, raw)
+        pos, got_c = fsm_vs_plain(mode, mode, chunks, dev)
+        require(got_c == got, f"native {mode}: the pushes' payloads differ "
+                "from the Receiver's")
+        # a quarter of the push as well, so that the buffer is carried
+        # across pushes in a capture shorter than two of them
+        soft = np.concatenate(chunks)
+        step = int(PUSH_SECONDS / 4 * cfg.Rs)
+        fsm_vs_plain(f"{mode} quarter pushes", mode,
+                     [soft[i:i + step] for i in range(0, len(soft), step)],
+                     dev)
+        hard = (soft < 0).astype(np.uint8)
+        ms = {}
+        for name, force in (("c", False), ("numpy", True)):
+            walls = []
+            for _ in range(FSM_REPS):
+                t0 = time.perf_counter()
+                deframe.uw_detect_positions(hard, mode, force_numpy=force)
+                walls.append(time.perf_counter() - t0)
+            ms[name] = float(np.median(walls)) * 1e3 / (len(hard) / 1e6)
+        out[f"fsm_ms_per_msymbol_{mode}"] = ms
+        say("native", stream=f"{mode}_flight", symbols=len(hard),
+            pushes=len(chunks), quarter_pushes=-(-len(soft) // step),
+            detections=len(pos), payloads=len(got),
+            exact=True, c_ms_per_msymbol=f"{ms['c']:.4f}",
+            numpy_ms_per_msymbol=f"{ms['numpy']:.4f}",
+            timing=f"host clock, median of {FSM_REPS}", card=repr(smi))
+
+    # the wideband channels' soft streams, as the vectorized mode hands
+    # them to deframe_soft
+    streams = []
+    real_soft = deframe.deframe_soft
+
+    def keep(soft, *a, **k):
+        streams.append(np.array(soft, np.float32))
+        return real_soft(soft, *a, **k)
+    with mock.patch.object(deframe, "deframe_soft", keep):
+        vec = channelizer.demod_multichannel(wide, fs_w, WIDE_CHANNELS,
+                                             cfg2, device=dev)
+    require(vec == wide_out["vectorized"], "native: the vectorized mode's "
+            "lists changed between calls")
+    lock_c, _ = WIDE_FALSE_LOCK
+    step = int(PUSH_SECONDS * cfg2.Rs)
+    counts = {}
+    for c, soft in enumerate(streams):
+        pieces = [soft[i:i + step] for i in range(0, len(soft), step)]
+        _, got_c = fsm_vs_plain(f"wideband channel {c}", "v2", pieces, dev)
+        with mock.patch.object(deframe, "uw_detect_positions",
+                               forced_fsm(True)):
+            got_n = deframe.deframe_soft(soft, "v2", device=dev).payloads
+        got_w = deframe.deframe_soft(soft, "v2", device=dev).payloads
+        require(got_w == got_n == got_c == vec[c],
+                f"native: wideband channel {c}: the C and numpy FSMs' "
+                "payloads differ")
+        counts[c] = (len(got_w), len(got_n), len(wide_out["fused"][c]))
+    require(counts[lock_c][:2] == (WIDE_PACKETS - 1,) * 2
+            and counts[lock_c][2] == WIDE_PACKETS,
+            f"native: channel {lock_c}'s false lock: {counts[lock_c]}")
+    say("native", stream="wideband_channels", channels=len(streams),
+        symbols=[len(x) for x in streams], exact=True,
+        packets_c_numpy_topk=counts, false_lock=WIDE_FALSE_LOCK,
+        card=repr(smi))
+
+    # the paths the FSM sits on, re-timed: Receiver (its own seconds), the
+    # vectorized mode (demod: from the call to its first deframe; deframe:
+    # inside deframe_soft) and the per-Receiver mode (its Receivers'
+    # seconds summed); each under the C FSM, then in the same call under
+    # the numpy FSM (the port's path before the C FSM)
+    marks = {"first": None, "deframe": 0.0}
+
+    def timed(soft, *a, **k):
+        t0 = time.perf_counter()
+        if marks["first"] is None:
+            marks["first"] = t0
+        res = real_soft(soft, *a, **k)
+        marks["deframe"] += time.perf_counter() - t0
+        return res
+    made = []
+
+    class Counted(pipeline.Receiver):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+    rates = {}
+    for fsm_name, force in (("c", False), ("numpy", True)):
+        with mock.patch.object(deframe, "uw_detect_positions",
+                               forced_fsm(force)):
+            for mode, cfg, raw in (("v2", cfg2, raw2), ("v1", cfg1, raw1)):
+                _, dt, rx = run_receiver(cfg, mode, raw)
+                rates[f"receiver_{mode}", fsm_name] = (
+                    len(raw) // 2 / dt / 1e6, rx.seconds["demod"] / dt,
+                    rx.seconds["deframe"] / dt)
+            for name, kw in (("wideband_vectorized", {}),
+                             ("wideband_receiver", {"vectorized": False})):
+                marks.update(first=None, deframe=0.0)
+                made.clear()
+                with mock.patch.object(deframe, "deframe_soft", timed), \
+                        mock.patch.object(pipeline, "Receiver", Counted):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = channelizer.demod_multichannel(
+                        wide, fs_w, WIDE_CHANNELS, cfg2, device=dev, **kw)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                require(got == wide_out["vectorized"],
+                        f"native {name} ({fsm_name} FSM): lists differ")
+                if made:
+                    demod = sum(r.seconds["demod"] for r in made)
+                    defr = sum(r.seconds["deframe"] for r in made)
+                else:
+                    demod, defr = marks["first"] - t0, marks["deframe"]
+                rates[name, fsm_name] = (len(wide) / dt / 1e6, demod / dt,
+                                         defr / dt)
+    keys = ("msps", "demod_share", "deframe_share")
+    for name, before in NUMPY_FSM_RATES.items():
+        msps, dshare, fshare = rates[name, "c"]
+        say("native", path=name, msps=f"{msps:.4f}",
+            demod_share=f"{dshare:.3f}", deframe_share=f"{fshare:.3f}",
+            numpy_fsm_same_call={k: round(v, 4) for k, v in
+                                 zip(keys, rates[name, "numpy"])},
+            earlier_numpy_fsm=dict(zip(keys, before)), card=repr(smi))
+    out["rates"] = rates
+    say("native", fsm_build_s=(f"{out['build_s']:.3f}" if out["build_s"]
+                               is not None else "built earlier"),
+        library=out["library"], compiler=native.compiler(), card=repr(smi))
+    return out
+
+
+def deploy_phase(tmp, smi):
+    """deploy: wenet_tpu_torch/deploy/start_rx.sh, as an operator starts
+    it (HEADLESS=1, IMAGE_DIR and LOG_DIR in tmp), with a fake rtl_sdr on
+    PATH that records its argv and writes a cu8 capture of one SSDV image
+    at each flight rate of DEPLOY_SETTINGS: exit 0, rtl_sdr asked for the
+    script's rate and the tuning formula's frequency, and the router's
+    record of the image (its .bin: the SSDV payloads as received; its
+    .jpg: their decode) equal to what a Receiver on the card gives on the
+    same bytes in this process, with fsk_demod, bp_decode and crc_pack
+    launched (counts zeroed before, read after).  The settings' scripts
+    run at once, beside this process's Receivers.  The capture carries
+    SSDV packets only: the router broadcasts telemetry on the LAN."""
+    import glob
+    import shutil
+    from wenet_tpu_torch import ssdv
+    from wenet_tpu_torch.core import packets as wp
+    from wenet_tpu_torch.ops import fsk
+
+    rng = np.random.default_rng(SEED + 13)
+    jpg = synthetic_jpeg(*DEPLOY_IMAGE, rng)
+    pkts = ssdv.encode(jpg, "VK5QI", 9, 6)
+    want_jpg = ssdv.decode(pkts)
+    script = os.path.join(ROOT, "wenet_tpu_torch", "deploy", "start_rx.sh")
+    fake = os.path.join(tmp, "deploy_bin")
+    os.makedirs(fake, exist_ok=True)
+    with open(os.path.join(fake, "rtl_sdr"), "w") as fh:
+        fh.write('#!/bin/sh\nprintf "%s\\n" "$@" > "$FAKE_RTL_ARGV"\n'
+                 'exec cat "$FAKE_RTL_CAPTURE"\n')
+    os.chmod(os.path.join(fake, "rtl_sdr"), 0o755)
+    # the script's python3 is this interpreter
+    with open(os.path.join(fake, "python3"), "w") as fh:
+        fh.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(os.path.join(fake, "python3"), 0o755)
+    # both settings' scripts run at once, each in a thread of its own,
+    # while this process runs its Receivers on the same bytes
+    runs = []
+    for mode, env_mode in DEPLOY_SETTINGS:
+        baud = int(env_mode.get("BAUD_RATE", 115177))
+        over = int(env_mode.get("OVERSAMPLING", 8))
+        cfg = fsk.FSKConfig(Fs=baud * over, Rs=baud)
+        raw = make_capture(cfg, mode, pkts, EBNO_DB, rng)
+        cap = os.path.join(tmp, f"deploy_{mode}.cu8")
+        raw.tofile(cap)
+        img, logs = (os.path.join(tmp, f"deploy_{mode}_{d}")
+                     for d in ("img", "logs"))
+        argv_path = os.path.join(tmp, f"deploy_{mode}.argv")
+        # the script's own defaults but for env_mode and the directories
+        env = {k: v for k, v in os.environ.items() if k not in DEPLOY_UNSET}
+        env.update(env_mode, HEADLESS="1", IMAGE_DIR=img, LOG_DIR=logs,
+                   PATH=fake + os.pathsep + os.environ.get("PATH", ""),
+                   PYTHONPATH=ROOT + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""),
+                   FAKE_RTL_ARGV=argv_path, FAKE_RTL_CAPTURE=cap)
+        run = {"mode": mode, "baud": baud, "over": over, "cfg": cfg,
+               "raw": raw, "img": img, "logs": logs, "argv": argv_path,
+               "env": env}
+
+        def launch(run=run):
+            t0 = time.perf_counter()
+            run["proc"] = subprocess.run(
+                ["bash", script], cwd=tmp, env=run["env"],
+                capture_output=True, text=True, timeout=600,
+                stdin=subprocess.DEVNULL)
+            run["wall"] = time.perf_counter() - t0
+        run["thread"] = threading.Thread(target=launch)
+        run["thread"].start()
+        runs.append(run)
+    for run in runs:
+        mode, cfg = run["mode"], run["cfg"]
+        zero_receive_counts()
+        got, dt_rx, _ = run_receiver(cfg, mode, run["raw"])
+        counts = receive_counts()
+        require(all(counts.values()), f"deploy {mode}: launches {counts}")
+        require(got == pkts, f"deploy {mode}: the Receiver gave {len(got)} "
+                f"of {len(pkts)} packets")
+        run.update(got=got, dt_rx=dt_rx, counts=counts)
+    for run in runs:
+        run["thread"].join()
+    for run in runs:
+        mode, baud, over, proc = (run[k] for k in ("mode", "baud", "over",
+                                                   "proc"))
+        img, logs, got = run["img"], run["logs"], run["got"]
+        require(proc.returncode == 0,
+                f"deploy {mode}: start_rx.sh exit {proc.returncode}: "
+                f"{proc.stderr[-3000:]}")
+        with open(run["argv"]) as fh:
+            argv = fh.read().split()
+        freq = int(DEPLOY_RXFREQ - baud * (over / 4.0 - 0.25))
+        require(argv == ["-d", "0", "-s", str(baud * over), "-f", str(freq),
+                         "-"], f"deploy {mode}: rtl_sdr argv {argv}")
+        line = proc.stderr.strip().splitlines()[-1]
+        require(f"crc_ok={len(pkts)} images=1" in line
+                and f"device={run['env'].get('RX_DEVICE', 'cuda')}" in line,
+                f"deploy {mode}: {line}")
+        bins = glob.glob(os.path.join(img, "*_VK5QI_9.bin"))
+        jpgs = glob.glob(os.path.join(img, "*_VK5QI_9.jpg"))
+        require(len(bins) == len(jpgs) == 1, f"deploy {mode}: images "
+                f"{sorted(os.listdir(img))}")
+        with open(bins[0], "rb") as fh:
+            require(fh.read() == b"".join(
+                p for p in got if wp.decode_packet_type(p)
+                == wp.PacketType.SSDV),
+                f"deploy {mode}: the router's packets differ from the "
+                "Receiver's")
+        with open(jpgs[0], "rb") as fh:
+            require(fh.read() == want_jpg, f"deploy {mode}: image differs")
+        require(os.path.isdir(logs) and not os.listdir(logs),
+                f"deploy {mode}: logs {os.listdir(logs)}")
+        decode_s = line.split("wall=")[1].split("s")[0]
+        say("deploy", mode=mode, baud=baud, oversampling=over,
+            sdr_rate=baud * over, freq=freq, packets=f"{len(got)}/"
+            f"{len(pkts)}", image_equal=True, samples=len(run["raw"]) // 2,
+            process_wall_s=f"{run['wall']:.2f}", decode_s=decode_s,
+            concurrent_processes=len(runs),
+            receiver_wall_s=f"{run['dt_rx']:.3f}", launches=run["counts"],
+            stderr=repr(line), card=repr(smi))
+    shutil.rmtree(fake)
+
+
 def synthetic_jpeg(width, height, rng):
     """A baseline 4:2:0 JPEG made by the port's own writer from random
     low-order coefficients (no Pillow on the card)."""
@@ -1022,7 +1374,8 @@ def flight_phase(cfg, tmp, smi):
     also pushed through a Receiver here, counts zeroed before and read
     after, with the same payloads.  `wenet_tpu_torch.cli.flight` and
     `wenet_tpu_torch.tx.camera` import, and `python -m wenet_tpu_torch
-    flight --help` exits 0, on this machine without Pillow."""
+    flight --help` (run beside the rx process) exits 0, with or without
+    Pillow on the machine."""
     import glob
     import importlib
     from wenet_tpu_torch.core import packets as wp
@@ -1041,8 +1394,14 @@ def flight_phase(cfg, tmp, smi):
             f"flight: the Receiver gave {len(got)} of {len(sent)} payloads")
     logs, img_dir = os.path.join(tmp, "flight_logs"), \
         os.path.join(tmp, "flight_img")
+    helped = {}
+    help_thread = threading.Thread(target=lambda: helped.update(
+        zip(("rc", "err", "s"), run_module("flight", "--help",
+                                           timeout=120))))
+    help_thread.start()
     rc, line, err, dt_cli = run_cli(path, "--mode", "v2", "--log-dir", logs,
                                     "--image-dir", img_dir, fmt="c64")
+    help_thread.join()
     require(rc == 0, f"flight: rx exit {rc}: {err}")
 
     def log(kind):
@@ -1067,7 +1426,7 @@ def flight_phase(cfg, tmp, smi):
                 "ssdv.decode of the packets sent")
     for name in ("wenet_tpu_torch.cli.flight", "wenet_tpu_torch.tx.camera"):
         importlib.import_module(name)
-    help_rc, help_err, help_s = run_module("flight", "--help", timeout=120)
+    help_rc, help_err, help_s = helped["rc"], helped["err"], helped["s"]
     require(help_rc == 0, f"flight --help exit {help_rc}: {help_err}")
     try:
         import PIL  # noqa: F401
@@ -1211,7 +1570,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     sys.path.insert(0, ROOT)
-    from wenet_tpu_torch import kernels
+    from wenet_tpu_torch import kernels, native
     from wenet_tpu_torch.core import framing
     from wenet_tpu_torch.kernels import bp_decode, bp_onehot, fsk_demod
     from wenet_tpu_torch.kernels import channelize as kchan
@@ -1237,8 +1596,14 @@ def main() -> int:
     names = ("bp_decode", "bp_onehot", "fsk_demod", "crc_pack",
              "deframe_topk", "channelize")
     kernels.build(*names)
-    say("build", kernels=",".join(names),
-        seconds=f"{time.perf_counter() - t0:.2f}", nvcc=kernels.nvcc_path())
+    build_s = time.perf_counter() - t0
+    # the host runtime's C UW FSM, built with the host C compiler
+    native.load()
+    say("build", kernels=",".join(names), seconds=f"{build_s:.2f}",
+        nvcc=kernels.nvcc_path(), fsm_library=os.path.basename(
+            native.library_path()), fsm_build_s=(
+            f"{native.build_seconds:.3f}" if native.build_seconds
+            is not None else "built earlier"), cc=native.compiler())
     for name, log in kernels.build_logs.items():
         regs = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
@@ -2036,6 +2401,11 @@ def main() -> int:
     for name in ("channelize", "deframe_topk", "crc_pack"):
         main_launches[name] = wide_counts["fused"][name]
 
+    # 8e. the host runtime: the C UW FSM against its numpy version on the
+    # flight captures and the wideband channels, and the paths it sits on
+    # re-timed
+    native_phase(cfg1, cfg2, raw1, raw2, wide, fs_w, wide_out, dev, smi)
+
     with tempfile.TemporaryDirectory() as tmp:
         # 9. CLI on the v2 capture: streaming, --parallel, --slabs
         path = os.path.join(tmp, "smoke_v2.cu8")
@@ -2231,6 +2601,9 @@ def main() -> int:
         link_phase(cfg2, smi)
         flight = flight_phase(cfg2, tmp, smi)
         apps_phase(cfg2, *flight, tmp, smi)
+        # the port's deploy script, as a station runs it, at both flight
+        # rates
+        deploy_phase(tmp, smi)
 
         # 16. the scale-out layer: ranks in processes of their own, each
         # with its own launch counts; then the golden flight-rate tables

@@ -83,14 +83,16 @@ def test_decode_windows_matches_jax(mode):
     assert okt[:3].all() and not okt[-2:].any()
 
 
+@pytest.mark.parametrize("port_numpy", [False, True],
+                         ids=["port_c_fsm", "port_numpy_fsm"])
 @pytest.mark.parametrize("force_numpy", [False, True],
                          ids=["jax_c_fsm", "jax_numpy_fsm"])
 @pytest.mark.parametrize("mode", ["v1", "v2"])
-def test_uw_fsm_matches_jax(mode, force_numpy):
-    """The port's numpy UW FSM against the JAX package's C FSM and its numpy
-    FSM: positions and final bit buffer exact, on clean and noisy streams
-    (the noisy ones trigger near-UW hits right after a packet) and from a
-    non-zero initial buffer."""
+def test_uw_fsm_matches_jax(mode, force_numpy, port_numpy):
+    """The port's UW FSMs (C and numpy) against the JAX package's C FSM and
+    its numpy FSM: positions and final bit buffer exact, on clean and noisy
+    streams (the noisy ones trigger near-UW hits right after a packet) and
+    from a non-zero initial buffer."""
     rng = np.random.default_rng(7)
     nuw = len(jdeframe._mode_params(mode)[0])
     for sigma, seed in ((0.3, 21), (0.75, 22), (1.1, 23)):
@@ -99,7 +101,8 @@ def test_uw_fsm_matches_jax(mode, force_numpy):
         for init in (None, rng.integers(0, 2, nuw).astype(np.int8)):
             pj, fj = jdeframe.uw_detect_positions(hard, mode, init,
                                                   force_numpy=force_numpy)
-            pt, ft = deframe.uw_detect_positions(hard, mode, init)
+            pt, ft = deframe.uw_detect_positions(hard, mode, init,
+                                                 force_numpy=port_numpy)
             np.testing.assert_array_equal(pt, pj)
             np.testing.assert_array_equal(ft, fj)
 

@@ -56,7 +56,9 @@ NEW_MODULES = ("wenet_tpu_torch.ops.ldpc_onehot, wenet_tpu_torch.ops.channel, "
                # the scale-out layer
                "wenet_tpu_torch.parallel.mesh, "
                "wenet_tpu_torch.parallel.sharded_ldpc, "
-               "wenet_tpu_torch.parallel.dryrun")
+               "wenet_tpu_torch.parallel.dryrun, "
+               # the host runtime in C
+               "wenet_tpu_torch.native")
 
 
 def test_port_imports_no_jax():
@@ -129,6 +131,26 @@ def test_flight_side_imports_without_pillow_or_requests():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_native_imports_no_jax_and_compiles_nothing():
+    """`wenet_tpu_torch.native` and the deframer that calls it import no
+    module of `jax` or `wenet_tpu`, and importing them starts no compiler
+    and loads no library: the C FSM is built at its first call."""
+    code = ("import subprocess, sys\n"
+            "def refuse(*a, **k):\n"
+            "    raise AssertionError(f'started {a!r}')\n"
+            "subprocess.run = subprocess.Popen = refuse\n"
+            "import wenet_tpu_torch.native as native\n"
+            "import wenet_tpu_torch.ops.deframe\n"
+            "assert native._lib is None and native.build_seconds is None\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('wenet_tpu', 'jax')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_port_sources_have_no_jax_import():

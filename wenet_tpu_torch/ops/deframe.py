@@ -1,8 +1,11 @@
 """Deframing: UW acquisition + packet extraction + LDPC decode + CRC gate
 (counterpart of wenet_tpu/ops/deframe.py).
 
-UW acquisition is the numpy emulation of the reference's C FSM
-(`wenet_ldpc.c` / `drs232_ldpc.c`) on the host.  The candidate windows then
+UW acquisition is the reference's C FSM (`wenet_ldpc.c` /
+`drs232_ldpc.c`) on the host: for a CUDA device the C library of
+`csrc/deframe_fsm.c` (`native`, built at first use, raising where it cannot
+be built), for the CPU its plain version, the numpy emulation
+(`uw_detect_positions(..., force_numpy=True)`).  The candidate windows then
 decode as one batch on the device: descramble or RS232 strip on the host,
 then `sd_to_llr`, the BP decode and the CRC gate with byte packing (on a
 CUDA device the BP and CRC kernels), with one device-to-host copy of the
@@ -17,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import native
 from ..core import framing
 from ..core import ldpc_tables as T
 from ..device import resolve_device
@@ -50,13 +54,18 @@ def _mode_params(mode: str):
 
 
 def uw_detect_positions(hard_bits: np.ndarray, mode: str = "v2",
-                        init_buffer: np.ndarray | None = None):
-    """Exact emulation of the C acquisition gating.
+                        init_buffer: np.ndarray | None = None,
+                        force_numpy: bool = False):
+    """The C acquisition gating.
 
     hard_bits: (n,) uint8 stream (bit = soft < 0).
     init_buffer: (nuw,) prior bit_buffer contents (zeros at stream start).
     Returns (positions, final_buffer): UW-end positions t — collection covers
-    symbols [t+1, t+SYMS] — and the buffer state after the last detection.
+    symbols [t+1, t+SYMS] — and the buffer state after the last detection
+    (init_buffer where there was none).
+    force_numpy=False runs the C FSM (`native.uw_detect`; raises where it
+    cannot be built), force_numpy=True its plain version, an exact numpy
+    emulation.  The callers pick by device: the C FSM for a CUDA device.
     """
     uw, allowed, syms_per_packet = _mode_params(mode)
     nuw = len(uw)
@@ -67,6 +76,13 @@ def uw_detect_positions(hard_bits: np.ndarray, mode: str = "v2",
         init_buffer = np.zeros(nuw, np.int8)
     if n < 1:
         return np.zeros(0, np.int64), init_buffer
+
+    if not force_numpy:
+        soft_pm = np.where(hard_bits > 0, -1.0, 1.0).astype(np.float32)
+        pos, final = native.uw_detect(soft_pm, uw.astype(np.uint8), allowed,
+                                      syms_per_packet, init_buffer)
+        final = final if len(pos) else init_buffer
+        return pos, np.asarray(final, np.int8)
 
     # scores[t] = matching bits of the window ending at t, with the buffer
     # preloaded with init_buffer: one +/-1 correlation
@@ -167,7 +183,8 @@ def decode_candidates(soft: np.ndarray, positions: np.ndarray,
 class StreamDeframer:
     """Stateful chunked deframer for live streams: `push(chunk)` yields
     exactly the packets `deframe_soft` would produce on the concatenated
-    stream, carrying the post-detection bit_buffer state across chunks."""
+    stream, carrying the post-detection bit_buffer state across chunks.
+    The UW FSM is the C one for a CUDA device, the numpy one otherwise."""
 
     def __init__(self, mode: str = "v2", max_iter: int = T.MAX_ITER,
                  device="cuda"):
@@ -185,7 +202,9 @@ class StreamDeframer:
         self._buf = np.concatenate(
             [self._buf, np.asarray(soft_chunk, np.float32)])
         hard = (self._buf < 0).astype(np.uint8)
-        positions, stale = uw_detect_positions(hard, self.mode, self._state)
+        positions, stale = uw_detect_positions(
+            hard, self.mode, self._state,
+            force_numpy=self.device.type != "cuda")
         pkts, ok, _ = decode_candidates(self._buf, positions, self.mode,
                                         self.max_iter, self.device)
         out = [pkts[i, :256].tobytes() for i in range(len(positions)) if ok[i]]
@@ -348,7 +367,8 @@ def deframe_soft(soft: np.ndarray, mode: str = "v2",
                  device="cuda") -> DeframeResult:
     """Full deframe of a soft-decision stream -> CRC-valid payloads.
 
-    acquisition="fsm" reproduces the reference deframer exactly;
+    acquisition="fsm" reproduces the reference deframer exactly (the C
+    FSM for a CUDA device, its numpy version otherwise);
     acquisition="all" decodes EVERY correlation hit and resolves
     overlapping CRC-valid windows greedily in stream order."""
     device = resolve_device(device)
@@ -368,7 +388,8 @@ def deframe_soft(soft: np.ndarray, mode: str = "v2",
         positions, pkts = positions[keep], pkts[keep]
         ok, iters = ok[keep], iters[keep]
     else:
-        positions, _ = uw_detect_positions(hard, mode)
+        positions, _ = uw_detect_positions(
+            hard, mode, force_numpy=device.type != "cuda")
         pkts, ok, iters = decode_candidates(soft, positions, mode, max_iter,
                                             device)
     payloads = [pkts[i, :256].tobytes() for i in range(len(positions)) if ok[i]]
