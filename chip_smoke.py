@@ -92,6 +92,16 @@ wideband FSM modes re-timed beside the numpy FSM's earlier figures; and
 the deploy script (`deploy`): wenet_tpu_torch/deploy/start_rx.sh with a fake
 rtl_sdr at the v1 and v2 flight rates, its rtl_sdr arguments and the
 router's image equal to an in-process Receiver's on the same bytes.
+The measurement tools (`tools`, wenet_tpu_torch/tools, with the six
+receive kernels' counts zeroed before and read after): chain_scaling at
+B = 8-64, loss_census (B=16, R=4), minsum_scaling at B = 128-8192 for
+both decoders, wideband_scaling at N = 4, 8, 16 (every channel
+complete), pp_breakdown on v2 and v1 (the Receiver's payloads),
+stream_tune on a 20-s capture (its lists within the packets sent and
+each ingest list equal to its on-device program's) and the stage splits
+of fused_where, fused_profile and wideband_where; then chain_lanes and
+the census at B=2 against the plain versions on the same noise, and the
+iteration histograms at B=512 against the plain decoders'.
 Each phase prints one line (the receive paths their Msamples/s beside
 real time); any failed check raises, so the script exits non-zero before
 its last line.  The last three lines are a JSON object with the kernels'
@@ -199,6 +209,11 @@ DEPLOY_IMAGE = (160, 128)     # deploy: the SSDV image's width, height
 DEPLOY_SETTINGS = (("v1", {}),
                    ("v2", {"BAUD_RATE": "96000", "OVERSAMPLING": "10"}))
 DEPLOY_RXFREQ = 443500000     # start_rx.sh's default centre frequency
+TOOL_CHAIN_B = (8, 16, 32, 64)          # tools: chain_scaling's B
+TOOL_MINSUM_B = (128, 512, 2048, 8192)  # tools: minsum_scaling's B
+TOOL_WIDE_N = (4, 8, 16)      # tools: wideband_scaling's channel counts
+TOOL_PP_SECONDS = 8.0         # tools: pp_breakdown's capture, each mode
+TOOL_STREAM_SECS = 20.0       # tools: stream_tune's and the splits' capture
 DEPLOY_UNSET = ("MYCALL", "RXFREQ", "GAIN", "BIAS", "BAUD_RATE",
                 "OVERSAMPLING", "FRAMING_MODE", "DEVICE", "RX_DEVICE",
                 "RX_FLOW")    # start_rx.sh's variables, left at its defaults
@@ -1189,6 +1204,262 @@ def native_phase(cfg1, cfg2, raw1, raw2, wide, fs_w, wide_out, dev, smi):
                                is not None else "built earlier"),
         library=out["library"], compiler=native.compiler(), card=repr(smi))
     return out
+
+
+def tool_counts():
+    """Launch counts of the six kernels the measurement tools run."""
+    from wenet_tpu_torch.kernels import bp_decode, channelize, crc_pack
+    from wenet_tpu_torch.kernels import deframe_topk, fsk_demod
+    return {"fsk_demod": fsk_demod.launches,
+            "deframe_topk": deframe_topk.launches,
+            "bp_decode": bp_decode.launches,
+            "bp_minsum": bp_decode.minsum_launches,
+            "crc_pack": crc_pack.launches, "channelize": channelize.launches}
+
+
+def zero_tool_counts():
+    from wenet_tpu_torch.kernels import bp_decode, channelize, crc_pack
+    from wenet_tpu_torch.kernels import deframe_topk, fsk_demod
+    fsk_demod.launches = deframe_topk.launches = crc_pack.launches = 0
+    bp_decode.launches = bp_decode.minsum_launches = channelize.launches = 0
+
+
+def plain_topk(soft, k, mode="v2"):
+    """deframe_topk through the plain versions on the card: (B, n) soft
+    bits -> topk_windows_reference, sd_to_llr, decode_reference and
+    crc_pack_reference -> (ok, pos) (B, k)."""
+    from wenet_tpu_torch.ops import crc as dcrc
+    from wenet_tpu_torch.ops import deframe, ldpc
+    sd, pos, _ = deframe.topk_windows_reference(soft, mode, k)
+    bits, _, _ = ldpc.decode_reference(ldpc.sd_to_llr(sd))
+    rows = dcrc.crc_pack_reference(bits, positions=pos.reshape(-1))
+    return rows[:, 258].bool().reshape(soft.shape[0], k), pos
+
+
+def plain_chain(cfg, sig, var, ebnos, k, noise, mode="v2"):
+    """tools/chain_scaling.chain_lanes through the plain versions on the
+    card: the plain demod loop, then `plain_topk` -> (ok, pos) (B, k)."""
+    import torch
+    from wenet_tpu_torch.ops import fsk
+    from wenet_tpu_torch.tools import chain_scaling
+
+    ebnos = torch.as_tensor(np.asarray(ebnos, np.float32), device=sig.device)
+    B = ebnos.shape[0]
+    iq = chain_scaling.noisy_lanes(cfg, sig, var, ebnos, noise)
+    _, outs = fsk.demod_lanes_reference(cfg, iq,
+                                        cfg.num_frames(sig.shape[0]))
+    soft = torch.where(outs.valid[..., None], outs.soft, 1.0).reshape(B, -1)
+    return plain_topk(soft, k, mode)
+
+
+def tools_vs_plain(cfg2, dev, sig, var, ms, chain_b=TOOL_CHAIN_B,
+                   minsum_b=TOOL_MINSUM_B, wide_n=TOOL_WIDE_N):
+    """The tools phase's kernels against their plain versions at the
+    shapes the tools launch them (see tools_phase); ms: minsum_scaling's
+    records at minsum_b.  Returns (packets recovered a B of chain_lanes,
+    the channelizer's max |diff| / rms an N)."""
+    import torch
+    from wenet_tpu_torch.ops import channelizer, deframe, fsk, ldpc
+    from wenet_tpu_torch.tools import chain_scaling, loss_census
+    from wenet_tpu_torch.tools import minsum_scaling, wideband_scaling
+
+    # chain_lanes at B=2 and at each timed B, on one noise tensor
+    sig_t = torch.as_tensor(sig, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    z = torch.randn((max(chain_b), len(sig), 2), generator=gen,
+                    device=dev)
+    noise = torch.complex(z[..., 0], z[..., 1])
+    del z
+    chain_ok = {}
+    for B in (2,) + tuple(chain_b):
+        ebnos_b = np.linspace(*chain_scaling.EBNO_RANGE, B).astype(
+            np.float32)
+        got = chain_scaling.chain_lanes(cfg2, sig_t, ebnos_b, 12,
+                                        noise=noise[:B], device=dev, var=var)
+        want_c = plain_chain(cfg2, sig_t, var, ebnos_b, 12, noise[:B])
+        require(all(torch.equal(a, b) for a, b in zip(got, want_c)),
+                f"tools: chain_lanes at B={B} differs from the plain "
+                f"versions")
+        chain_ok[B] = int(got[0].sum())
+    del noise
+    csig, cvar, cpk = loss_census.census_signal(cfg2)
+    csig_t = torch.as_tensor(csig, device=dev)
+    ebnos_c = np.linspace(10.5, 15.0, 2).astype(np.float32)
+    z = torch.randn((2, len(csig), 2), generator=gen, device=dev)
+    cnoise = torch.complex(z[..., 0], z[..., 1])
+    c_kernel = loss_census.run(2, 1, 10.5, 15.0, cfg=cfg2, device=dev,
+                               noise=cnoise[None])
+    ok_p, pos_p = plain_chain(cfg2, csig_t, cvar, ebnos_c, cpk, cnoise)
+    c_plain = loss_census.census(ok_p[None].cpu().numpy(),
+                                 pos_p[None].cpu().numpy(), ebnos_c, cpk)
+    c_plain["ebno_range"] = [10.5, 15.0]
+    require(c_kernel == c_plain, f"tools: census {c_kernel} against the "
+            f"plain versions' {c_plain}")
+    # both decoders at each timed B, on the tool's LLRs: bits, iterations
+    # and parity exact, and the recorded histograms the plain decoder's
+    rng = np.random.default_rng(1)
+    for B in minsum_b:
+        llr = minsum_scaling.llr_batch(B, 7.5, rng, dev)
+        for name, op, plain in (
+                ("minsum", ldpc.decode_minsum,
+                 ldpc.decode_minsum_reference),
+                ("sumproduct", ldpc.decode, ldpc.decode_reference)):
+            want_d = plain(llr)
+            mis = mismatches(op(llr), want_d)
+            require(mis[:3] == (0, 0, 0),
+                    f"tools: {name} B={B}: {mis[0]} codewords differ in "
+                    f"bits, {mis[1]} in iters, {mis[2]} in parity_ok")
+            rec = next(r for r in ms if r["decoder"] == name and r["B"] == B)
+            hist = minsum_scaling.iter_hist(want_d[1])
+            require(rec["iter_hist"] == hist,
+                    f"tools: {name} B={B} iter_hist {rec['iter_hist']} "
+                    f"against the plain decoder's {hist}")
+        del llr, want_d
+    # the wideband path at each timed N: the channelizer within
+    # CHANNELIZE_TOL of its rms, then the demod and the fused deframe on
+    # the kernel's channels against the plain versions on the same ones
+    wide_err = {}
+    for nch in wide_n:
+        wide, _ = wideband_scaling.build_wideband_capture(nch, cfg2)
+        x = channelizer._device_input(wide, dev)
+        chans = channelizer.channelize_pairs(x, nch)
+        want_w = torch.view_as_real(channelizer.channelize_reference(
+            torch.view_as_complex(x), nch)).reshape(-1, 2)
+        err = float((chans - want_w).abs().max())
+        rms = float(want_w.square().sum(1).mean().sqrt())
+        require(chans.shape == want_w.shape and err <= CHANNELIZE_TOL * rms,
+                f"tools: channelize N={nch}: max |diff| {err} of rms {rms}")
+        wide_err[nch] = err / rms
+        del want_w
+        nf, outs = channelizer.demod_channels(cfg2, chans, nch)
+        kk, packed = channelizer.fused_deframe(cfg2, outs, nf)
+        F = chans.shape[0] // nch
+        _, pouts = fsk.demod_raw_reference(
+            cfg2, chans, "c64", nf,
+            torch.arange(nch, dtype=torch.int64, device=dev) * F,
+            torch.full((nch,), F, dtype=torch.int64, device=dev))
+        require(torch.equal(outs.valid, pouts.valid),
+                f"tools: wideband N={nch}: demod validity differs from "
+                f"the plain loop's")
+        psoft = torch.where(pouts.valid[..., None], pouts.soft, 1.0)
+        ok_w, pos_w = plain_topk(psoft.reshape(nch, -1), kk)
+        _, ok_k, pos_k = deframe.unpack_decode_results(packed.cpu().numpy())
+        require(np.array_equal(ok_k, ok_w.cpu().numpy())
+                and np.array_equal(pos_k, pos_w.cpu().numpy()),
+                f"tools: wideband N={nch}: fused picks differ from the "
+                f"plain versions'")
+        del x, chans, outs, pouts, psoft
+    return chain_ok, wide_err
+
+
+def tools_phase(cfg1, cfg2, dev, smi) -> dict:
+    """tools: the port's measurement tools (wenet_tpu_torch/tools) at the
+    flight geometries, with the six kernels' counts zeroed before and read
+    after: chain_scaling at TOOL_CHAIN_B, loss_census (B=16, R=4,
+    10.5-15 dB), minsum_scaling at TOOL_MINSUM_B for both decoders,
+    wideband_scaling at TOOL_WIDE_N (every channel complete),
+    pp_breakdown on v2 and v1 over TOOL_PP_SECONDS, stream_tune on a
+    TOOL_STREAM_SECS capture over its default grids (every list within
+    the packets sent and at least all but one of them; each chunk count's
+    ingest list equal to its on-device program's), and the stage splits
+    of fused_where, fused_profile and wideband_where.  Then, uncounted,
+    every kernel at the shapes the tools launch it: chain_lanes at B=2
+    and at each TOOL_CHAIN_B against the plain versions on one noise
+    tensor, the census at B=2 likewise, both decoders at each
+    TOOL_MINSUM_B on the tool's LLRs (bits, iterations and parity exact;
+    the recorded histograms the plain decoder's), at each TOOL_WIDE_N the
+    channelizer against its plain version and the demod and fused
+    deframe on its channels against theirs, and each pp_breakdown list
+    against Receiver.push's.  Returns the counts."""
+    import torch
+    from wenet_tpu_torch.rx import pipeline
+    from wenet_tpu_torch.tools import captures, chain_scaling, fused_profile
+    from wenet_tpu_torch.tools import fused_where, loss_census
+    from wenet_tpu_torch.tools import minsum_scaling, pp_breakdown
+    from wenet_tpu_torch.tools import stream_tune, wideband_scaling
+    from wenet_tpu_torch.tools import wideband_where
+
+    def show(tool):
+        return lambda rec: say("tools", tool=tool, record=json.dumps(
+            rec, separators=(",", ":")), card=repr(smi))
+
+    t_phase = time.perf_counter()
+    sig, var = chain_scaling.chain_signal(cfg2)
+    raw_s, n_sent = captures.stream_capture(TOOL_STREAM_SECS)
+    sent_s = set(captures.stream_payloads(TOOL_STREAM_SECS))
+    caps = {mode: pp_breakdown.capture(mode, TOOL_PP_SECONDS, cfg=cfg)
+            for mode, cfg in (("v2", cfg2), ("v1", cfg1))}
+    host_s = time.perf_counter() - t_phase
+
+    zero_tool_counts()
+    t0 = time.perf_counter()
+    for B in TOOL_CHAIN_B:
+        show("chain_scaling")(chain_scaling.measure(B, cfg2, sig, var,
+                                                    device=dev))
+    census = loss_census.run(16, 4, 10.5, 15.0, device=dev)
+    show("loss_census")(census)
+    ms = minsum_scaling.run(TOOL_MINSUM_B, device=dev,
+                            emit=show("minsum_scaling"))
+    for nch in TOOL_WIDE_N:
+        rec = wideband_scaling.measure(nch, device=dev)
+        show("wideband_scaling")(rec)
+        require(rec["channels_complete"] == nch,
+                f"tools: wideband_scaling N={nch}: "
+                f"{rec['channels_complete']} channels complete")
+    pp_lists = {}
+    for mode, cfg in (("v2", cfg2), ("v1", cfg1)):
+        raw, n_pkts = caps[mode]
+        acc, pushes, pp_lists[mode] = pp_breakdown.breakdown(
+            raw, mode, cfg, device=dev)
+        show("pp_breakdown")(pp_breakdown.record(
+            mode, "cu8", acc, pushes, len(pp_lists[mode]), n_pkts, dev))
+    lists = stream_tune.tune(raw_s, n_sent, device=dev,
+                             emit=show("stream_tune"))
+    fused_where.run(secs=TOOL_STREAM_SECS, device=dev,
+                    emit=show("fused_where"))
+    fused_profile.run(secs=TOOL_STREAM_SECS, device=dev,
+                      emit=show("fused_profile"))
+    wideband_where.run(TOOL_WIDE_N[-1], device=dev,
+                       emit=show("wideband_where"))
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    counts = tool_counts()
+    for name, n in counts.items():
+        require(n > 0, f"tools never launched {name}")
+
+    # checks against the plain versions and the Receiver (uncounted)
+    want = captures.decodable_packets(len(raw_s) // 2 // cfg2.Ts, n_sent)
+    for config, got in lists.items():
+        require(set(got) <= sent_s and len(got) >= want - 1,
+                f"tools: stream_tune {config}: {len(got)} payloads, "
+                f"{len(set(got) - sent_s)} never sent, {want} decodable")
+    for config in [c for c in lists if c.endswith("_devres")]:
+        ingest = config.replace("_devres", "_ingest")
+        require(lists[ingest] == lists[config],
+                f"tools: stream_tune {ingest} differs from {config}")
+    for mode, cfg in (("v2", cfg2), ("v1", cfg1)):
+        raw = caps[mode][0]
+        rx = pipeline.Receiver(mode=mode, cfg=cfg, input_format="cu8",
+                               device=dev)
+        step = pp_breakdown.push_size(cfg, 2.0, "cu8")
+        ref = [p for i in range(0, len(raw), step)
+               for p in rx.push(raw[i:i + step])]
+        require(pp_lists[mode] == ref,
+                f"tools: pp_breakdown {mode}: {len(pp_lists[mode])} payloads "
+                f"against the Receiver's {len(ref)}")
+    chain_ok, wide_err = tools_vs_plain(cfg2, dev, sig, var, ms)
+    wall = time.perf_counter() - t_phase
+    say("tools", checks="passed", captures_s=f"{host_s:.3f}",
+        drive_s=f"{drive_s:.3f}", wall_s=f"{wall:.3f}",
+        loss_pct=census["loss_pct"],
+        miss_by_packet_index=census["miss_by_packet_index"],
+        miss_interior=census["miss_interior"],
+        exhausted_picks=census["exhausted_picks"],
+        chain_packets_by_b=chain_ok,
+        channelize_rel_err={n: f"{e:.3e}" for n, e in wide_err.items()},
+        checks_s=f"{wall - drive_s - host_s:.3f}", launches=counts,
+        card=repr(smi))
+    return counts
 
 
 def deploy_phase(tmp, smi):
@@ -2406,6 +2677,9 @@ def main() -> int:
     # re-timed
     native_phase(cfg1, cfg2, raw1, raw2, wide, fs_w, wide_out, dev, smi)
 
+    # 8f. the measurement tools at the flight geometries (their own counts)
+    tool_launches = tools_phase(cfg1, cfg2, dev, smi)
+
     with tempfile.TemporaryDirectory() as tmp:
         # 9. CLI on the v2 capture: streaming, --parallel, --slabs
         path = os.path.join(tmp, "smoke_v2.cu8")
@@ -2738,6 +3012,8 @@ def main() -> int:
                 "reach_ms": cn["ms"], "reach_plain_ms": cn["plain_ms"],
                 "reach_bound_ms": cn["bound_ms"],
                 "reach_rel_err": cn["rel_err"]})
+    for entry in out:   # the tools phase's own run of each kernel
+        entry["tools_launches"] = tool_launches.get(entry["name"], 0)
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -58,7 +58,18 @@ NEW_MODULES = ("wenet_tpu_torch.ops.ldpc_onehot, wenet_tpu_torch.ops.channel, "
                "wenet_tpu_torch.parallel.sharded_ldpc, "
                "wenet_tpu_torch.parallel.dryrun, "
                # the host runtime in C
-               "wenet_tpu_torch.native")
+               "wenet_tpu_torch.native, "
+               # the measurement tools
+               "wenet_tpu_torch.tools.captures, "
+               "wenet_tpu_torch.tools.chain_scaling, "
+               "wenet_tpu_torch.tools.loss_census, "
+               "wenet_tpu_torch.tools.minsum_scaling, "
+               "wenet_tpu_torch.tools.wideband_scaling, "
+               "wenet_tpu_torch.tools.wideband_where, "
+               "wenet_tpu_torch.tools.fused_where, "
+               "wenet_tpu_torch.tools.fused_profile, "
+               "wenet_tpu_torch.tools.pp_breakdown, "
+               "wenet_tpu_torch.tools.stream_tune")
 
 
 def test_port_imports_no_jax():
@@ -107,6 +118,28 @@ def test_receive_path_imports_nothing_of_the_jax_package(tmp_path):
     for path in sources:
         with open(path) as fh:
             assert not pat.search(fh.read()), path
+
+
+def test_tools_import_nothing_of_bench_jax_or_the_jax_package():
+    """The measurement tools carry their own copies of bench.py's capture
+    builders: importing every one of them loads no module of `bench`,
+    `jax` or `wenet_tpu`, and no source of the port imports `bench`."""
+    code = ("import pkgutil, sys, wenet_tpu_torch.tools as t\n"
+            "for m in pkgutil.iter_modules(t.__path__, t.__name__ + '.'):\n"
+            "    __import__(m.name)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('bench', 'jax', 'wenet_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    pat = re.compile(r"^\s*(from|import) bench\b", re.M)
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    assert not pat.search(fh.read()), f
 
 
 def test_flight_side_imports_without_pillow_or_requests():
@@ -272,7 +305,12 @@ def test_cuda_requests_raise_without_card():
                                   "decode_iq_parallel", "channelize",
                                   "demod_multichannel", "demod_iq_np",
                                   "decode_np", "probe_demod", "selftest",
-                                  "run_ber", "run_sweep", "LinkEmulator"])
+                                  "run_ber", "run_sweep", "LinkEmulator",
+                                  "chain_lanes", "chain_scaling",
+                                  "loss_census", "minsum_scaling",
+                                  "wideband_scaling", "wideband_where",
+                                  "fused_where", "fused_profile",
+                                  "pp_breakdown", "stream_tune"])
 def test_public_functions_default_to_the_card(name, monkeypatch):
     """Called without a device, the port's public demod and deframe entry
     points ask for CUDA, and without a card they raise instead of running
@@ -281,6 +319,11 @@ def test_public_functions_default_to_the_card(name, monkeypatch):
     from wenet_tpu_torch.examples.link_emulation import LinkEmulator
     from wenet_tpu_torch.ops import channelizer, deframe
     from wenet_tpu_torch.rx import pipeline, selftest
+    from wenet_tpu_torch.tools import chain_scaling, fused_profile
+    from wenet_tpu_torch.tools import fused_where, loss_census
+    from wenet_tpu_torch.tools import minsum_scaling, pp_breakdown
+    from wenet_tpu_torch.tools import stream_tune, wideband_scaling
+    from wenet_tpu_torch.tools import wideband_where
     from wenet_tpu_torch.utils import probe
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tfsk.FSKConfig(Fs=96000, Rs=9600)
@@ -320,6 +363,18 @@ def test_public_functions_default_to_the_card(name, monkeypatch):
             "v2", 1, [10.0], cfg=cfg, log=lambda *a: None),
         "LinkEmulator": lambda: LinkEmulator(tx_port=None, telemetry_port=0,
                                              through_modem=True, cfg=cfg),
+        # the measurement tools: their functions and their CLIs
+        "chain_lanes": lambda: chain_scaling.chain_lanes(
+            cfg, np.zeros(4000, np.complex64), [10.0], 1),
+        "chain_scaling": lambda: chain_scaling.main(["1"]),
+        "loss_census": lambda: loss_census.run(1, 1, cfg=cfg),
+        "minsum_scaling": lambda: minsum_scaling.main(["--batches", "1"]),
+        "wideband_scaling": lambda: wideband_scaling.measure(2),
+        "wideband_where": lambda: wideband_where.main(["2"]),
+        "fused_where": lambda: fused_where.run(4, secs=0.5),
+        "fused_profile": lambda: fused_profile.main(["--secs", "0.5"]),
+        "pp_breakdown": lambda: pp_breakdown.run("v2", 1.0, cfg=cfg),
+        "stream_tune": lambda: stream_tune.main(["--secs", "0.5"]),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[name]()

@@ -151,6 +151,34 @@ def channelize(iq, n_channels: int, taps_per_phase: int = 12,
     return torch.view_as_complex(out.reshape(nsel, pairs.shape[0] // N, 2))
 
 
+def demod_channels(cfg, chans: torch.Tensor, L: int):
+    """The L channels of `channelize_pairs`' buffer as lanes of one demod
+    call -> (frames a lane, the demod's outputs)."""
+    F = chans.shape[0] // L
+    nf = cfg.num_frames(F)
+    dev = chans.device
+    _, outs = fsk.demod_raw(
+        cfg, chans, "c64", nf,
+        torch.arange(L, dtype=torch.int64, device=dev) * F,
+        torch.full((L,), F, dtype=torch.int64, device=dev))
+    return nf, outs
+
+
+def fused_deframe(cfg, outs, nf: int, mode: str = "v2", max_iter: int = 10):
+    """The fused mode's deframe on the device: invalid frames blanked to
+    +1.0, then `deframe_topk` over all lanes with enough picks a lane for
+    a back-to-back packet stream -> (picks a lane, (L, picks, 263) packed
+    rows)."""
+    from ..core import framing
+    from . import deframe
+    syms_pp = (framing.V2_SYMBOLS_PER_PACKET if mode == "v2"
+               else framing.V1_SYMBOLS_PER_PACKET)
+    kk = int(np.ceil(nf * cfg.Nbits / syms_pp)) + 2
+    soft = torch.where(outs.valid[..., None], outs.soft, 1.0)
+    return kk, deframe.deframe_topk(soft.reshape(soft.shape[0], -1), mode,
+                                    kk, max_iter, packed=True)
+
+
 def demod_multichannel(iq, Fs_total: int, n_channels: int, cfg,
                        mode: str = "v2", channels=None,
                        vectorized: bool = True, max_iter: int = 10,
@@ -180,7 +208,6 @@ def demod_multichannel(iq, Fs_total: int, n_channels: int, cfg,
     vectorized=False and fused=False: one streaming `Receiver` per
     selected channel on the channelizer's output.
     """
-    from ..core import framing
     from ..rx.pipeline import Receiver
     from . import deframe
 
@@ -199,18 +226,9 @@ def demod_multichannel(iq, Fs_total: int, n_channels: int, cfg,
         return {k: Receiver(mode=mode, cfg=cfg, device=dev).decode_iq(ch[i])
                 for i, k in enumerate(sel)}
 
-    nf = cfg.num_frames(F)
-    _, outs = fsk.demod_raw(
-        cfg, chans, "c64", nf,
-        torch.arange(L, dtype=torch.int64, device=dev) * F,
-        torch.full((L,), F, dtype=torch.int64, device=dev))
+    nf, outs = demod_channels(cfg, chans, L)
     if fused:
-        syms_pp = (framing.V2_SYMBOLS_PER_PACKET if mode == "v2"
-                   else framing.V1_SYMBOLS_PER_PACKET)
-        kk = int(np.ceil(nf * cfg.Nbits / syms_pp)) + 2
-        soft = torch.where(outs.valid[..., None], outs.soft, 1.0)
-        packed = deframe.deframe_topk(soft.reshape(L, -1), mode, kk,
-                                      max_iter, packed=True)
+        kk, packed = fused_deframe(cfg, outs, nf, mode, max_iter)
         pb, ok, pos = deframe.unpack_decode_results(packed.cpu().numpy())
         out = {}
         for i, k in enumerate(sel):

@@ -199,17 +199,35 @@ class StreamDeframer:
         self.n_crc_ok = 0
 
     def push(self, soft_chunk: np.ndarray) -> list:
+        hard, positions, stale = self.detect(soft_chunk)
+        out = self.decode(positions)
+        self.consume(hard, positions, stale)
+        return out
+
+    def detect(self, soft_chunk: np.ndarray):
+        """Append the chunk and run the UW FSM over the buffer ->
+        (hard bits, UW-end positions, the FSM's bit_buffer after them)."""
         self._buf = np.concatenate(
             [self._buf, np.asarray(soft_chunk, np.float32)])
         hard = (self._buf < 0).astype(np.uint8)
         positions, stale = uw_detect_positions(
             hard, self.mode, self._state,
             force_numpy=self.device.type != "cuda")
+        return hard, positions, stale
+
+    def decode(self, positions: np.ndarray) -> list:
+        """One decode batch of the candidates at `positions` -> the
+        CRC-valid payloads, in order."""
         pkts, ok, _ = decode_candidates(self._buf, positions, self.mode,
                                         self.max_iter, self.device)
-        out = [pkts[i, :256].tobytes() for i in range(len(positions)) if ok[i]]
         self.n_detections += len(positions)
         self.n_crc_ok += int(ok.sum())
+        return [pkts[i, :256].tobytes() for i in range(len(positions))
+                if ok[i]]
+
+    def consume(self, hard: np.ndarray, positions: np.ndarray,
+                stale: np.ndarray):
+        """Drop what no later detection needs and carry the FSM state."""
         if len(positions):
             # consume through the last packet
             cut = int(positions[-1]) + self._syms + 1
@@ -223,7 +241,6 @@ class StreamDeframer:
                 if cut >= self._nuw else np.concatenate(
                     [self._state[cut - self._nuw:], hard[:cut]]).astype(np.int8)
             self._buf = self._buf[cut:]
-        return out
 
 
 def descramble_or_strip(wins: torch.Tensor, mode: str) -> torch.Tensor:

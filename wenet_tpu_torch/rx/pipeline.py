@@ -199,6 +199,15 @@ class Receiver:
         """Host-side half: one copy of the packed array, then deframe,
         batch decode and CRC."""
         t0 = time.perf_counter()
+        payloads = self.deframer.push(self._fetch(packed, nf, n_new))
+        self.stats.detections = self.deframer.n_detections
+        self.stats.crc_ok = self.deframer.n_crc_ok
+        self.seconds["deframe"] += time.perf_counter() - t0
+        return payloads
+
+    def _fetch(self, packed: torch.Tensor, nf: int, n_new: int):
+        """The packed array to the host: the valid frames' soft bits, with
+        the stats and the eye probe taken in."""
         p = packed.cpu().numpy()
         nbits = self.cfg.Nbits
         soft = p[: nf * nbits].reshape(nf, nbits)
@@ -220,12 +229,7 @@ class Receiver:
             self.stats.ebno_db = float(stats[0])
             self.stats.ppm = float(stats[1])
             self.stats.f_est = tuple(float(x) for x in stats[4:])
-
-        payloads = self.deframer.push(soft)
-        self.stats.detections = self.deframer.n_detections
-        self.stats.crc_ok = self.deframer.n_crc_ok
-        self.seconds["deframe"] += time.perf_counter() - t0
-        return payloads
+        return soft
 
     def push(self, chunk: np.ndarray) -> list:
         """Feed samples (complex64, or raw u8/s16 IQ for cu8/cs16
@@ -446,12 +450,21 @@ class _FusedStep:
     def __call__(self, data: torch.Tensor, skips: torch.Tensor):
         """data: (n, 2) raw pairs on the device; skips: (C,) warmup frames
         to blank per chunk.  Returns (C, k, 263) uint8 on the device."""
+        return self.topk(self.soft(data, skips))
+
+    def soft(self, data: torch.Tensor, skips: torch.Tensor) -> torch.Tensor:
+        """The demod half: (C, nf * Nbits) soft bits, invalid and warmup
+        frames blanked."""
         _, outs = fsk.demod_raw(self.cfg, data, self.fmt, self.nf,
                                 self.starts, self.n_valid)
         keep = outs.valid & (self._frame[None] >= skips[:, None])
         soft = torch.where(keep[..., None], outs.soft, 1.0)
-        return deframe.deframe_topk(soft.reshape(soft.shape[0], -1),
-                                    self.mode, self.k, self.max_iter,
+        return soft.reshape(soft.shape[0], -1)
+
+    def topk(self, soft: torch.Tensor) -> torch.Tensor:
+        """The deframe half: top-k acquisition, one BP batch and the CRC
+        -> (C, k, 263) uint8 packed rows."""
+        return deframe.deframe_topk(soft, self.mode, self.k, self.max_iter,
                                     packed=True)
 
 
