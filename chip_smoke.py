@@ -110,9 +110,12 @@ device.  Without a CUDA device the script fails at once.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -214,6 +217,13 @@ TOOL_MINSUM_B = (128, 512, 2048, 8192)  # tools: minsum_scaling's B
 TOOL_WIDE_N = (4, 8, 16)      # tools: wideband_scaling's channel counts
 TOOL_PP_SECONDS = 8.0         # tools: pp_breakdown's capture, each mode
 TOOL_STREAM_SECS = 20.0       # tools: stream_tune's and the splits' capture
+PP_PUSH_SECONDS = 2.0         # pipelined: the Receiver's push, seconds
+PORT_BENCH_ENV = {            # port_bench: the one-hot decoder on, and the
+    "WENET_BENCH_PALLAS": "1",  # stream stage on the tools' 20-s capture
+    "WENET_BENCH_STREAM_SECS": str(int(TOOL_STREAM_SECS))}
+PORT_BENCH_STREAMS = 256      # port_bench: the chain stage's B
+CORPUS_IMAGES = 2             # corpus: synthetic images, 800 x 608
+CORPUS_FUSED = 16             # corpus: --fused chunks
 DEPLOY_UNSET = ("MYCALL", "RXFREQ", "GAIN", "BIAS", "BAUD_RATE",
                 "OVERSAMPLING", "FRAMING_MODE", "DEVICE", "RX_DEVICE",
                 "RX_FLOW")    # start_rx.sh's variables, left at its defaults
@@ -1834,6 +1844,194 @@ def apps_phase(cfg, path, sent, want_jpg, tmp, smi):
         receiver_wall_s=f"{dt:.3f}", launches=counts, card=repr(smi))
 
 
+def pipelined_phase(cfg1, cfg2, dev, smi):
+    """pipelined: on v2 and v1 captures of TOOL_PP_SECONDS (pp_breakdown's),
+    `rx.pipeline.stream_step` on one push under
+    torch.cuda.set_sync_debug_mode("error"), with and without the eye
+    probe (its packed vector equal to a call outside the mode); one push's
+    pageable host-to-device copy timed; pp_breakdown's per-push phases;
+    then Receiver pushes, pipelined and serial, with the demod, BP and CRC
+    counts zeroed before and read after: equal payload lists, equal to
+    pp_breakdown's, and both timed."""
+    import torch
+    from wenet_tpu_torch.kernels import bp_decode, crc_pack, fsk_demod
+    from wenet_tpu_torch.ops import fsk
+    from wenet_tpu_torch.rx import pipeline
+    from wenet_tpu_torch.tools import pp_breakdown
+
+    for mode, cfg in (("v2", cfg2), ("v1", cfg1)):
+        raw, n_pkts = pp_breakdown.capture(mode, TOOL_PP_SECONDS, cfg=cfg)
+        step = pp_breakdown.push_size(cfg, PP_PUSH_SECONDS, "cu8")
+        push = raw[:step].reshape(-1, 2)
+        data = torch.from_numpy(push).to(dev)
+        n, nf = data.shape[0], cfg.num_frames(data.shape[0])
+        for with_eye in (False, True):
+            state = fsk.demod_init(cfg, dev)
+            want = pipeline.stream_step(cfg, data, state, n, "cu8", nf,
+                                        with_eye)[1]
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = pipeline.stream_step(cfg, data, state, n, "cu8", nf,
+                                           with_eye)[1]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            require(torch.equal(got, want),
+                    f"pipelined {mode}: stream_step differs between calls")
+        h2d = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.from_numpy(push).to(dev)
+            h2d.append((time.perf_counter() - t0) * 1e3)
+        acc, pushes, pp_list = pp_breakdown.breakdown(raw, mode, cfg,
+                                                      device=dev)
+        rec = pp_breakdown.record(mode, "cu8", acc, pushes, len(pp_list),
+                                  n_pkts, dev)
+
+        def run(pipelined):
+            rx = pipeline.Receiver(mode, cfg, pipelined=pipelined,
+                                   input_format="cu8", device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = [p for i in range(0, len(raw), step)
+                   for p in rx.push(raw[i:i + step])] + rx.flush()
+            return time.perf_counter() - t0, got
+        run(True)
+        fsk_demod.launches = bp_decode.launches = crc_pack.launches = 0
+        dt_pp, got_pp = run(True)
+        dt_serial, got_serial = run(False)
+        counts = {"fsk_demod": fsk_demod.launches,
+                  "bp_decode": bp_decode.launches,
+                  "crc_pack": crc_pack.launches}
+        for name, count in counts.items():
+            require(count > 0, f"pipelined {mode} never launched {name}")
+        require(got_pp == got_serial == pp_list,
+                f"pipelined {mode}: {len(got_pp)} payloads pipelined, "
+                f"{len(got_serial)} serial, {len(pp_list)} in pp_breakdown")
+        require(len(got_pp) >= n_pkts - 2,
+                f"pipelined {mode}: {len(got_pp)} of {n_pkts} packets")
+        ms = rec["per_push_ms"]
+        say("pipelined", mode=mode, sync_debug="error", stream_step_syncs=0,
+            packets=f"{len(got_pp)}/{n_pkts}", pushes=pushes,
+            dispatch_ms=ms["dispatch"], exec_wait_ms=ms["exec_wait"],
+            retire_ms=ms["retire"], fetch_ms=ms["fetch"], uw_ms=ms["uw"],
+            decode_ms=ms["decode"],
+            pp_speedup_bound=rec["pp_speedup_bound"],
+            push_h2d_ms=f"{sorted(h2d)[2]:.3f}", push_bytes=push.nbytes,
+            pipelined_s=f"{dt_pp:.4f}", serial_s=f"{dt_serial:.4f}",
+            pp_speedup=f"{dt_serial / dt_pp:.3f}",
+            msps_pipelined=f"{len(raw) / 2 / dt_pp / 1e6:.4f}",
+            msps_serial=f"{len(raw) / 2 / dt_serial / 1e6:.4f}",
+            pipelined_equal=True, launches=counts, card=repr(smi))
+
+
+def port_bench_phase(cfg2, dev, smi) -> dict:
+    """port_bench: `python -m wenet_tpu_torch.bench` in a process of its
+    own with PORT_BENCH_ENV, its launch counts starting at 0 there and read
+    at its end (its `kernel_launches`): exit 0, every gate held, no stage
+    error, each of the six kernels launched.  Then `chain_lanes` at B =
+    PORT_BENCH_STREAMS on the bench's chain signal against `plain_chain`
+    on one round's noise, exactly.  Returns the bench's launch counts."""
+    import torch
+    from wenet_tpu_torch import bench
+    from wenet_tpu_torch.tools import chain_scaling
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), **PORT_BENCH_ENV)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "wenet_tpu_torch.bench"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"port_bench exit {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    gates = {k: v for k, v in line.items() if k.endswith("_gate")}
+    require(gates and all(v is True for v in gates.values()),
+            f"port_bench gates {gates}")
+    require(bench.failures(line) == [], f"port_bench: {bench.failures(line)}")
+    launches = line["kernel_launches"]
+    for name in ("fsk_demod", "deframe_topk", "bp_decode", "bp_minsum",
+                 "bp_onehot", "crc_pack", "channelize"):
+        require(launches.get(name, 0) > 0,
+                f"port_bench never launched {name}: {launches}")
+    say("port_bench", rc=proc.returncode, wall_s=f"{wall:.3f}",
+        env=json.dumps(PORT_BENCH_ENV, separators=(",", ":")),
+        line=json.dumps(line, separators=(",", ":")), card=repr(smi))
+
+    t0 = time.perf_counter()
+    sig, var = bench.chain_signal(cfg2)
+    sig_t = torch.as_tensor(sig, device=dev)
+    B = PORT_BENCH_STREAMS
+    ebnos = np.linspace(*bench.CHAIN_EBNO, B).astype(np.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    z = torch.randn((B, len(sig), 2), generator=gen, device=dev)
+    noise = torch.complex(z[..., 0], z[..., 1])
+    del z
+    got = chain_scaling.chain_lanes(cfg2, sig_t, ebnos, bench.CHAIN_PACKETS,
+                                    noise=noise, device=dev, var=var)
+    want = plain_chain(cfg2, sig_t, var, ebnos, bench.CHAIN_PACKETS, noise)
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            f"port_bench: chain_lanes at B={B} differs from the plain "
+            f"versions")
+    say("port_bench", check="chain_lanes_vs_plain", streams=B,
+        packets=f"{int(got[0].sum())}/{B * bench.CHAIN_PACKETS}",
+        equal=True, check_s=f"{time.perf_counter() - t0:.3f}",
+        card=repr(smi))
+    return launches
+
+
+CORPUS_ROW = re.compile(r"^\s*(\S+) pkts=\s*(\d+) decoded=\s*(\d+) "
+                        r"jpeg_equal=\s*(True|False)")
+
+
+def corpus_phase(tmp, smi):
+    """corpus: CORPUS_IMAGES synthetic 800 x 608 JPEGs (synthetic_jpeg)
+    through `wenet_tpu_torch.tools.corpus_e2e --images` in v2, with the
+    Receiver and with --fused CORPUS_FUSED, each run with its kernels'
+    counts zeroed before and read after: exit 0, every packet sent
+    decoded, every reassembled JPEG equal to ssdv.decode of the packets
+    sent."""
+    from wenet_tpu_torch.kernels import bp_decode, crc_pack, deframe_topk
+    from wenet_tpu_torch.kernels import fsk_demod
+    from wenet_tpu_torch.tools import corpus_e2e
+
+    folder = os.path.join(tmp, "corpus")
+    os.makedirs(folder)
+    rng = np.random.default_rng(SEED + 800)
+    for i in range(1, CORPUS_IMAGES + 1):
+        with open(os.path.join(folder, f"{i}.jpg"), "wb") as fh:
+            fh.write(synthetic_jpeg(800, 608, rng))
+    for label, extra in (("receiver", []),
+                         ("fused", ["--fused", str(CORPUS_FUSED)])):
+        fsk_demod.launches = bp_decode.launches = crc_pack.launches = 0
+        deframe_topk.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = corpus_e2e.main(["--images", os.path.join(folder, "*.jpg"),
+                                  "--mode", "v2", *extra])
+        wall = time.perf_counter() - t0
+        lines = out.getvalue().strip().splitlines()
+        rows = [m.groups() for m in map(CORPUS_ROW.match, lines) if m]
+        counts = {"fsk_demod": fsk_demod.launches,
+                  "deframe_topk": deframe_topk.launches,
+                  "bp_decode": bp_decode.launches,
+                  "crc_pack": crc_pack.launches}
+        require(rc == 0, f"corpus {label}: exit {rc}: {lines}")
+        require(len(rows) == CORPUS_IMAGES
+                and all(r[1] == r[2] and r[3] == "True" for r in rows),
+                f"corpus {label}: rows {rows}")
+        for name, count in counts.items():
+            if label == "fused" or name != "deframe_topk":
+                require(count > 0, f"corpus {label} never launched {name}")
+        say("corpus", decoder=label, rows=[
+            f"{r[0]}:{r[2]}/{r[1]}:jpeg_equal={r[3]}" for r in rows],
+            summary=repr(lines[-1]), wall_s=f"{wall:.3f}", launches=counts,
+            card=repr(smi))
+
+
 def main() -> int:
     import torch
 
@@ -2883,6 +3081,12 @@ def main() -> int:
         # with its own launch counts; then the golden flight-rate tables
         mesh_phase(cfg2, raw2, tmp, smi)
         golden_phase(smi)
+
+        # 17. the pipelined Receiver, the port's benchmark and the image
+        # corpus, each with its own launch counts
+        pipelined_phase(cfg1, cfg2, dev, smi)
+        bench_launches = port_bench_phase(cfg2, dev, smi)
+        corpus_phase(tmp, smi)
     main_launches["fsk_demod_probe"] = probe_m["launches"]
 
     sources = {
@@ -3012,8 +3216,9 @@ def main() -> int:
                 "reach_ms": cn["ms"], "reach_plain_ms": cn["plain_ms"],
                 "reach_bound_ms": cn["bound_ms"],
                 "reach_rel_err": cn["rel_err"]})
-    for entry in out:   # the tools phase's own run of each kernel
+    for entry in out:   # the tools' and the port bench's own runs
         entry["tools_launches"] = tool_launches.get(entry["name"], 0)
+        entry["bench_launches"] = bench_launches.get(entry["name"], 0)
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

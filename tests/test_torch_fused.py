@@ -3,7 +3,8 @@ the JAX package on the same inputs: `deframe_topk` and the packed results
 exactly, the fused geometry, `decode_iq_fused` (v2 c64/cu8/cs16, v1 c64)
 and `decode_iq_parallel` payload lists equal; within the port,
 `decode_iq_fused_overlap` and `FusedReceiver` equal `decode_iq_fused`, and
-the CLI's --parallel and --slabs.  Scaled geometries as in
+the CLI's --parallel and --slabs; `FusedReceiver` also against JAX's on the
+same pushes.  Scaled geometries as in
 test_torch_pipeline.py; each JAX result is built once."""
 import functools
 import os
@@ -190,6 +191,27 @@ def test_fused_receiver_streaming_equals_batch(fmt):
     got = _stream(rx, raw, 2 * (37 * cfg.N + 131))
     assert got == _port_fused("v2", fmt)
     assert rx.n_crc_ok == len(got) == 6
+
+
+@pytest.mark.parametrize("depth", [2, 0])
+def test_fused_receiver_matches_jax(depth):
+    """The port's FusedReceiver against JAX's FusedReceiver on the same
+    cu8 bytes and pushes: equal payload lists, push by push."""
+    raw = _raw("v2", "cu8")
+    jcfg, tcfg = _cfgs("v2")
+    kw = dict(push_samples=len(raw) // 2 // 3, n_chunks=2,
+              input_format="cu8", depth=depth)
+    bucket = 2 * (37 * tcfg.N + 131)
+    jrx = jpipe.FusedReceiver("v2", jcfg, **kw)
+    trx = pipeline.FusedReceiver("v2", tcfg, device="cpu", **kw)
+    want, got = [], []
+    for i in range(0, len(raw), bucket):
+        want.append(jrx.push(raw[i:i + bucket]))
+        got.append(trx.push(raw[i:i + bucket]))
+    want.append(jrx.flush())
+    got.append(trx.flush())
+    assert got == want
+    assert sum(want, []) == _capture("v2")[1]
 
 
 def test_fused_receiver_push_after_flush():

@@ -69,7 +69,9 @@ NEW_MODULES = ("wenet_tpu_torch.ops.ldpc_onehot, wenet_tpu_torch.ops.channel, "
                "wenet_tpu_torch.tools.fused_where, "
                "wenet_tpu_torch.tools.fused_profile, "
                "wenet_tpu_torch.tools.pp_breakdown, "
-               "wenet_tpu_torch.tools.stream_tune")
+               "wenet_tpu_torch.tools.stream_tune, "
+               # the benchmark and the corpus tool
+               "wenet_tpu_torch.bench, wenet_tpu_torch.tools.corpus_e2e")
 
 
 def test_port_imports_no_jax():
@@ -158,6 +160,24 @@ def test_flight_side_imports_without_pillow_or_requests():
             "    assert e.code == 0, e.code\n"
             "print(sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('PIL', 'requests', 'jax')\n"
+            "             and sys.modules[m] is not None))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_bench_and_corpus_import_without_pillow():
+    """The benchmark and the corpus tool import where Pillow is absent
+    (the corpus tool reads and compares images with it only when it runs),
+    and load no module of `bench`, `jax` or `wenet_tpu`."""
+    code = ("import sys\n"
+            "sys.modules['PIL'] = sys.modules['PIL.Image'] = None\n"
+            "import wenet_tpu_torch.bench, wenet_tpu_torch.tools.corpus_e2e\n"
+            "print(sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('PIL', 'bench', 'jax',\n"
+            "                                    'wenet_tpu', 'tools')\n"
             "             and sys.modules[m] is not None))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=ROOT),
@@ -310,11 +330,13 @@ def test_cuda_requests_raise_without_card():
                                   "loss_census", "minsum_scaling",
                                   "wideband_scaling", "wideband_where",
                                   "fused_where", "fused_profile",
-                                  "pp_breakdown", "stream_tune"])
+                                  "pp_breakdown", "stream_tune",
+                                  "bench", "corpus_e2e"])
 def test_public_functions_default_to_the_card(name, monkeypatch):
     """Called without a device, the port's public demod and deframe entry
     points ask for CUDA, and without a card they raise instead of running
     on the CPU."""
+    from wenet_tpu_torch import bench
     from wenet_tpu_torch.cli import bench_demod, ber
     from wenet_tpu_torch.examples.link_emulation import LinkEmulator
     from wenet_tpu_torch.ops import channelizer, deframe
@@ -322,8 +344,8 @@ def test_public_functions_default_to_the_card(name, monkeypatch):
     from wenet_tpu_torch.tools import chain_scaling, fused_profile
     from wenet_tpu_torch.tools import fused_where, loss_census
     from wenet_tpu_torch.tools import minsum_scaling, pp_breakdown
-    from wenet_tpu_torch.tools import stream_tune, wideband_scaling
-    from wenet_tpu_torch.tools import wideband_where
+    from wenet_tpu_torch.tools import corpus_e2e, stream_tune
+    from wenet_tpu_torch.tools import wideband_scaling, wideband_where
     from wenet_tpu_torch.utils import probe
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tfsk.FSKConfig(Fs=96000, Rs=9600)
@@ -375,6 +397,9 @@ def test_public_functions_default_to_the_card(name, monkeypatch):
         "fused_profile": lambda: fused_profile.main(["--secs", "0.5"]),
         "pp_breakdown": lambda: pp_breakdown.run("v2", 1.0, cfg=cfg),
         "stream_tune": lambda: stream_tune.main(["--secs", "0.5"]),
+        # the benchmark and the corpus tool
+        "bench": lambda: bench.main([]),
+        "corpus_e2e": lambda: corpus_e2e.main(["--images", "none"]),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[name]()

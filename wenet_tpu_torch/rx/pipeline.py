@@ -10,8 +10,10 @@ pushes equal one-shot decoding, as in the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -65,6 +67,9 @@ def stream_step(cfg: fsk.FSKConfig, data: torch.Tensor, state: fsk.DemodState,
     [soft (nf*Nbits) | valid (nf) | ebno, ppm, n_valid_frames, last, f_est]
     — the host needs exactly one copy of it.  with_eye appends the last
     valid frame's eye probe: [f_int re (M*NP) | f_int im | high_sample].
+
+    Nothing here waits for the device: the last valid frame's stats are
+    taken with device-side gathers, so on a card the call only queues work.
     """
     dev = data.device
     res = fsk._drop(fsk.demod_raw(
@@ -73,18 +78,39 @@ def stream_step(cfg: fsk.FSKConfig, data: torch.Tensor, state: fsk.DemodState,
         fsk.lane_state(state, 1), with_eye))
     final, outs = res[:2]
     vidx = torch.arange(nf, device=dev)
-    last = torch.max(torch.where(outs.valid, vidx, -1))
+    last = torch.max(torch.where(outs.valid, vidx, -1)).reshape(1)
     li = torch.clamp(last, min=0)
-    stats = torch.cat([
-        torch.stack([outs.ebno_db[li], outs.ppm[li],
-                     outs.valid.float().sum(), last.float()]),
-        outs.f_est[li].float()])
+    stats = torch.cat([outs.ebno_db.index_select(0, li),
+                       outs.ppm.index_select(0, li),
+                       outs.valid.float().sum().reshape(1), last.float(),
+                       outs.f_est.index_select(0, li).reshape(-1).float()])
     parts = [outs.soft.reshape(-1), outs.valid.float(), stats]
     if with_eye:
         eye = res[2]
         parts += [eye.f_int.real.reshape(-1), eye.f_int.imag.reshape(-1),
                   eye.high_sample.float().reshape(1)]
     return final, torch.cat(parts)
+
+
+class _InFlight(NamedTuple):
+    """A chunk whose demod is queued: the carry on the device, the packed
+    vector and (pos, nin) (on a card, pinned host copies that are whole
+    once `done` has fired), the frame count, the raw buffer and the new
+    samples it holds."""
+    final: fsk.DemodState
+    packed: torch.Tensor
+    pos_nin: torch.Tensor
+    done: torch.cuda.Event | None
+    nf: int
+    buf: np.ndarray
+    n_new: int
+
+
+def _to_host_async(t: torch.Tensor) -> torch.Tensor:
+    """A pinned host tensor that `t` is copied into without blocking."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
 
 
 class Receiver:
@@ -97,8 +123,11 @@ class Receiver:
       max_iter: BP iterations
       pipelined: each push first retires the in-flight chunk's carry,
         queues the new chunk's demod, and only then does the host-side
-        deframe of the previous chunk.  Payloads arrive one push late;
-        call flush() at the end.  Output equals the serial path.
+        deframe of the previous chunk.  On a card the demod and the
+        copies of its results go on the receiver's own stream, so that
+        deframe's decode on the current stream runs beside it.  Payloads
+        arrive one push late; call flush() at the end.  Output equals the
+        serial path.
       input_format: 'c64' (complex64 samples), 'cu8' (raw rtl_sdr bytes) or
         'cs16' (raw s16 IQ pairs); raw formats convert on the device
       with_eye: also fetch each push's last valid frame's integrator
@@ -137,6 +166,8 @@ class Receiver:
         self.stats = RxStats()
         self.pipelined = pipelined
         self._pending = None
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
         self.seconds = {"demod": 0.0, "deframe": 0.0}
 
     # ------------------------------------------------------------- one-shot
@@ -156,9 +187,20 @@ class Receiver:
 
     # ------------------------------------------------------------ streaming
 
+    def _on_stream(self):
+        """The context in which this receiver's device work is queued: its
+        own stream on a card, nothing on the CPU."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
     def _dispatch(self, chunk: np.ndarray):
-        """Queue the demod of a chunk on the device; returns the in-flight
-        tuple, or None if not enough samples are buffered yet."""
+        """Queue the demod of a chunk on the device, then the copies of its
+        packed result and of its carry's pos and nin to the host behind
+        it; returns the in-flight record, or None if not enough samples
+        are buffered yet.  On a card all of it goes on the receiver's own
+        stream, so the previous chunk's decode on the current stream does
+        not queue behind this demod."""
         t0 = time.perf_counter()
         cfg, w = self.cfg, self._width
         chunk = np.asarray(chunk, _RAW_DTYPES[self.input_format])
@@ -166,8 +208,6 @@ class Receiver:
             chunk = chunk[: 2 * (len(chunk) // 2)]
         buf = np.concatenate([self._history, chunk])
         n_samples = len(buf) // w
-        if self.state is None:
-            self.state = fsk.demod_init(cfg, self.device)
         nf = cfg.num_frames(max(n_samples - self._pos, 0))
         if nf <= 0 or n_samples < self._nin:
             self._history = buf
@@ -176,37 +216,53 @@ class Receiver:
             data = buf.view(np.float32).reshape(-1, 2)
         else:
             data = buf.reshape(-1, 2)
-        data_t = torch.from_numpy(data).to(self.device)
-        final, packed = stream_step(cfg, data_t, self.state, n_samples,
-                                    self.input_format, nf, self.with_eye)
+        done = None
+        with self._on_stream():
+            if self.state is None:
+                self.state = fsk.demod_init(cfg, self.device)
+            # a pageable copy: it waits for this stream, idle here
+            data_t = torch.from_numpy(data).to(self.device)
+            final, packed = stream_step(cfg, data_t, self.state, n_samples,
+                                        self.input_format, nf, self.with_eye)
+            pos_nin = torch.stack([final.pos, final.nin])
+            if self._stream is not None:
+                packed, pos_nin = _to_host_async(packed), _to_host_async(
+                    pos_nin)
+                done = torch.cuda.Event()
+                done.record(self._stream)
         self.seconds["demod"] += time.perf_counter() - t0
-        return final, packed, nf, buf, len(chunk) // w
+        return _InFlight(final, packed, pos_nin, done, nf, buf,
+                         len(chunk) // w)
 
-    def _retire_state(self, final: fsk.DemodState, buf: np.ndarray):
-        """Fold the in-flight chunk's carry back: pos and nin cross to the
-        host (one small copy); the rest of the state stays on the device."""
+    def _retire_state(self, inflight: _InFlight):
+        """Fold the in-flight chunk's carry back: wait for its copies, take
+        pos and nin on the host; the rest of the state stays on the
+        device."""
         t0 = time.perf_counter()
-        end_pos, nin = (int(v) for v in
-                        torch.stack([final.pos, final.nin]).cpu())
+        if inflight.done is not None:
+            inflight.done.synchronize()
+        end_pos, nin = (int(v) for v in inflight.pos_nin)
         keep = min(end_pos, self.cfg.Nmem)
-        self._history = buf[(end_pos - keep) * self._width:]
-        self.state = final._replace(pos=torch.tensor(
-            keep, dtype=torch.int32, device=self.device))
+        self._history = inflight.buf[(end_pos - keep) * self._width:]
+        with self._on_stream():
+            self.state = inflight.final._replace(pos=torch.full(
+                (), keep, dtype=torch.int32, device=self.device))
         self._pos, self._nin = keep, nin
         self.seconds["demod"] += time.perf_counter() - t0
 
-    def _complete(self, packed: torch.Tensor, nf: int, n_new: int) -> list:
-        """Host-side half: one copy of the packed array, then deframe,
-        batch decode and CRC."""
+    def _complete(self, inflight: _InFlight) -> list:
+        """Host-side half of a retired chunk: its packed array, then
+        deframe, batch decode and CRC."""
         t0 = time.perf_counter()
-        payloads = self.deframer.push(self._fetch(packed, nf, n_new))
+        payloads = self.deframer.push(self._fetch(
+            inflight.packed, inflight.nf, inflight.n_new))
         self.stats.detections = self.deframer.n_detections
         self.stats.crc_ok = self.deframer.n_crc_ok
         self.seconds["deframe"] += time.perf_counter() - t0
         return payloads
 
     def _fetch(self, packed: torch.Tensor, nf: int, n_new: int):
-        """The packed array to the host: the valid frames' soft bits, with
+        """The packed array on the host: the valid frames' soft bits, with
         the stats and the eye probe taken in."""
         p = packed.cpu().numpy()
         nbits = self.cfg.Nbits
@@ -239,17 +295,15 @@ class Receiver:
             inflight = self._dispatch(chunk)
             if inflight is None:
                 return []
-            final, packed, nf, buf, n_new = inflight
-            self._retire_state(final, buf)
-            return self._complete(packed, nf, n_new)
+            self._retire_state(inflight)
+            return self._complete(inflight)
 
         payloads = []
         if self._pending is not None:
-            final, packed, nf, buf, n_prev = self._pending
-            self._pending = None
-            self._retire_state(final, buf)
+            prev, self._pending = self._pending, None
+            self._retire_state(prev)
             self._pending = self._dispatch(chunk)
-            payloads = self._complete(packed, nf, n_prev)
+            payloads = self._complete(prev)
         else:
             self._pending = self._dispatch(chunk)
         return payloads
@@ -258,10 +312,9 @@ class Receiver:
         """Drain the in-flight chunk (pipelined mode); serial mode no-op."""
         if self._pending is None:
             return []
-        final, packed, nf, buf, n_new = self._pending
-        self._pending = None
-        self._retire_state(final, buf)
-        return self._complete(packed, nf, n_new)
+        prev, self._pending = self._pending, None
+        self._retire_state(prev)
+        return self._complete(prev)
 
 
 # ------------------------------------------------------ whole-capture paths

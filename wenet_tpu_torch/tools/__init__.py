@@ -9,7 +9,8 @@ measurement tools (`chain_scaling`, `loss_census`, `minsum_scaling`,
 defaults of their tools/ counterparts; each runs on the card unless the
 caller asks for the CPU, prints one JSON record a line, and with `--out
 PATH` appends the records to that file.  `captures` holds the capture
-builders they share.
+builders they share.  `corpus_e2e` runs an image corpus through SSDV,
+the modem and the receiver and back (tools/corpus_e2e.py's counterpart).
 """
 import json
 import os

@@ -72,12 +72,12 @@ def _stream_packets(secs: float, cfg) -> int:
 
 
 def stream_capture(secs: float, ebno_db: float = 12.0, seed: int = 3,
-                   with_cache_flag: bool = False):
-    """The deterministic v2 ingest capture at the flight geometry:
-    (raw cu8 bytes, n_packets), or (raw, n_packets, was_cached) with
-    with_cache_flag."""
+                   with_cache_flag: bool = False, cfg=None):
+    """The deterministic v2 ingest capture at cfg's rates (default the
+    flight geometry): (raw cu8 bytes, n_packets), or (raw, n_packets,
+    was_cached) with with_cache_flag."""
     from ..ops import channel, fsk
-    cfg = fsk.V2_CONFIG
+    cfg = fsk.V2_CONFIG if cfg is None else cfg
     rng = np.random.default_rng(seed)
     n_packets = _stream_packets(secs, cfg)
     gen_fp = hashlib.sha1(
@@ -107,12 +107,13 @@ def stream_capture(secs: float, ebno_db: float = 12.0, seed: int = 3,
     return (raw, n_packets, False) if with_cache_flag else (raw, n_packets)
 
 
-def stream_payloads(secs: float, seed: int = 3) -> list:
-    """The payloads framed into `stream_capture(secs, seed=seed)`, in
-    order."""
+def stream_payloads(secs: float, seed: int = 3, cfg=None) -> list:
+    """The payloads framed into `stream_capture(secs, seed=seed,
+    cfg=cfg)`, in order."""
     from ..ops import fsk
-    return packet_payloads(_stream_packets(secs, fsk.V2_CONFIG),
-                           np.random.default_rng(seed))
+    return packet_payloads(
+        _stream_packets(secs, fsk.V2_CONFIG if cfg is None else cfg),
+        np.random.default_rng(seed))
 
 
 def save_atomic(path: str, array: np.ndarray):

@@ -3,9 +3,10 @@ tools/pp_breakdown.py).
 
 Splits each steady-state push of `rx.pipeline.Receiver` into its phases:
   dispatch   build the buffer, copy it to the device, queue the demod kernel
+             and the copies of its results to the host
   exec_wait  wait for the device (`torch.cuda.synchronize()`)
-  retire     the carried state's pos and nin to the host
-  fetch      the packed soft bits, validity and stats to the host
+  retire     the carried state's pos and nin, copied, read on the host
+  fetch      the packed soft bits, validity and stats, copied, unpacked
   uw         the UW FSM on the host (the C FSM for a CUDA device, its
              numpy version on the CPU, as the Receiver picks it)
   decode     candidate gather, one BP batch and the CRC on the device
@@ -85,13 +86,12 @@ def breakdown(raw, mode, cfg, input_format="cu8", chunk=None, device="cuda"):
         t1 = time.perf_counter()
         if inflight is None:
             continue
-        final, packed, nf, buf, n_new = inflight
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t2 = time.perf_counter()
-        rx._retire_state(final, buf)
+        rx._retire_state(inflight)
         t3 = time.perf_counter()
-        soft = rx._fetch(packed, nf, n_new)
+        soft = rx._fetch(inflight.packed, inflight.nf, inflight.n_new)
         t4 = time.perf_counter()
         hard, positions, stale = d.detect(soft)
         t5 = time.perf_counter()

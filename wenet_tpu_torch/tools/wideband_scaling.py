@@ -13,8 +13,8 @@ ends with the packets' copy to the host.
         [--device cpu] [--out PATH]
 
 prints one JSON record an N: band Msamples/s, x the band's real time,
-channels complete (at least 11 of 12 packets), the first call's and the
-capture build's seconds.
+channels complete (at least 11 of 12 packets), packets decoded and sent,
+the first call's and the capture build's seconds.
 """
 from __future__ import annotations
 
@@ -92,12 +92,12 @@ def build_wideband_capture(nch: int, cfg=None, ebno_db: float = 30.0,
 
 
 def measure(nch: int, reps: int = 2, log=lambda *a: None,
-            device="cuda") -> dict:
-    """Build or load the N-channel capture, copy it to the device once,
-    run the fused wideband path `reps` times after a first call -> the
-    record."""
+            device="cuda", cfg=None) -> dict:
+    """Build or load the N-channel capture (channels at cfg's rates,
+    default the flight geometry), copy it to the device once, run the
+    fused wideband path `reps` times after a first call -> the record."""
     from ..ops import channelizer, fsk
-    cfg = fsk.V2_CONFIG
+    cfg = fsk.V2_CONFIG if cfg is None else cfg
     dev = resolve_device(device)
     t0 = time.perf_counter()
     wide, fs_total = build_wideband_capture(nch, cfg)
@@ -123,6 +123,8 @@ def measure(nch: int, reps: int = 2, log=lambda *a: None,
            "band_realtime_x": round(msps * 1e6 / fs_total, 1),
            "channels_complete": complete,
            "packets_per_channel": PACKETS_PER_CHANNEL,
+           "packets_ok": sum(got.values()),
+           "packets_sent": nch * PACKETS_PER_CHANNEL,
            "first_call_s": round(first, 3), "exec_s": round(dt, 5),
            "capture_build_s": round(build_s, 1),
            "platform": platform(dev)}
