@@ -24,6 +24,7 @@ from .. import native
 from ..core import framing
 from ..core import ldpc_tables as T
 from ..device import resolve_device
+from ..utils.spans import span
 from . import crc as dcrc
 from . import ldpc
 
@@ -144,22 +145,37 @@ def decode_windows(windows: np.ndarray, mode: str = "v2",
 
     Returns (packets_raw (B, 258) uint8, crc_ok (B,) bool, iters (B,) int32).
     """
-    device = resolve_device(device)
+    return _decode_batch(*_soft_decisions(windows, mode), max_iter, device)
+
+
+def _soft_decisions(windows: np.ndarray, mode: str):
+    """(B, syms) soft windows -> ((Bp, CODE_LEN) float32 soft decisions, B):
+    the v2 descramble or the v1 RS232 strip on the host, in float64, and
+    the batch bucketed to a power of two Bp >= 4, padded with the last row
+    (no rows for B = 0)."""
     B = len(windows)
     if B == 0:
-        return (np.zeros((0, 258), np.uint8), np.zeros(0, bool),
-                np.zeros(0, np.int32))
+        return np.zeros((0, T.CODE_LEN), np.float32), 0
     windows = np.asarray(windows, np.float64)
     if mode == "v2":
         sd = framing.rx_descramble_soft(windows)[:, : T.CODE_LEN]
     else:
         sd = framing.rs232_strip_soft(windows)[:, : T.CODE_LEN]
-
-    # bucket the batch to a power of two >= 4, padding with the last row
     Bp = 1 << max(int(np.ceil(np.log2(B))), 2)
     sd = np.asarray(sd, np.float32)
     if Bp != B:
         sd = np.concatenate([sd, np.tile(sd[-1:], (Bp - B, 1))], axis=0)
+    return sd, B
+
+
+def _decode_batch(sd: np.ndarray, B: int, max_iter: int, device):
+    """`_soft_decisions`' batch on `device`: `sd_to_llr`, the BP decode,
+    the CRC gate with byte packing, one copy back -> `decode_windows`'
+    result for its first B rows."""
+    device = resolve_device(device)
+    if B == 0:
+        return (np.zeros((0, 258), np.uint8), np.zeros(0, bool),
+                np.zeros(0, np.int32))
     sd_t = torch.from_numpy(sd).to(device)
     llr = ldpc.sd_to_llr(sd_t)
     bits, iters, _ = ldpc.decode(llr, max_iter=max_iter)
@@ -170,24 +186,37 @@ def decode_windows(windows: np.ndarray, mode: str = "v2",
 
 def decode_candidates(soft: np.ndarray, positions: np.ndarray,
                       mode: str = "v2", max_iter: int = T.MAX_ITER,
-                      device="cuda"):
-    """Batch-decode the candidate windows at `positions` (UW-end indices)."""
+                      device="cuda", clocks: dict | None = None):
+    """Batch-decode the candidate windows at `positions` (UW-end indices).
+
+    clocks: a stage clock dict (`utils.spans`) that takes the gather and
+    host soft decisions as "deframe.gather", the device batch as
+    "deframe.bp", both also under "deframe"."""
     _, _, syms = _mode_params(mode)
-    if len(positions) == 0:
-        return decode_windows(np.zeros((0, syms)), mode, max_iter, device)
-    idx = positions[:, None] + 1 + np.arange(syms)[None, :]
-    return decode_windows(soft[idx].astype(np.float64), mode, max_iter,
-                          device)
+    with span("deframe.gather", clocks, "deframe"):
+        idx = (np.asarray(positions, np.int64)[:, None] + 1
+               + np.arange(syms)[None, :])
+        sd, B = _soft_decisions(soft[idx], mode)
+    with span("deframe.bp", clocks, "deframe"):
+        return _decode_batch(sd, B, max_iter, device)
+
+
+STAGES = ("deframe.detect", "deframe.fsm", "deframe.gather", "deframe.bp",
+          "deframe.consume")
 
 
 class StreamDeframer:
     """Stateful chunked deframer for live streams: `push(chunk)` yields
     exactly the packets `deframe_soft` would produce on the concatenated
     stream, carrying the post-detection bit_buffer state across chunks.
-    The UW FSM is the C one for a CUDA device, the numpy one otherwise."""
+    The UW FSM is the C one for a CUDA device, the numpy one otherwise.
+
+    `seconds` holds the stage clocks of `STAGES` and their sum "deframe"
+    (`utils.spans`); clocks: a dict with those keys to add to instead of
+    its own (the Receiver's)."""
 
     def __init__(self, mode: str = "v2", max_iter: int = T.MAX_ITER,
-                 device="cuda"):
+                 device="cuda", clocks: dict | None = None):
         self.mode = mode
         self.max_iter = max_iter
         self.device = resolve_device(device)
@@ -197,37 +226,44 @@ class StreamDeframer:
         self._state = np.zeros(self._nuw, np.int8)   # bit_buffer at _buf[0]
         self.n_detections = 0
         self.n_crc_ok = 0
+        self.seconds = (dict.fromkeys(("deframe",) + STAGES, 0.0)
+                        if clocks is None else clocks)
 
     def push(self, soft_chunk: np.ndarray) -> list:
         hard, positions, stale = self.detect(soft_chunk)
-        out = self.decode(positions)
-        self.consume(hard, positions, stale)
-        return out
+        pkts, ok = self.decode(positions)
+        with span("deframe.consume", self.seconds, "deframe"):
+            return self.consume(hard, positions, stale, pkts, ok)
 
     def detect(self, soft_chunk: np.ndarray):
         """Append the chunk and run the UW FSM over the buffer ->
         (hard bits, UW-end positions, the FSM's bit_buffer after them)."""
-        self._buf = np.concatenate(
-            [self._buf, np.asarray(soft_chunk, np.float32)])
-        hard = (self._buf < 0).astype(np.uint8)
-        positions, stale = uw_detect_positions(
-            hard, self.mode, self._state,
-            force_numpy=self.device.type != "cuda")
+        with span("deframe.detect", self.seconds, "deframe"):
+            self._buf = np.concatenate(
+                [self._buf, np.asarray(soft_chunk, np.float32)])
+            hard = (self._buf < 0).astype(np.uint8)
+        with span("deframe.fsm", self.seconds, "deframe"):
+            positions, stale = uw_detect_positions(
+                hard, self.mode, self._state,
+                force_numpy=self.device.type != "cuda")
         return hard, positions, stale
 
-    def decode(self, positions: np.ndarray) -> list:
-        """One decode batch of the candidates at `positions` -> the
-        CRC-valid payloads, in order."""
+    def decode(self, positions: np.ndarray):
+        """One decode batch of the candidates at `positions` ->
+        (packets_raw (n, 258) uint8, crc_ok (n,) bool)."""
         pkts, ok, _ = decode_candidates(self._buf, positions, self.mode,
-                                        self.max_iter, self.device)
-        self.n_detections += len(positions)
-        self.n_crc_ok += int(ok.sum())
-        return [pkts[i, :256].tobytes() for i in range(len(positions))
-                if ok[i]]
+                                        self.max_iter, self.device,
+                                        self.seconds)
+        return pkts, ok
 
     def consume(self, hard: np.ndarray, positions: np.ndarray,
-                stale: np.ndarray):
-        """Drop what no later detection needs and carry the FSM state."""
+                stale: np.ndarray, pkts: np.ndarray, ok: np.ndarray) -> list:
+        """Count the decoded candidates, drop what no later detection needs
+        and carry the FSM state -> the CRC-valid payloads, in order."""
+        self.n_detections += len(positions)
+        self.n_crc_ok += int(ok.sum())
+        payloads = [pkts[i, :256].tobytes() for i in range(len(positions))
+                    if ok[i]]
         if len(positions):
             # consume through the last packet
             cut = int(positions[-1]) + self._syms + 1
@@ -241,6 +277,7 @@ class StreamDeframer:
                 if cut >= self._nuw else np.concatenate(
                     [self._state[cut - self._nuw:], hard[:cut]]).astype(np.int8)
             self._buf = self._buf[cut:]
+        return payloads
 
 
 def descramble_or_strip(wins: torch.Tensor, mode: str) -> torch.Tensor:

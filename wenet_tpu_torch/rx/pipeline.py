@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -22,6 +21,7 @@ from ..core import framing
 from ..device import resolve_device
 from ..ops import deframe, fsk
 from ..parallel.mesh import Mesh, mesh_device, shard_rows
+from ..utils.spans import span
 from .stats import receiver_stats_record  # noqa: F401  (its home is rx.stats)
 
 MODE_CONFIGS = {
@@ -41,6 +41,12 @@ _RAW_DTYPES = {fmt: INPUT_CONVERTERS[fmt][1] for fmt in ("cu8", "cs16",
                                                           "c64")}
 _TORCH_DTYPES = {np.uint8: torch.uint8, np.int16: torch.int16,
                  np.float32: torch.float32}
+
+# the Receiver's stage clocks (`utils.spans`), in the order a chunk meets
+# them, and the totals they add to
+DEMOD_STAGES = ("rx.buffer", "rx.copy_in", "rx.launch", "rx.wait",
+                "rx.retire")
+DEFRAME_STAGES = ("rx.fetch",) + deframe.STAGES
 
 
 @dataclasses.dataclass
@@ -135,9 +141,11 @@ class Receiver:
         valid frame) for the eye diagram of `receiver_stats_record`
       device: 'cuda' (default) or 'cpu'; CUDA without a card raises
 
-    `seconds` accumulates host wall time in the demod (dispatch + carry
-    retire, which waits for the device) and in the deframe (UW FSM + batch
-    decode + CRC).
+    `seconds` accumulates host wall time a stage (`DEMOD_STAGES`,
+    `DEFRAME_STAGES`) and their sums: "demod" (buffer, copy in, launch,
+    the wait for the device, carry retire) and "deframe" (fetch, UW FSM,
+    batch decode + CRC, consume).  While a torch profiler records, each
+    stage is also a profiler span of its name (`utils.spans`).
     """
 
     def __init__(self, mode: str = "v2", cfg: fsk.FSKConfig | None = None,
@@ -156,8 +164,11 @@ class Receiver:
             base = dataclasses.replace(
                 base, est_min=estimator_limits[0], est_max=estimator_limits[1])
         self.cfg = base
+        self.seconds = dict.fromkeys(
+            ("demod", "deframe") + DEMOD_STAGES + DEFRAME_STAGES, 0.0)
         self.deframer = deframe.StreamDeframer(mode, max_iter=max_iter,
-                                               device=self.device)
+                                               device=self.device,
+                                               clocks=self.seconds)
         self.state = None            # DemodState on the device, lazily
         self._pos = 0                # host copies of state.pos / state.nin
         self._nin = self.cfg.N
@@ -168,7 +179,6 @@ class Receiver:
         self._pending = None
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
-        self.seconds = {"demod": 0.0, "deframe": 0.0}
 
     # ------------------------------------------------------------- one-shot
 
@@ -201,27 +211,28 @@ class Receiver:
         are buffered yet.  On a card all of it goes on the receiver's own
         stream, so the previous chunk's decode on the current stream does
         not queue behind this demod."""
-        t0 = time.perf_counter()
-        cfg, w = self.cfg, self._width
-        chunk = np.asarray(chunk, _RAW_DTYPES[self.input_format])
-        if w == 2:
-            chunk = chunk[: 2 * (len(chunk) // 2)]
-        buf = np.concatenate([self._history, chunk])
-        n_samples = len(buf) // w
-        nf = cfg.num_frames(max(n_samples - self._pos, 0))
-        if nf <= 0 or n_samples < self._nin:
-            self._history = buf
-            return None
-        if self.input_format == "c64":
-            data = buf.view(np.float32).reshape(-1, 2)
-        else:
-            data = buf.reshape(-1, 2)
-        done = None
-        with self._on_stream():
+        cfg, w, clocks = self.cfg, self._width, self.seconds
+        with span("rx.buffer", clocks, "demod"):
+            chunk = np.asarray(chunk, _RAW_DTYPES[self.input_format])
+            if w == 2:
+                chunk = chunk[: 2 * (len(chunk) // 2)]
+            buf = np.concatenate([self._history, chunk])
+            n_samples = len(buf) // w
+            nf = cfg.num_frames(max(n_samples - self._pos, 0))
+            if nf <= 0 or n_samples < self._nin:
+                self._history = buf
+                return None
+            if self.input_format == "c64":
+                data = buf.view(np.float32).reshape(-1, 2)
+            else:
+                data = buf.reshape(-1, 2)
+        with span("rx.copy_in", clocks, "demod"), self._on_stream():
             if self.state is None:
                 self.state = fsk.demod_init(cfg, self.device)
             # a pageable copy: it waits for this stream, idle here
             data_t = torch.from_numpy(data).to(self.device)
+        done = None
+        with span("rx.launch", clocks, "demod"), self._on_stream():
             final, packed = stream_step(cfg, data_t, self.state, n_samples,
                                         self.input_format, nf, self.with_eye)
             pos_nin = torch.stack([final.pos, final.nin])
@@ -230,7 +241,6 @@ class Receiver:
                     pos_nin)
                 done = torch.cuda.Event()
                 done.record(self._stream)
-        self.seconds["demod"] += time.perf_counter() - t0
         return _InFlight(final, packed, pos_nin, done, nf, buf,
                          len(chunk) // w)
 
@@ -238,27 +248,30 @@ class Receiver:
         """Fold the in-flight chunk's carry back: wait for its copies, take
         pos and nin on the host; the rest of the state stays on the
         device."""
-        t0 = time.perf_counter()
-        if inflight.done is not None:
-            inflight.done.synchronize()
-        end_pos, nin = (int(v) for v in inflight.pos_nin)
-        keep = min(end_pos, self.cfg.Nmem)
-        self._history = inflight.buf[(end_pos - keep) * self._width:]
-        with self._on_stream():
-            self.state = inflight.final._replace(pos=torch.full(
-                (), keep, dtype=torch.int32, device=self.device))
-        self._pos, self._nin = keep, nin
-        self.seconds["demod"] += time.perf_counter() - t0
+        with span("rx.wait", self.seconds, "demod"):
+            if inflight.done is not None:
+                inflight.done.synchronize()
+        with span("rx.retire", self.seconds, "demod"):
+            end_pos, nin = (int(v) for v in inflight.pos_nin)
+            keep = min(end_pos, self.cfg.Nmem)
+            self._history = inflight.buf[(end_pos - keep) * self._width:]
+            with self._on_stream():
+                self.state = inflight.final._replace(pos=torch.full(
+                    (), keep, dtype=torch.int32, device=self.device))
+            self._pos, self._nin = keep, nin
 
     def _complete(self, inflight: _InFlight) -> list:
         """Host-side half of a retired chunk: its packed array, then
         deframe, batch decode and CRC."""
-        t0 = time.perf_counter()
-        payloads = self.deframer.push(self._fetch(
-            inflight.packed, inflight.nf, inflight.n_new))
-        self.stats.detections = self.deframer.n_detections
-        self.stats.crc_ok = self.deframer.n_crc_ok
-        self.seconds["deframe"] += time.perf_counter() - t0
+        d, clocks = self.deframer, self.seconds
+        with span("rx.fetch", clocks, "deframe"):
+            soft = self._fetch(inflight.packed, inflight.nf, inflight.n_new)
+        hard, positions, stale = d.detect(soft)
+        pkts, ok = d.decode(positions)
+        with span("deframe.consume", clocks, "deframe"):
+            payloads = d.consume(hard, positions, stale, pkts, ok)
+            self.stats.detections = d.n_detections
+            self.stats.crc_ok = d.n_crc_ok
         return payloads
 
     def _fetch(self, packed: torch.Tensor, nf: int, n_new: int):

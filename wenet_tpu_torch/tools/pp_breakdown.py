@@ -1,22 +1,25 @@
 """Per-push time breakdown of the streaming Receiver (counterpart of
 tools/pp_breakdown.py).
 
-Splits each steady-state push of `rx.pipeline.Receiver` into its phases:
-  dispatch   build the buffer, copy it to the device, queue the demod kernel
-             and the copies of its results to the host
-  exec_wait  wait for the device (`torch.cuda.synchronize()`)
-  retire     the carried state's pos and nin, copied, read on the host
-  fetch      the packed soft bits, validity and stats, copied, unpacked
-  uw         the UW FSM on the host (the C FSM for a CUDA device, its
-             numpy version on the CPU, as the Receiver picks it)
-  decode     candidate gather, one BP batch and the CRC on the device
+Splits the steady-state pushes of a serial `rx.pipeline.Receiver` into
+phases, read from the Receiver's own stage clocks (`Receiver.seconds`,
+`utils.spans`) after real `push` calls:
+  dispatch   rx.buffer + rx.copy_in + rx.launch: build the buffer, copy it
+             to the device, queue the demod kernel and the copies of its
+             results to the host
+  exec_wait  rx.wait: wait for the demod and its copies (the event)
+  retire     rx.retire: the carried state's pos and nin read on the host
+  fetch      rx.fetch: the packed soft bits, validity and stats unpacked
+  uw         deframe.detect + deframe.fsm: the hard bits and the UW FSM on
+             the host (the C FSM for a CUDA device, its numpy version on
+             the CPU, as the Receiver picks it)
+  decode     deframe.gather + deframe.bp: candidate gather and host
+             descramble, one BP batch and the CRC on the device
 
 The pipelined Receiver overlaps fetch, uw and decode of chunk k with the
 device's work on chunk k+1, so the speed-up it can reach is total /
-(dispatch + retire + max(exec_wait, fetch + uw + decode)).  The loop is
-the Receiver's own stages called one by one (`_dispatch`,
-`_retire_state`, `_fetch`, and its deframer's `detect`, `decode` and
-`consume`): its payloads equal the Receiver's.
+(dispatch + retire + max(exec_wait, fetch + uw + decode)).  The
+deframer's consume (`deframe.consume`) is in no phase.
 
     python -m wenet_tpu_torch.tools.pp_breakdown [v2|v1] [--seconds 8]
         [--device cpu] [--out PATH]
@@ -27,15 +30,18 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 import numpy as np
-import torch
 
 from ..device import resolve_device
 from . import emitter, platform
 
 PHASES = ("dispatch", "retire", "fetch", "uw", "decode", "exec_wait")
+# each phase's stage clocks (`rx.pipeline.Receiver.seconds`)
+STAGES = {"dispatch": ("rx.buffer", "rx.copy_in", "rx.launch"),
+          "exec_wait": ("rx.wait",), "retire": ("rx.retire",),
+          "fetch": ("rx.fetch",), "uw": ("deframe.detect", "deframe.fsm"),
+          "decode": ("deframe.gather", "deframe.bp")}
 
 
 def capture(mode="v2", seconds=8.0, ebno=12.0, input_format="cu8", cfg=None):
@@ -64,8 +70,8 @@ def push_size(cfg, chunk_s: float, input_format: str) -> int:
 
 def breakdown(raw, mode, cfg, input_format="cu8", chunk=None, device="cuda"):
     """One warm pass of a Receiver over raw, then a second Receiver's
-    pushes taken apart and timed -> (seconds summed a phase, pushes,
-    payloads in order)."""
+    pushes, their stage clocks summed into the phases -> (seconds summed a
+    phase, pushes that completed a chunk, payloads in order)."""
     from ..rx.pipeline import Receiver
 
     dev = resolve_device(device)
@@ -77,32 +83,12 @@ def breakdown(raw, mode, cfg, input_format="cu8", chunk=None, device="cuda"):
 
     rx = Receiver(mode=mode, with_eye=False, input_format=input_format,
                   cfg=cfg, device=dev)
-    d = rx.deframer
-    acc = dict.fromkeys(PHASES, 0.0)
     pushes, payloads = 0, []
     for i in range(0, len(raw), chunk):
-        t0 = time.perf_counter()
-        inflight = rx._dispatch(raw[i:i + chunk])
-        t1 = time.perf_counter()
-        if inflight is None:
-            continue
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t2 = time.perf_counter()
-        rx._retire_state(inflight)
-        t3 = time.perf_counter()
-        soft = rx._fetch(inflight.packed, inflight.nf, inflight.n_new)
-        t4 = time.perf_counter()
-        hard, positions, stale = d.detect(soft)
-        t5 = time.perf_counter()
-        payloads += d.decode(positions)
-        t6 = time.perf_counter()
-        d.consume(hard, positions, stale)
-        for name, dt in (("dispatch", t1 - t0), ("exec_wait", t2 - t1),
-                         ("retire", t3 - t2), ("fetch", t4 - t3),
-                         ("uw", t5 - t4), ("decode", t6 - t5)):
-            acc[name] += dt
-        pushes += 1
+        samples = rx.stats.samples
+        payloads += rx.push(raw[i:i + chunk])
+        pushes += rx.stats.samples > samples     # a chunk was completed
+    acc = {p: sum(rx.seconds[k] for k in STAGES[p]) for p in PHASES}
     return acc, pushes, payloads
 
 
