@@ -1,7 +1,9 @@
 """Phase clocks of a hand-written kernel on one NVIDIA GPU.
 
     python3 chip_profile.py [--batch 70] [--snr 2.5] [--seed 5]
-    python3 chip_profile.py --kernel fsk_demod [--source FILE]
+    python3 chip_profile.py --kernel fsk_demod [--source FILE] [--mode v1]
+        [--set DEMOD_WARPS=N]
+    python3 chip_profile.py --kernel fsk_demod --digest FILE [FILE ...]
     python3 chip_profile.py --kernel deframe_topk [--source FILE]
     python3 chip_profile.py --kernel channelize [--source FILE]
 
@@ -18,10 +20,22 @@ fsk_demod: builds the demod frame-loop kernel (csrc/fsk_demod.cu, or
 -DFSK_DEMOD_PHASES, which makes thread 0 of lane 0 keep clock64 at the end
 of each phase of its first 64 frames; a source without those clocks (the
 first revision, whose frame loop marks its phases "// 1." to "// 8.") gets
-them inserted at its phase marks.  It demodulates one lane of a v2
-flight-geometry cu8 capture (random bits at 12 dB), checks valid, nin and
-f_est against ops.fsk.demod_raw_reference, and prints the median over
-frames 1..63 of each phase's SM cycles and of the whole frame's.
+them inserted at its phase marks.  It demodulates one lane of a v2 (or
+--mode v1) flight-geometry cu8 capture (random bits at 12 dB), checks
+valid, nin and f_est against ops.fsk.demod_raw_reference, and prints the
+median over frames 1..63 of each phase's SM cycles and of the whole
+frame's.  A source that names its stamps ("// stamp k: name" lines: the
+warp-specialised kernel, whose groups stamp their own hand-offs) gets each
+stamp's median cycles after the frame's stamp 0 instead; --set NAME=VALUE
+rebuilds it with a #define changed (DEMOD_WARPS: the demod warps).
+
+fsk_demod --digest: builds each given demod source as it ships (no
+clocks), runs every one on the same inputs (v2 and v1 cu8 at L=1 over a
+2-s push of frames, 16 lanes, the channelizer's 8 c64 lanes, the
+two-block and M=4 geometries, a push carried into a second launch, the
+PROBE variant) and prints, per case and source, the SHA-1 of the raw bytes
+of every output and the kernel's CUDA-event time, and whether every
+source's digests are equal.
 
 deframe_topk: builds the top-k acquisition kernel (csrc/deframe_topk.cu,
 or --source, e.g. its first revision) a second time with
@@ -163,6 +177,15 @@ def profile_demod(args) -> int:
     first_revision = "FSK_DEMOD_PHASES" not in src    # no clocks of its own
     if first_revision:
         src = instrument_demod(src)
+    import re
+    names = {int(k): v for k, v in
+             re.findall(r"^// stamp (\d+): (\w+)", src, re.M)}
+    for setting in args.set or ():
+        name, value = setting.split("=")
+        src, n = re.subn(rf"^#define {name} \S+", f"#define {name} {value}",
+                         src, flags=re.M)
+        if n != 1:
+            raise RuntimeError(f"the source has no #define {name} to set")
     tag = hashlib.sha1(src.encode()).hexdigest()[:12]
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)
     cu = os.path.join(kernels.BUILD_DIR, f"fsk_demod_phases_{tag}.cu")
@@ -179,7 +202,7 @@ def profile_demod(args) -> int:
     lib.fsk_demod_read_phases.argtypes = [C.c_void_p]
 
     dev = torch.device("cuda")
-    cfg = fsk.V2_CONFIG
+    cfg = fsk.V1_CONFIG if args.mode == "v1" else fsk.V2_CONFIG
     nf = DEMOD_FRAMES
     rng = np.random.default_rng(args.seed)
     bits = rng.integers(0, 2, cfg.Nbits * (nf + 4)).astype(np.uint8)
@@ -233,19 +256,166 @@ def profile_demod(args) -> int:
         raise RuntimeError(f"reading the phase clocks: cudaError_t {rc}")
     frames = min(nf, 64)
     stamps = clocks.reshape(64, 16)[:frames]
-    span = np.diff(stamps[:, :9], axis=1)[1:]            # frames 1.., 8
-    kept = [k for k in range(16) if stamps[1:, k].all()]
-    print(json.dumps({
-        "kernel": "fsk_demod", "source": os.path.relpath(path, ROOT),
-        "geometry": "v2", "lanes": 1, "frames": frames,
-        "sm_cycles": {p: float(np.median(span[:, k]))
-                      for k, p in enumerate(DEMOD_PHASES)},
-        "frame_sm_cycles": float(np.median(np.diff(stamps[:, 0])[1:])),
-        # every stamp the source keeps, as cycles after the frame's start
-        "stamps": {k: float(np.median(stamps[1:, k] - stamps[1:, 0]))
-                   for k in kept},
-        "card": smi_line()}))
+    # frames 1..62: the estimator's stamps of frame f time its work on
+    # frame f+1, which the last frame has none of
+    kept = [k for k in range(16) if stamps[1:-1, k].all()]
+    rec = {"kernel": "fsk_demod", "source": os.path.relpath(path, ROOT),
+           "geometry": args.mode, "lanes": 1, "frames": frames}
+    if args.set:
+        rec["set"] = args.set
+    if not names:
+        span = np.diff(stamps[:, :9], axis=1)[1:]        # frames 1.., 8
+        rec["sm_cycles"] = {p: float(np.median(span[:, k]))
+                            for k, p in enumerate(DEMOD_PHASES)}
+    rec["frame_sm_cycles"] = float(np.median(np.diff(stamps[:, 0])[1:]))
+    # every stamp the source keeps, as cycles after the frame's stamp 0
+    rec["stamps"] = {names.get(k, k): float(np.median(stamps[1:-1, k]
+                                                      - stamps[1:-1, 0]))
+                     for k in kept}
+    rec["card"] = smi_line()
+    print(json.dumps(rec))
     return 0
+
+
+def _demod_capture(cfg, n, seed, fmt):
+    """(n, 2) raw pairs of random bits at 10 dB, resampled 0.4 % fast in
+    the first half and 0.4 % slow in the second, so nin takes all three
+    values."""
+    from wenet_tpu_torch.ops import channel, fsk
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (n // cfg.N + 4) * cfg.Nbits).astype(np.uint8)
+    sig, _ = fsk.fsk_mod_np(cfg, bits, 2 * cfg.Rs, cfg.Rs)
+    h = len(sig) // 2
+    sig = np.concatenate([channel.resample_linear(sig[:h], 1.004),
+                          channel.resample_linear(sig[h:], 0.996)])[:n]
+    iq = channel.add_awgn(sig, 10.0, cfg.Fs, cfg.Rs, rng=rng) * 0.4
+    if fmt == "cu8":
+        return fsk.iq_to_cu8(iq).reshape(-1, 2)
+    if fmt == "cs16":
+        return np.stack([np.round(iq.real * 820), np.round(iq.imag * 820)],
+                        axis=1).astype(np.int16)
+    return np.ascontiguousarray(iq.astype(np.complex64).view(np.float32)
+                                .reshape(-1, 2))
+
+
+def digest_demod(args) -> int:
+    """Every output of each demod source on the same inputs, as SHA-1
+    digests, and the kernel's time on each."""
+    import ctypes as C
+    import hashlib
+    import torch
+    from wenet_tpu_torch import kernels
+    from wenet_tpu_torch.kernels import fsk_demod
+    from wenet_tpu_torch.ops import fsk
+
+    dev = torch.device("cuda")
+    two_blocks = fsk.FSKConfig(Fs=48000, Rs=9600, Nsym=51)
+    m4 = fsk.FSKConfig(Fs=96000, Rs=9600, M=4)
+    # name: cfg, fmt, lanes, frames a lane, eye, probe, pushes
+    cases = {
+        "v2_cu8_L1": (fsk.V2_CONFIG, "cu8", 1, 4000, True, False, 1),
+        "v1_cu8_L1": (fsk.V1_CONFIG, "cu8", 1, 4800, True, False, 1),
+        "v2_cu8_L16": (fsk.V2_CONFIG, "cu8", 16, 120, True, False, 1),
+        "v1_cs16_L16": (fsk.V1_CONFIG, "cs16", 16, 120, False, False, 1),
+        "v2_c64_8lanes": (fsk.V2_CONFIG, "c64", 8, 822, True, False, 1),
+        "two_blocks_c64": (two_blocks, "c64", 1, 600, True, False, 1),
+        "m4_cu8_L3": (m4, "cu8", 3, 300, True, False, 1),
+        "v2_cu8_carried": (fsk.V2_CONFIG, "cu8", 1, 2000, True, False, 2),
+        "v2_c64_probe": (fsk.V2_CONFIG, "c64", 1, 600, True, True, 1),
+        "two_blocks_probe": (two_blocks, "c64", 2, 300, False, True, 1),
+    }
+    inputs = {}
+    for i, (name, (cfg, fmt, L, nf, _, _, pushes)) in enumerate(
+            cases.items()):
+        span = nf * cfg.N                      # a lane's samples
+        n = span // 2 * (L + 1) if L > 1 else span + 3 * cfg.N
+        data = torch.from_numpy(_demod_capture(cfg, n, 100 + i, fmt)).to(dev)
+        starts = torch.arange(L, dtype=torch.int64, device=dev) * (span // 2)
+        if L > 1:
+            starts[0] -= 3 * cfg.N + 5         # before sample 0
+        n_valid = (span - 7 * torch.arange(L, dtype=torch.int64,
+                                           device=dev))
+        if L > 1:
+            n_valid[-1] += cfg.N               # past the buffer's end
+        inputs[name] = (data, starts, n_valid)
+
+    def run(name):
+        cfg, fmt, L, nf, eye, probe, pushes = cases[name]
+        data, starts, n_valid = inputs[name]
+        if pushes == 1:
+            return [fsk_demod.demod(cfg, data, fmt, nf + 3, starts, n_valid,
+                                    with_eye=eye, with_probe=probe)]
+        # a push and the next one, the state carried; as Receiver splits
+        out = fsk_demod.demod(cfg, data, fmt, nf // 2, starts,
+                              torch.full_like(n_valid, nf // 2 * cfg.N),
+                              with_eye=eye)
+        return [out, fsk_demod.demod(cfg, data, fmt, nf // 2 + 3, starts,
+                                     n_valid, out[0], with_eye=eye)]
+
+    def digests(res):
+        out = {}
+        for k, r in enumerate(res):
+            for part in r:
+                for field, t in zip(part._fields, part):
+                    b = t.contiguous().cpu().numpy().tobytes()
+                    out[f"{k}.{type(part).__name__}.{field}"] = \
+                        hashlib.sha1(b).hexdigest()[:16]
+        return out
+
+    per_source = {}
+    for path in args.digest:
+        with open(path) as fh:
+            src = fh.read()
+        tag = hashlib.sha1(src.encode()).hexdigest()[:12]
+        os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+        cu = os.path.join(kernels.BUILD_DIR, f"fsk_demod_digest_{tag}.cu")
+        with open(cu, "w") as fh:
+            fh.write(src)
+        so = cu[:-3] + ".so"
+        built = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS,
+                                "-o", so, cu], capture_output=True, text=True)
+        ptxas = [ln for ln in (built.stdout + built.stderr).splitlines()
+                 if "registers" in ln or "spill" in ln or "error" in ln]
+        if built.returncode:
+            raise RuntimeError(f"nvcc failed on {path}:\n"
+                               + built.stdout + built.stderr)
+        lib = C.CDLL(so)
+        lib.fsk_demod_launch.restype = C.c_int
+        lib.fsk_demod_launch.argtypes = [C.POINTER(fsk_demod.Geom),
+                                         C.POINTER(fsk_demod.Ptrs),
+                                         C.c_void_p]
+        fsk_demod._lib = lambda lib=lib: lib
+        rec = {}
+        for name in cases:
+            res = run(name)
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            times = []
+            for _ in range(5):
+                ev[0].record()
+                run(name)
+                ev[1].record()
+                torch.cuda.synchronize()
+                times.append(ev[0].elapsed_time(ev[1]))
+            nins = torch.cat([r[1].nin[r[1].valid] for r in res])
+            rec[name] = {"ms": float(np.median(times)),
+                         "valid_frames": int(nins.numel()),
+                         "nin_values": sorted(set(nins.tolist())),
+                         "digests": digests(res)}
+        per_source[os.path.relpath(path, ROOT)] = rec
+        print(json.dumps({"source": os.path.relpath(path, ROOT),
+                          "ptxas": ptxas,
+                          **{n: {k: v for k, v in r.items()
+                                 if k != "digests"} for n, r in rec.items()},
+                          "card": smi_line()}))
+    first = next(iter(per_source.values()))
+    differ = {s: [f"{n}:{k}" for n in cases
+                  for k, v in r[n]["digests"].items()
+                  if first[n]["digests"].get(k) != v]
+              for s, r in per_source.items()}
+    print(json.dumps({"digests": {n: first[n]["digests"] for n in cases},
+                      "equal": not any(differ.values()), "differ": differ}))
+    return 0 if not any(differ.values()) else 1
 
 
 def instrument_topk(src: str) -> str:
@@ -580,6 +750,13 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=70)
     ap.add_argument("--snr", type=float, default=2.5)
     ap.add_argument("--seed", type=int, default=5)
+    ap.add_argument("--mode", choices=["v2", "v1"], default="v2",
+                    help="fsk_demod: the flight geometry to profile")
+    ap.add_argument("--set", action="append", metavar="NAME=VALUE",
+                    help="fsk_demod: rebuild with this #define changed "
+                    "(e.g. DEMOD_WARPS=6, the demod warps)")
+    ap.add_argument("--digest", nargs="+", default=None,
+                    help="fsk_demod: compare these sources' outputs")
     ap.add_argument("--source", default=None,
                     help="fsk_demod, deframe_topk, channelize: the "
                     "kernel source to profile")
@@ -589,7 +766,7 @@ def main() -> int:
         raise SystemExit("chip_profile: torch.cuda.is_available() is False")
     sys.path.insert(0, ROOT)
     if args.kernel == "fsk_demod":
-        return profile_demod(args)
+        return digest_demod(args) if args.digest else profile_demod(args)
     if args.kernel == "deframe_topk":
         return profile_topk(args)
     if args.kernel == "channelize":

@@ -1082,12 +1082,12 @@ def native_phase(cfg1, cfg2, raw1, raw2, wide, fs_w, wide_out, dev, smi):
            "library": os.path.relpath(native.library_path(), ROOT)}
     for mode, cfg, raw in (("v2", cfg2, raw2), ("v1", cfg1, raw1)):
         chunks = []
-        push = deframe.StreamDeframer.push
+        detect = deframe.StreamDeframer.detect     # each push's soft chunk
 
-        def record(self, soft, push=push):
+        def record(self, soft, detect=detect):
             chunks.append(np.array(soft, np.float32))
-            return push(self, soft)
-        with mock.patch.object(deframe.StreamDeframer, "push", record):
+            return detect(self, soft)
+        with mock.patch.object(deframe.StreamDeframer, "detect", record):
             got, _, _ = run_receiver(cfg, mode, raw)
         pos, got_c = fsm_vs_plain(mode, mode, chunks, dev)
         require(got_c == got, f"native {mode}: the pushes' payloads differ "

@@ -14,6 +14,10 @@ summation orders are emulated in numpy and held against the plain loop.
   shuffle trees for the timing line and the Eb/N0 sums) keeps valid, nin,
   f_est and hard bits exact against `demod_stream_reference`, and soft
   bits within 1e-4 of the mean |soft|, as the kernel must.
+- The estimator warps' three candidates, formed a frame ahead for every
+  nin choice, give bit for bit the estimate of the serial chain for the
+  nin that the timing chooses.
+- The wrapper's mirror of the shared-memory layout follows the kernel's.
 """
 import numpy as np
 import pytest
@@ -79,6 +83,56 @@ def test_twiddles_of_each_geometry(name):
         assert K.smem_layout_bytes(geom) <= K.SMEM_LIMIT
 
 
+def _kernel_layout(geom):
+    """Bytes of each region of `layout()` in csrc/fsk_demod.cu, its C
+    expressions read from the source and evaluated on this geometry."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(K.__file__), os.pardir, "csrc",
+                            "fsk_demod.cu")).read()
+    body = src[src.index("static inline Layout layout("):]
+    body = body[: body.index("L.total = at;")]
+
+    def py(expr):
+        expr = " ".join(expr.split()).replace("(size_t)", "")
+        for c_type, size in (("double", 8), ("float2", 8), ("float", 4)):
+            expr = expr.replace(f"sizeof({c_type})", str(size))
+        expr = expr.replace("/", "//").replace("NWARPS", str(THREADS // 32))
+        m = re.fullmatch(r"(.+?)\?(.+):(.+)", expr)
+        if m:
+            expr = f"({m[2]}) if ({m[1]}) else ({m[3]})"
+        return expr
+    env = {"g": geom,
+           "sample_bytes": lambda fmt: K.SAMPLE_BYTES_BY_FMT[fmt],
+           "dft_groups": lambda h: 1 if h >= THREADS else THREADS // h,
+           "common_groups": lambda h: (1 if h >= K.DFT_THREADS
+                                       else K.DFT_THREADS // h)}
+    for name, expr in re.findall(r"const bool (\w+) = (.+?);", body):
+        env[name] = eval(py(expr), env)
+    return [eval(py(e), env)
+            for e in re.findall(r"take\(\s*at,(.+?)\);", body, re.S)]
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_smem_layout_mirror_follows_the_kernel(name):
+    """kernels/fsk_demod.smem_layout_bytes, which sizes the geometry
+    without the card, equals the kernel's own layout() (its region sizes
+    read from the CUDA source), 16-byte aligned regions, and stays under a
+    block's shared memory; on the card chip_smoke.py holds it to
+    fsk_demod_smem_bytes."""
+    cfg = GEOMETRIES[name]
+    for fmt in ("cu8", "cs16", "c64"):
+        for idx_smem in (0, 1):
+            geom = K.geometry(cfg, fmt, 1, 1, 1 << 20)
+            geom.idx_smem = idx_smem
+            regions = _kernel_layout(geom)
+            assert len(regions) >= 16
+            total = sum((b + 15) // 16 * 16 for b in regions)
+            assert K.smem_layout_bytes(geom) == total
+        assert K.smem_layout_bytes(K.geometry(cfg, fmt, 1, 1, 1 << 20)) \
+            <= K.SMEM_LIMIT
+
+
 @pytest.mark.parametrize("n", [64, 128, 256, 512, 1024])
 def test_twiddle_copies_spread_a_half_warp_over_distinct_banks(n):
     """At sample i the warp's bins read copy min(ctz(i), copies - 1);
@@ -134,9 +188,9 @@ class RingEmulation:
                 g0 + np.arange(self.spc)
         self.next_chunk = max(self.next_chunk, hi)
 
-    def window(self, start, base, nvalid):
+    def window(self, start, base, nvalid, count=None):
         g = self.g
-        li = base + np.arange(g.Nmem)
+        li = base + np.arange(g.Nmem if count is None else count)
         gi = start + li
         slots = gi % g.ring
         read = (li >= 0) & (li < nvalid) & (gi >= 0) & (gi < g.n_total)
@@ -189,6 +243,14 @@ def test_ring_windows_equal_the_plain_guards(fmt, start_of):
         inside = (li >= 0) & (li < nvalid) & (gi >= 0) & (gi < n_total)
         want = np.where(inside, iq[np.clip(gi, 0, n_total - 1)], 0)
         assert np.array_equal(got, want), frames
+        # the estimator warps read the next frame's blocks in this frame,
+        # its first block at pos + nin, up to its largest nin
+        ahead = ring.window(start, pos + nin, nvalid, max(cfg.nin_choices))
+        li = pos + nin + np.arange(max(cfg.nin_choices))
+        gi = start + li
+        inside = (li >= 0) & (li < nvalid) & (gi >= 0) & (gi < n_total)
+        want = np.where(inside, iq[np.clip(gi, 0, n_total - 1)], 0)
+        assert np.array_equal(ahead, want), frames
         pos += nin
         nin = int(rng.choice(cfg.nin_choices))
         frames += 1
@@ -240,34 +302,156 @@ def _group_sums(wr, wi, lo, hi, groups, TW, half):
     return out
 
 
+class EstConsts:
+    """The tone estimator's constants, float32 as the kernel holds them."""
+
+    def __init__(self, cfg):
+        f32 = np.float32
+        self.cfg = cfg
+        self.Ndft, self.half = cfg.Ndft, cfg.Ndft // 2
+        self.G = 1 if self.half >= THREADS else THREADS // self.half
+        self.Gc = (1 if self.half >= K.DFT_THREADS
+                   else K.DFT_THREADS // self.half)
+        self.fsc = K.fs_common(cfg)
+        self.hann = fsk.hann_window(cfg.Ndft)
+        self.TW = K.twiddle(cfg.Ndft, np.arange(cfg.Ndft + 3)[:, None],
+                            np.arange(self.half)[None, :])
+        self.tc = f32(cfg.ema_tc)
+        self.one_m_tc = f32(1) - self.tc
+        self.bin_hz = f32(cfg.Fs / cfg.Ndft)
+        self.two_pi = f32(fsk.TWO_PI)
+        self.inv_fs = f32(1.0 / cfg.Fs)
+        self.two_pi_fs = self.two_pi * self.inv_fs
+        self.bins = np.arange(self.half)
+        self.band = ((self.bins >= cfg.f_min_bin)
+                     & (self.bins < cfg.f_max_bin - 1))
+
+
+def _ema_step(E, fft, sums):
+    """The EMA after one block: its DFT partials added in order, the
+    band-masked magnitude."""
+    f32 = np.float32
+    re, im = sums[0]
+    for r_, i_ in sums[1:]:
+        re = re + r_
+        im = im + i_
+    mag = np.sqrt(np.where(E.band, re * re + im * im, f32(0)))
+    return fft * E.one_m_tc + mag * E.tc
+
+
+def _peaks_and_phases(E, fft, nin, fest, phi):
+    """M first-max peak picks with blanking, sorted; the latched tones and
+    the carrier phases of a frame of this nin."""
+    f32 = np.float32
+    cfg = E.cfg
+    work = fft.copy()
+    peaks = []
+    for _ in range(cfg.M):
+        imax = int(np.argmax(work))
+        peaks.append(imax)
+        work[(E.bins >= imax - cfg.f_zero_bins)
+             & (E.bins < imax + cfg.f_zero_bins)] = 0
+    peaks.sort()
+    f_new = np.array(peaks, f32) * E.bin_hz
+    latched = f_new if fest[0] < 1 else fest
+    noldf, ninf, Sf = f32(cfg.Nmem - nin), f32(nin), f32(cfg.Ts // cfg.P)
+    theta0 = np.array([_fma1(-((E.two_pi * (noldf - Sf)) * latched[m]),
+                             E.inv_fs, phi[m]) for m in range(cfg.M)], f32)
+    phi_next = []
+    for m in range(cfg.M):
+        x = _fma1(E.two_pi_fs, _fma1(latched[m], noldf,
+                                     f32(f_new[m] * (ninf - Sf))), theta0[m])
+        r = f32(np.fmod(x, E.two_pi))
+        if r != 0 and (r < 0) != (E.two_pi < 0):
+            r = f32(r + E.two_pi)
+        phi_next.append(r)
+    return (np.array(peaks), f_new, np.asarray(latched, f32), theta0,
+            np.array(phi_next, f32))
+
+
+def estimate_serial(E, xr, xi, nin, fft, fest, phi):
+    """A frame's tone estimate from its window (xr, xi: Nmem samples ending
+    at pos + nin), as one chain: the blocks in order (block 0's common head
+    in Gc sample groups and its tail in one group, later blocks in G), the
+    EMA after each, the peaks and phases.  Returns (EMA, peaks, f_new,
+    latched, theta0, phi_next)."""
+    f32 = np.float32
+    Ndft, nold = E.Ndft, E.cfg.Nmem - nin
+    for j in range(nin // Ndft):
+        fs = min(max(nin - (j + 1) * Ndft, 0), Ndft)
+        t0 = nold + j * Ndft
+        wr = np.zeros(Ndft + 4, f32)
+        wi = np.zeros(Ndft + 4, f32)
+        wr[:fs] = xr[t0: t0 + fs] * E.hann[:fs]
+        wi[:fs] = xi[t0: t0 + fs] * E.hann[:fs]
+        if j == 0:
+            sums = (_group_sums(wr, wi, 0, E.fsc, E.Gc, E.TW, E.half)
+                    + _group_sums(wr, wi, E.fsc, fs, 1, E.TW, E.half))
+        else:
+            sums = _group_sums(wr, wi, 0, fs, E.G, E.TW, E.half)
+        fft = _ema_step(E, fft, sums)
+    return (fft,) + _peaks_and_phases(E, fft, nin, fest, phi)
+
+
+def estimate_candidates(E, iq, pos, fft, fest, phi):
+    """The warp-specialised kernel's estimator: the three candidates of
+    the frame whose first block starts at lane sample pos (iq: the lane's
+    samples, zero outside), one for each nin choice, from the frame
+    before's chosen EMA, f_new and phi_next.  Block 0's head is windowed
+    and summed once for all three, its tails one each; a candidate's
+    later blocks start at pos + j Ndft.  Returns three tuples as
+    estimate_serial's."""
+    f32 = np.float32
+    cfg, Ndft = E.cfg, E.Ndft
+
+    def block(j, fs):
+        li = pos + j * Ndft + np.arange(fs)
+        x = np.where((li >= 0) & (li < len(iq)),
+                     iq[np.clip(li, 0, len(iq) - 1)], 0)
+        wr = np.zeros(Ndft + 4, f32)
+        wi = np.zeros(Ndft + 4, f32)
+        wr[:fs] = x.real.astype(f32) * E.hann[:fs]
+        wi[:fs] = x.imag.astype(f32) * E.hann[:fs]
+        return wr, wi
+
+    fs_tail = [min(max(nin - Ndft, 0), Ndft) for nin in cfg.nin_choices]
+    wr, wi = block(0, max(fs_tail))
+    head = _group_sums(wr, wi, 0, E.fsc, E.Gc, E.TW, E.half)
+    out = []
+    for c, nin in enumerate(cfg.nin_choices):
+        ema = fft
+        if nin >= Ndft:
+            tr, ti = wr.copy(), wi.copy()
+            tr[fs_tail[c]:] = 0
+            ti[fs_tail[c]:] = 0
+            ema = _ema_step(E, ema, head + _group_sums(
+                tr, ti, E.fsc, fs_tail[c], 1, E.TW, E.half))
+        for j in range(1, nin // Ndft):
+            fs = min(max(nin - (j + 1) * Ndft, 0), Ndft)
+            br, bi = block(j, fs)
+            ema = _ema_step(E, ema, _group_sums(br, bi, 0, fs, E.G, E.TW,
+                                                E.half))
+        out.append((ema,) + _peaks_and_phases(E, ema, nin, fest, phi))
+    return out
+
+
 def emulate_frames(cfg, iq, nf):
-    """The kernel's frame loop in numpy, in its summation orders: the DFT
-    of block 0's common head in Gc sample groups and of its tail in one
-    group (even and odd samples in two fmaf sums a group), the partials
-    added in that order, the timing line's float64 terms summed per warp
-    and across warps by shuffle trees, the Eb/N0 sums per lane and by a
-    shuffle tree.  Returns a dict of per-frame outputs."""
+    """The kernel's frame loop in numpy, in its summation orders: the tone
+    estimate as one chain (estimate_serial: the DFT of block 0's common
+    head in Gc sample groups and of its tail in one group, even and odd
+    samples in two fmaf sums a group, the partials added in that order),
+    the timing line's float64 terms summed per 32-thread slot and across
+    slots by shuffle trees, the Eb/N0 sums per lane and by a shuffle tree.
+    Returns a dict of per-frame outputs."""
     f32 = np.float32
     N, Ts, P, M, Nsym, Nmem = cfg.N, cfg.Ts, cfg.P, cfg.M, cfg.Nsym, cfg.Nmem
-    S, Ndft, half = Ts // P, cfg.Ndft, cfg.Ndft // 2
+    S, half = Ts // P, cfg.Ndft // 2
     NP = (Nsym + 1) * P
-    G = 1 if half >= THREADS else THREADS // half
-    Gc = 1 if half >= K.DFT_THREADS else K.DFT_THREADS // half
-    fsc = K.fs_common(cfg)
-    hann = fsk.hann_window(Ndft)
+    E = EstConsts(cfg)
     consts = fsk._constants(cfg, torch.device("cpu"))
     spin_re = consts["spin_re"].numpy().astype(np.float64)
     spin_im = consts["spin_im"].numpy().astype(np.float64)
-    TW = K.twiddle(Ndft, np.arange(Ndft + 3)[:, None],
-                   np.arange(half)[None, :])
-    tc = f32(cfg.ema_tc)
-    one_m_tc = f32(1) - tc
-    bin_hz = f32(cfg.Fs / Ndft)
-    two_pi = f32(fsk.TWO_PI)
-    inv_fs = f32(1.0 / cfg.Fs)
-    two_pi_fs = two_pi * inv_fs
-    bins = np.arange(half)
-    band = (bins >= cfg.f_min_bin) & (bins < cfg.f_max_bin - 1)
+    two_pi, two_pi_fs = E.two_pi, E.two_pi_fs
     atan_c = [f32(c) for c in compat._atan_coeffs()]
 
     def atan2(y, x):
@@ -304,47 +488,9 @@ def emulate_frames(cfg, iq, nf):
         li = pos + nin - Nmem + np.arange(Nmem)
         win = np.where((li >= 0) & (li < n), iq[np.clip(li, 0, n - 1)], 0)
         xr, xi = win.real.astype(f32), win.imag.astype(f32)
-        for j in range(nin // Ndft):
-            fs = min(max(nin - (j + 1) * Ndft, 0), Ndft)
-            t0 = nold + j * Ndft
-            wr = np.zeros(Ndft + 4, f32)
-            wi = np.zeros(Ndft + 4, f32)
-            wr[:fs] = xr[t0: t0 + fs] * hann[:fs]
-            wi[:fs] = xi[t0: t0 + fs] * hann[:fs]
-            # block 0: its common head in Gc groups, then its tail in one
-            # group (both summed the frame before); later blocks in G groups
-            if j == 0:
-                sums = (_group_sums(wr, wi, 0, fsc, Gc, TW, half)
-                        + _group_sums(wr, wi, fsc, fs, 1, TW, half))
-            else:
-                sums = _group_sums(wr, wi, 0, fs, G, TW, half)
-            re, im = sums[0]
-            for r_, i_ in sums[1:]:
-                re = re + r_
-                im = im + i_
-            mag = np.sqrt(np.where(band, re * re + im * im, f32(0)))
-            fft = fft * one_m_tc + mag * tc
-        work = fft.copy()
-        peaks = []
-        for _ in range(M):
-            imax = int(np.argmax(work))
-            peaks.append(imax)
-            work[(bins >= imax - cfg.f_zero_bins)
-                 & (bins < imax + cfg.f_zero_bins)] = 0
-        peaks.sort()
-        f_new = np.array(peaks, f32) * bin_hz
-        latched = f_new if fest[0] < 1 else fest
-        noldf, ninf, Sf = f32(nold), f32(nin), f32(S)
-        theta0 = np.array([_fma1(-((two_pi * (noldf - Sf)) * latched[m]),
-                                 inv_fs, phi[m]) for m in range(M)], f32)
-        phi_next = []
-        for m in range(M):
-            x = _fma1(two_pi_fs, _fma1(latched[m], noldf,
-                                       f32(f_new[m] * (ninf - Sf))), theta0[m])
-            r = f32(np.fmod(x, two_pi))
-            if r != 0 and (r < 0) != (two_pi < 0):
-                r = f32(r + two_pi)
-            phi_next.append(r)
+        fft, _, f_new, latched, theta0, phi_next = estimate_serial(
+            E, xr, xi, nin, fft, fest, phi)
+        noldf = f32(nold)
         t = np.arange(Nmem, dtype=f32)
         d = []
         for m in range(M):
@@ -459,3 +605,42 @@ def test_kernel_summation_orders_keep_the_plain_decisions(name):
     assert err <= SOFT_TOL * np.abs(soft).mean()
     np.testing.assert_allclose(emu["ebno_db"], want.ebno_db.numpy()[valid],
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_three_candidate_estimator_equals_the_serial_one(name):
+    """The kernel's estimator warps form frame f+1's estimate for all three
+    nin choices while frame f demodulates; the candidate that frame f's
+    timing then chooses equals, bit for bit, the estimate formed in the
+    frame itself from its window (EMA, peaks, f_new, latched, theta0,
+    phi_next), frame after frame along a capture, over a random walk of
+    nin that takes every choice."""
+    cfg = GEOMETRIES[name]
+    E = EstConsts(cfg)
+    iq = _capture(cfg, seed=len(name) + 11, nframes=24)
+    rng = np.random.default_rng(len(name))
+    f32 = np.float32
+    fft = np.zeros(E.half, f32)
+    fest = np.zeros(cfg.M, f32)
+    phi = np.zeros(cfg.M, f32)
+    pos, nin = 0, cfg.N
+    chosen = set()
+    frames = 0
+    while pos + nin <= len(iq):
+        cands = estimate_candidates(E, iq, pos, fft, fest, phi)
+        li = pos + nin - cfg.Nmem + np.arange(cfg.Nmem)
+        win = np.where(li >= 0, iq[np.clip(li, 0, len(iq) - 1)], 0)
+        want = estimate_serial(E, win.real.astype(f32),
+                               win.imag.astype(f32), nin, fft, fest, phi)
+        c = cfg.nin_choices.index(nin)
+        for got, ref in zip(cands[c], want):
+            assert got.dtype == ref.dtype
+            assert np.array_equal(np.asarray(got).view(np.uint8),
+                                  np.asarray(ref).view(np.uint8)), frames
+        chosen.add(c)
+        fft, _, fest, _, _, phi = cands[c]
+        pos += nin
+        nin = int(rng.choice(cfg.nin_choices))
+        frames += 1
+    assert frames >= 20 and chosen == {0, 1, 2}
+    assert float(fest[0]) > 0

@@ -715,18 +715,27 @@ def test_demod_wrapper_takes_only_cuda_tensors():
     assert outs.valid.tolist() == [[True] * 4 + [False]]
 
 
+# (mode, fmt, lanes, frames a lane): 40 frames, and one lane over a 2-s
+# push at the flight rate (the receiver's launch)
+DEMOD_CASES = ([(m, f, n, 40) for m in ("v2", "v1")
+                for f in ("cu8", "cs16", "c64") for n in (1, 3, 16)]
+               + [(m, "cu8", 1, 2 * DEMOD_CFG[m].Fs // DEMOD_CFG[m].N)
+                  for m in ("v2", "v1")])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_eye", [False, True], ids=["", "eye"])
-@pytest.mark.parametrize("lanes", [1, 3, 16])
-@pytest.mark.parametrize("fmt", ["cu8", "cs16", "c64"])
-@pytest.mark.parametrize("mode", ["v2", "v1"])
-def test_demod_kernel_matches_plain(mode, fmt, lanes, with_eye):
+@pytest.mark.parametrize(
+    "mode,fmt,lanes,frames", DEMOD_CASES,
+    ids=[f"{m}-{f}-{n}" + ("" if k == 40 else "-push")
+         for m, f, n, k in DEMOD_CASES])
+def test_demod_kernel_matches_plain(mode, fmt, lanes, frames, with_eye):
     """L lanes at their own starts in one buffer, overlapping, each with
     its own n_valid, the first lane starting before sample 0 and the last
     running past the buffer's end."""
     dev = _card()
     cfg = DEMOD_CFG[mode]
-    span = 40 * cfg.N
+    span = frames * cfg.N
     raw = _demod_raw(mode, fmt, span // 2 * (lanes + 1), 5 + lanes)
     data = torch.from_numpy(raw).to(dev)
     starts = torch.arange(lanes, dtype=torch.int64, device=dev) * (span // 2)
@@ -784,6 +793,42 @@ def test_demod_kernel_carries_state(mode, with_eye):
         got3 = fsk.demod_raw(cfg, second, "cu8", 2, zero, short, state, True)
         assert not bool(got3[2].ok.any())
         assert not bool(got3[2].f_int.abs().any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["v2", "v1"])
+def test_demod_kernel_split_launches_equal_one(mode):
+    """One buffer demodulated in two launches, the second from the first's
+    final state, gives bit for bit the frames and the final state of one
+    launch over the whole buffer: the state the kernel carries (the EMA,
+    tones, phases, timing and stats) is the state it keeps in the loop."""
+    dev = _card()
+    cfg = DEMOD_CFG[mode]
+    rng = np.random.default_rng(17)
+    bits = rng.integers(0, 2, cfg.Nbits * 300).astype(np.uint8)
+    sig, _ = fsk.fsk_mod_np(cfg, bits, 2 * cfg.Rs, cfg.Rs)
+    half = len(sig) // 2                   # 0.4 % fast, then slow: every nin
+    sig = np.concatenate([channel.resample_linear(sig[:half], 1.004),
+                          channel.resample_linear(sig[half:], 0.996)])
+    iq = channel.add_awgn(sig, 10.0, cfg.Fs, cfg.Rs, rng=rng) * 0.4
+    data = torch.from_numpy(fsk.iq_to_cu8(iq).reshape(-1, 2)).to(dev)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    whole = torch.full((1,), data.shape[0], dtype=torch.int64, device=dev)
+    nf = cfg.num_frames(data.shape[0]) + 2
+    s1, o1 = fsk_demod.demod(cfg, data, "cu8", nf // 2, zero,
+                             torch.full_like(whole, 130 * cfg.N + 7))
+    s2, o2 = fsk_demod.demod(cfg, data, "cu8", nf, zero, whole, s1)
+    s, o = fsk_demod.demod(cfg, data, "cu8", nf, zero, whole)
+    torch.cuda.synchronize()
+    n1, n2 = int(o1.valid.sum()), int(o2.valid.sum())
+    assert n1 > 100 and n1 + n2 == int(o.valid.sum())
+    assert len(set(o.nin[o.valid].tolist())) == 3
+    for name in fsk.FrameOut._fields:
+        a, b, w = getattr(o1, name), getattr(o2, name), getattr(o, name)
+        split = torch.cat([a[:, :n1], b[:, :n2]], dim=1)
+        assert torch.equal(split, w[:, : n1 + n2]), name
+    for a, b in zip(s2, s):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

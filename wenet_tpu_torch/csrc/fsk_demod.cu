@@ -35,42 +35,58 @@
 //    frames ahead in a shared-memory ring with cp.async (16-byte chunks of
 //    the 16-byte aligned buffer; the chunk that straddles the buffer's end
 //    zero-fills its tail, chunks wholly outside it are not fetched), and
-//    waits for them before the frame's last barrier.  The frame reads its
-//    window from the ring and converts it there; li < 0, li >= n_valid and
-//    a global index outside the buffer read as 0.0.
-// 3. No serial thread-0 sections: warps 0..3 combine the DFT partials, a
-//    bin a lane; warp 0 peak-picks from registers with warp reductions
-//    (__reduce_max_sync / __reduce_min_sync); lanes m < M form the carrier
-//    phases; the integrate-and-dump threads also form the timing line's
-//    float64 terms, reduced by warp shuffles; warp 0 takes the symbol
-//    decisions and the Eb/N0 sums with shuffles.  Five block barriers a
-//    frame (two more per extra estimator block).
-// 4. The next frame's DFT under this frame's serial tail.  The next frame's
-//    estimator block starts at pos + nin, known before this frame's timing,
-//    and the samples it windows, fs, take one of three values, one per nin
-//    choice.  While warp 0 takes the timing, decisions and Eb/N0, warps
-//    1..12 window the block's samples and sum the DFT of its common head
-//    (up to fs_common, a multiple of 4 at or below the smallest fs) in 3
-//    sample groups (at Ndft = 256), and warps 13..15 that of each of the
-//    three tails (from fs_common to each fs) in one group.  The next frame
-//    has no DFT of its own to run: warps 0..3 add the head's groups and its
-//    nin's tail, in that order, while the window is read.
-// 5. Small code.  A frame runs most of the code once, so the code's size,
-//    not its instruction count, sets much of a frame's time: loops with a
-//    run-time trip count are not unrolled, powers of two are shifted, the
-//    kernel is a template on M (its tone loops unroll, its arrays stay in
-//    registers), and one copy of the DFT loop serves every caller.
-// 6. Per-frame probe traces (the PROBE template flag; the instantiation
+//    waits for them before the next frame's hand-off.  Every reader takes
+//    its samples from the ring and converts them there; li < 0, li >=
+//    n_valid and a global index outside the buffer read as 0.0.
+// 3. Warp specialisation: only the timing line is serial.  Frame f's
+//    timing sets nin of frame f+1, which has one of three values; every
+//    other input of frame f+1's tone estimate is known when frame f starts:
+//    its first estimator block starts at pos + nin, its EMA follows frame
+//    f's, its latched tones and phase are frame f's f_new and phi_next.  So
+//    the block's warps split in three groups, joined by named barriers (no
+//    __syncthreads in the frame loop):
+//    - the estimator warps (EST_WARP0..15) work one frame ahead: while frame
+//      f demodulates they window and sum the DFT of frame f+1's first block
+//      (its common head in common_groups(half) sample groups and its three
+//      nin-dependent tails in one group each: the summation groups of the
+//      single-chain design), form the three candidate EMAs from frame f's
+//      chosen one (and sum the blocks after the first of each candidate's
+//      window, where nin reaches them), pick M first-max peaks in each
+//      (one warp a candidate, warp reductions) and form each candidate's
+//      f_new, latched, theta0 and phi_next;
+//    - the demod warps (1..DEMOD_WARPS) take frame f's candidate for its
+//      nin, downconvert the window straight from the ring, integrate and
+//      dump (the timing line's float64 terms summed per 32-thread slot of
+//      the 512 and by shuffle trees, in the single-chain design's order; a
+//      warp SLOTS slots at once) and hand the sums to warp 0;
+//    - warp 0 reduces them, takes the timing, publishes frame f+1's pos and
+//      nin, and then, off the chain, while the other warps start frame f+1,
+//      finishes the timing line, takes frame f's symbol decisions and Eb/N0
+//      and stores its outputs (the integrators are double-buffered by frame
+//      parity).
+//    A frame's hand-off (BAR_GO) waits for its nin and its three candidates;
+//    the candidates, the pos/nin pair and the integrators live in two copies
+//    by frame parity, so no group overwrites what another still reads.  The
+//    split (DEMOD_WARPS, DFT_BINS) is the shortest of chip_profile.py's
+//    phase clocks at the flight geometries.
+// 4. Latency, not operations.  Each group's chain is short loads and
+//    shuffles: the DFT's thread sums DFT_BINS bins at once, issuing all
+//    their twiddle loads before their fmaf and loading the next step's
+//    indices ahead; a window sum loads its samples at once; the downconvert
+//    keeps two samples in flight.  Everything that touches shared memory is
+//    inlined into the kernel, so that it is reached as shared memory (a
+//    function of its own reaches it through generic loads, and spills
+//    around its calls); sqrtf is not called on the band mask's zeros (its
+//    slow path).  Loops with a run-time trip count are otherwise not
+//    unrolled, powers of two are shifted, and the kernel is a template on M
+//    (its tone loops unroll, its arrays stay in registers).
+// 5. Per-frame probe traces (the PROBE template flag; the instantiation
 //    without it is the flight path's code).  wenet_tpu/utils/probe.py
-//    traces each frame's integrators, EMA, timing and high sample.  The
-//    integrators and the EMA live in shared memory that the next frame
-//    overwrites (the next frame's DFT runs under this frame's tail, 4.),
-//    so each is stored where its value is final and before the barrier
-//    that lets the next frame rewrite it: the integrators by the threads
-//    that sum them, as they form them (5. in the loop), the EMA during the
-//    downconvert (after the peak picks' barrier, before the next frame's
-//    update), the timing and high sample by warp 0's lane 0 where it forms
-//    them.  The stores are fire-and-forget: nothing waits on them.
+//    traces each frame's integrators, EMA, timing and high sample.  Each is
+//    stored by the group that forms it: the integrators as they are summed,
+//    the chosen candidate's EMA during the downconvert, the timing and high
+//    sample by warp 0's lane 0.  The stores are fire-and-forget: nothing
+//    waits on them.
 
 // Bound: per frame a lane reads about N samples and writes Nbits soft bits,
 // Nbits hard bits and a few stats, a few kB; the work is about 8 fs Ndft/2
@@ -94,10 +110,27 @@
 
 #define THREADS 512
 #define NWARPS (THREADS / 32)
-#define PRODUCER (NWARPS - 1)   // the warp that fills the sample ring
+#define DEMOD_WARPS 6                        // warps 1..6 (warp 0: timing)
+#define EST_WARP0 (1 + DEMOD_WARPS)          // warps 7..15: the estimator
+#define DEMOD_THREADS (32 * DEMOD_WARPS)
+#define EST_THREADS (THREADS - 32 * EST_WARP0)
+#define PRODUCER (NWARPS - 1)   // the estimator warp that fills the ring
 #define MAX_BINS 16             // bins a lane holds in the peak picks
-#define DFT_THREADS 384         // warps 1..12: the next frame's DFT head
-#define TAIL_THREADS 96         // warps 13..15: its three tails
+#define DFT_THREADS 384         // sets the head's sample groups (numerics)
+#define DFT_BINS 4              // bins a thread sums at once in the DFT
+#define TS_MAX 10               // window sums of up to TS_MAX samples load
+//                                 their samples at once
+// 32-thread slots of the timing sums a demod warp takes at once: all 16 in
+// one pass
+#define SLOTS ((NWARPS + DEMOD_WARPS - 1) / DEMOD_WARPS)
+// named barriers; 0 is __syncthreads, outside the frame loop
+#define BAR_GO 1                // frame f's nin and candidates: every thread
+#define BAR_RED 2               // the timing sums: demod warps and warp 0
+#define BAR_DEMOD 3             // the demod warps
+#define BAR_EST 4               // the estimator warps
+
+static_assert(DEMOD_WARPS >= 1 && NWARPS - EST_WARP0 >= 3,
+              "a demod warp, and an estimator warp for each nin choice");
 
 struct DemodGeom {
     long long n_total;           // samples in the raw buffer
@@ -163,23 +196,54 @@ struct DemodPtrs {
 };
 
 #ifdef FSK_DEMOD_PHASES
-// clock64 at the phase ends of frame f < 64 of lane 0 (0..8; 9: block 0's
-// combine, inside the window phase), read by chip_profile.py (a build with
-// -DFSK_DEMOD_PHASES); no-ops otherwise
+// clock64 at the stamps of frame f < 64 of lane 0, taken by lane 0 of warp
+// w (the SM's clock, one for every warp), read by chip_profile.py (a build
+// with -DFSK_DEMOD_PHASES); no-ops otherwise.  A stamp right after a
+// barrier may mark the warp's arrival there, not the barrier's release: the
+// card defers the wait to the first instruction that needs the barrier
+// (BAR.SYNC.DEFER_BLOCKING).  The stamps, by group:
+// stamp 0: go             (demod warps: frame f's hand-off passed)
+// stamp 1: downconvert    (demod warps: barrier after the downconvert)
+// stamp 2: integrate      (demod warps: timing sums handed to warp 0)
+// stamp 3: sums_in        (warp 0: the sums received)
+// stamp 4: timing         (warp 0: frame f+1's nin handed off)
+// stamp 5: decisions      (warp 0: frame f's symbol decisions)
+// stamp 6: ebno_state     (warp 0: Eb/N0 and the stores)
+// stamp 7: est_go         (estimator: frame f's hand-off passed)
+// stamp 8: est_window     (estimator: frame f+1's first block windowed)
+// stamp 9: est_dft        (estimator: its head and tails summed)
+// stamp 10: est_ema       (estimator: the three candidate EMAs)
+// stamp 11: est_peaks     (estimator: candidate 0's peaks and phases)
+// stamp 12: sums_wait     (warp 0: waits for frame f's sums)
+// stamp 13: demod_wait    (demod warps: wait for frame f's hand-off)
+// stamp 14: est_wait      (estimator: frame f's candidates done, waits)
 __device__ long long fsk_demod_phases[64 * 16];
 extern "C" int fsk_demod_read_phases(long long* host) {
     return (int)cudaMemcpyFromSymbol(host, fsk_demod_phases,
                                      sizeof(fsk_demod_phases));
 }
-#define PHASE(k)                                                       \
-    if (threadIdx.x == 0 && blockIdx.x == 0 && f < 64)                 \
-    fsk_demod_phases[f * 16 + (k)] = clock64()
+__device__ __forceinline__ long long phase_clock() {
+    long long t;        // volatile, as the barriers: kept in their order
+    asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(t) :: "memory");
+    return t;
+}
+#define PHASE(k, w)                                                    \
+    if (threadIdx.x == 32 * (w) && blockIdx.x == 0 && (unsigned)f < 64) \
+    fsk_demod_phases[f * 16 + (k)] = phase_clock()
 #else
-#define PHASE(k)
+#define PHASE(k, w)
 #endif
 
+__device__ __forceinline__ void bar_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+    asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
 // threads that share one DFT bin (each sums a slice of the samples): in
-// the frame, and in the next frame's common part
+// the blocks after the first, and in the first block's common part
 __host__ __device__ static inline int dft_groups(int half) {
     return half >= THREADS ? 1 : THREADS / half;
 }
@@ -194,7 +258,7 @@ __host__ __device__ static inline int sample_bytes(int fmt) {
 
 // shared-memory layout, in bytes, each region 16-byte aligned
 struct Layout {
-    size_t red, ring, tab, idx, hann, spin, win, wb, wbn, wbt, d, fi, fft;
+    size_t red, ring, tab, idx, hann, spin, wb, wbn, wbt, d, fi, fft, ema;
     size_t part, part_c, part_t;
     size_t total;
 };
@@ -208,20 +272,23 @@ __host__ __device__ static inline size_t take(size_t& at, size_t bytes) {
 __host__ __device__ static inline Layout layout(const DemodGeom& g) {
     Layout L;
     size_t at = 0;
+    const bool later = g.max_blocks > 1;     // blocks after the first
     L.red = take(at, 2 * NWARPS * sizeof(double));
     L.ring = take(at, (size_t)g.ring * sample_bytes(g.fmt));
     L.tab = take(at, (size_t)g.n_tab * sizeof(float2));
     L.idx = take(at, g.idx_smem ? (size_t)(g.Ndft / 4 + 1) * g.half * 8 : 0);
     L.hann = take(at, (size_t)g.Ndft * sizeof(float));
     L.spin = take(at, 2 * (size_t)g.NP * sizeof(float));
-    L.win = take(at, (size_t)g.Nmem * sizeof(float2));
-    L.wb = take(at, (size_t)g.max_blocks * (g.Ndft + 4) * sizeof(float2));
+    L.wb = take(at, later ? (size_t)(g.Ndft + 4) * sizeof(float2) : 0);
     L.wbn = take(at, (size_t)g.Ndft * sizeof(float2));
     L.wbt = take(at, 3 * (size_t)g.tail_len * sizeof(float2));
     L.d = take(at, (size_t)g.M * g.Nmem * sizeof(float2));
-    L.fi = take(at, (size_t)g.M * g.NP * sizeof(float2));
+    L.fi = take(at, 2 * (size_t)g.M * g.NP * sizeof(float2));
     L.fft = take(at, (size_t)g.half * sizeof(float));
-    L.part = take(at, 2 * (size_t)dft_groups(g.half) * g.half * sizeof(float));
+    L.ema = take(at, 2 * 3 * (size_t)g.half * sizeof(float));
+    L.part = take(
+        at, later ? 2 * (size_t)dft_groups(g.half) * g.half * sizeof(float)
+                  : 0);
     L.part_c =
         take(at, 2 * (size_t)common_groups(g.half) * g.half * sizeof(float));
     L.part_t = take(at, 3 * 2 * (size_t)g.half * sizeof(float));
@@ -295,6 +362,19 @@ __device__ __forceinline__ float2 ring_sample(const DemodGeom& g,
     return ((const float2*)ring)[slot];
 }
 
+// lane sample li of the lane that starts at global sample `start`, from the
+// ring: 0.0 outside [0, nvalid) and outside the buffer
+__device__ __forceinline__ float2 lane_sample(const DemodGeom& g,
+                                              const char* ring,
+                                              long long start,
+                                              long long nvalid,
+                                              long long li) {
+    const long long gi = start + li;
+    if (li >= 0 && li < nvalid && gi >= 0 && gi < g.n_total)
+        return ring_sample(g, ring, gi);
+    return make_float2(0.0f, 0.0f);
+}
+
 // ------------------------------------------------------------- small pieces
 
 // utils/compat.atan2: the odd polynomial atan, float32 throughout
@@ -312,17 +392,20 @@ __device__ float atan2_poly(const DemodGeom& g, float y, float x) {
     return hi > 0.0f ? r : 0.0f;
 }
 
-// first maximum over one warp of the bins k = 32 r + lane held in v[r]
-// (the EMA is >= 0; -1 past the last bin): its index, lowest on ties, in
+// first maximum over one warp of the bins k = 32 r + lane < half held in
+// v[r] (the EMA is >= 0; -1 past the last bin): its index, lowest on ties, in
 // every lane.  A non-negative float's bits order as its value, so two
 // warp reductions find it.
-__device__ __forceinline__ int warp_argmax(const float (&v)[MAX_BINS]) {
+__device__ __forceinline__ int warp_argmax(const float (&v)[MAX_BINS],
+                                           int half) {
     const int lane = threadIdx.x & 31;
     float b = -1.0f;
     int a = 0x7fffffff;
 #pragma unroll
-    for (int r = 0; r < MAX_BINS; ++r)
+    for (int r = 0; r < MAX_BINS; ++r) {
+        if (32 * r >= half) break;           // warp-uniform
         if (v[r] > b) { b = v[r]; a = 32 * r + lane; }
+    }
     const unsigned key = b < 0.0f ? 0u : __float_as_uint(b);
     const unsigned top = __reduce_max_sync(0xffffffffu, key);
     const int arg = (int)__reduce_min_sync(
@@ -330,49 +413,64 @@ __device__ __forceinline__ int warp_argmax(const float (&v)[MAX_BINS]) {
     return arg == 0x7fffffff ? 0 : arg;
 }
 
-// DFT partials of the windowed samples xb[lo..hi) for every bin, in
-// `groups` sample groups of `span` samples (lo and span multiples of 4; xb
-// is 0 from hi to the next multiple of 4), over threads t of nthreads:
-// item e is bin e mod half of group e / half.  Per item four samples a
-// step, even and odd samples in two sums, accumulated with fmaf as the
-// plain version's matmul accumulates; idx4 holds the four samples' entries
-// of tab (see 1. above).  One copy of the loop serves both callers.
-__device__ __noinline__ void dft_partials(const float2* xb, const float2* tab,
-                                          const uint2* idx4, int half,
-                                          int logh, int lo, int hi,
-                                          int groups, int span, int t,
-                                          int nthreads, float* out) {
+// DFT partials of the windowed samples xb[i0..i1) at the DFT_BINS bins k,
+// k + kstep, ... (i0 a multiple of 4; xb is 0 from i1 to the next multiple
+// of 4), stored at re[bin], im[bin]: four samples a step, even and odd
+// samples in two sums a bin, accumulated with fmaf as the plain version's
+// matmul accumulates; the bins share each step's sample loads and their
+// twiddle loads overlap; idx4 holds the four samples' entries of tab (see
+// 1. above).
+__device__ __forceinline__ void dft_bins(const float2* xb, const float2* tab,
+                                         const uint2* idx4, int half, int k,
+                                         int kstep, int i0, int i1,
+                                         float* re, float* im) {
+    float re0[DFT_BINS], im0[DFT_BINS], re1[DFT_BINS], im1[DFT_BINS];
+    uint2 q[DFT_BINS];                   // the step's indices, loaded ahead
+#pragma unroll
+    for (int j = 0; j < DFT_BINS; ++j) {
+        re0[j] = im0[j] = re1[j] = im1[j] = 0.0f;
+        q[j] = idx4[(i0 >> 2) * half + k + j * kstep];
+    }
 #pragma unroll 1
-    for (int e = t; e < groups * half; e += nthreads) {
-        const int k = e & (half - 1), grp = e >> logh;
-        const int i0 = min(lo + grp * span, hi), i1 = min(hi, i0 + span);
-        float re0 = 0.0f, im0 = 0.0f, re1 = 0.0f, im1 = 0.0f;
-#pragma unroll 1
-        for (int i = i0; i < i1; i += 4) {
-            const float4 x01 = *(const float4*)(xb + i);
-            const float4 x23 = *(const float4*)(xb + i + 2);
-            const uint2 q = idx4[(i >> 2) * half + k];
-            const float2 w0 = tab[q.x & 0xffffu], w1 = tab[q.x >> 16];
-            const float2 w2 = tab[q.y & 0xffffu], w3 = tab[q.y >> 16];
-            re0 = fmaf(x01.x, w0.x, re0);
-            re0 = fmaf(-x01.y, w0.y, re0);
-            im0 = fmaf(x01.x, w0.y, im0);
-            im0 = fmaf(x01.y, w0.x, im0);
-            re1 = fmaf(x01.z, w1.x, re1);
-            re1 = fmaf(-x01.w, w1.y, re1);
-            im1 = fmaf(x01.z, w1.y, im1);
-            im1 = fmaf(x01.w, w1.x, im1);
-            re0 = fmaf(x23.x, w2.x, re0);
-            re0 = fmaf(-x23.y, w2.y, re0);
-            im0 = fmaf(x23.x, w2.y, im0);
-            im0 = fmaf(x23.y, w2.x, im0);
-            re1 = fmaf(x23.z, w3.x, re1);
-            re1 = fmaf(-x23.w, w3.y, re1);
-            im1 = fmaf(x23.z, w3.y, im1);
-            im1 = fmaf(x23.w, w3.x, im1);
+    for (int i = i0; i < i1; i += 4) {
+        const float4 x01 = *(const float4*)(xb + i);
+        const float4 x23 = *(const float4*)(xb + i + 2);
+        float2 w[DFT_BINS][4];
+#pragma unroll
+        for (int j = 0; j < DFT_BINS; ++j) {
+            w[j][0] = tab[q[j].x & 0xffffu];
+            w[j][1] = tab[q[j].x >> 16];
+            w[j][2] = tab[q[j].y & 0xffffu];
+            w[j][3] = tab[q[j].y >> 16];
         }
-        out[grp * half + k] = re0 + re1;
-        out[(groups + grp) * half + k] = im0 + im1;
+        // the next step's indices (the table has a row past the last step)
+#pragma unroll
+        for (int j = 0; j < DFT_BINS; ++j)
+            q[j] = idx4[((i >> 2) + 1) * half + k + j * kstep];
+#pragma unroll
+        for (int j = 0; j < DFT_BINS; ++j) {
+            re0[j] = fmaf(x01.x, w[j][0].x, re0[j]);
+            re0[j] = fmaf(-x01.y, w[j][0].y, re0[j]);
+            im0[j] = fmaf(x01.x, w[j][0].y, im0[j]);
+            im0[j] = fmaf(x01.y, w[j][0].x, im0[j]);
+            re1[j] = fmaf(x01.z, w[j][1].x, re1[j]);
+            re1[j] = fmaf(-x01.w, w[j][1].y, re1[j]);
+            im1[j] = fmaf(x01.z, w[j][1].y, im1[j]);
+            im1[j] = fmaf(x01.w, w[j][1].x, im1[j]);
+            re0[j] = fmaf(x23.x, w[j][2].x, re0[j]);
+            re0[j] = fmaf(-x23.y, w[j][2].y, re0[j]);
+            im0[j] = fmaf(x23.x, w[j][2].y, im0[j]);
+            im0[j] = fmaf(x23.y, w[j][2].x, im0[j]);
+            re1[j] = fmaf(x23.z, w[j][3].x, re1[j]);
+            re1[j] = fmaf(-x23.w, w[j][3].y, re1[j]);
+            im1[j] = fmaf(x23.z, w[j][3].y, im1[j]);
+            im1[j] = fmaf(x23.w, w[j][3].x, im1[j]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < DFT_BINS; ++j) {
+        re[k + j * kstep] = re0[j] + re1[j];
+        im[k + j * kstep] = im0[j] + im1[j];
     }
 }
 
@@ -381,52 +479,238 @@ __device__ __forceinline__ int tail_fs(const DemodGeom& g, int x) {
     return min(max(g.N + (x - 1) * (g.Ts / 2) - g.Ndft, 0), g.Ndft);
 }
 
-// warps 1..15, for the estimator block that starts at lane sample pos (the
-// next frame's), Hann-windowed from the ring: warps 1..12 sum the DFT of
-// samples [0, fs_common) in common_groups(half) sample groups into part_c;
-// warps 13..15 that of samples [fs_common, fs) for each nin choice's fs in
-// one group into part_t
-__device__ void dft_common(const DemodGeom& g, const char* ring, float2* wbn,
-                           float2* wbt, const float* hann, const float2* tab,
-                           const uint2* idx4, float* part_c, float* part_t,
-                           long long start, long long nvalid, long long pos,
-                           int logh) {
-    const int fsc = g.fs_common, TL = g.tail_len, half = g.half;
-    const bool head = threadIdx.x < 32 + DFT_THREADS;
-    const int t = threadIdx.x - (head ? 32 : 32 + DFT_THREADS);
-    const int nt = head ? DFT_THREADS : TAIL_THREADS;
-    const int lo = head ? 0 : fsc, hi = head ? fsc : fsc + TL;
+// the nin choice x of a nin (0: N - Ts/2, 1: N, 2: N + Ts/2)
+__device__ __forceinline__ int nin_choice(const DemodGeom& g, int nin) {
+    return nin < g.N ? 0 : (nin == g.N ? 1 : 2);
+}
+
+// candidate x's nin: choice x, or `given` where that is of choice x (a
+// launch's first frame takes its nin as the state gives it)
+__device__ __forceinline__ int cand_nin(const DemodGeom& g, int x,
+                                        int given) {
+    return x == nin_choice(g, given) ? given : g.N + (x - 1) * (g.Ts / 2);
+}
+
+// the EMA after one estimator block: the DFT's band-masked magnitude
+__device__ __forceinline__ float ema_step(const DemodGeom& g, int k,
+                                          float ema, float re, float im) {
+    const bool band = k >= g.f_min_bin && k < g.f_max_bin - 1;
+    // sqrtf(0) outside the band, as the plain version's, without the call
+    // that sqrtf takes for a zero
+    const float mag = band ? sqrtf(re * re + im * im) : 0.0f;
+    return ema * g.one_m_tc + mag * g.tc;
+}
+
+struct EstBufs {                 // the estimator's shared memory
+    const char* ring;
+    const float2* tab;
+    const uint2* idx_s;          // the twiddle index in shared memory
+    const uint2* idx_g;          // and in global memory (read where
+    bool idx_smem;               // the geometry leaves it out of shared)
+    const float* hann;
+    float2 *wb, *wbn, *wbt;
+    float *part, *part_c, *part_t;
+};
+
+// The estimator warps: the three candidates of the frame whose first
+// estimator block starts at lane sample pos, one for each nin choice
+// (cand_nin), from the frame before's chosen EMA, f_new and phi_next
+// (prev_*): ema_out (3 x half) and est_out (3 x f_new, latched, theta0,
+// phi_next).  The frame f of the stamps is the one demodulating.  Inlined
+// at its one call, so that every access to shared memory is one (a
+// function of its own would reach it through generic pointers).
+template <int M>
+__device__ __forceinline__ void estimate(
+    const DemodGeom& g, const EstBufs& b, long long start, long long nvalid,
+    long long pos, int nin_given, const float* prev_ema,
+    const float* prev_fnew, const float* prev_phi, float* ema_out,
+    float (*est_out)[4][M], int f) {
+    const int t = threadIdx.x - 32 * EST_WARP0;
+    const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+    const int half = g.half, Ndft = g.Ndft;
+    const int fsc = g.fs_common, TL = g.tail_len, Gc = common_groups(half);
+    const int kb = half / DFT_BINS, logkb = __ffs(kb) - 1;
+
+    // 1. window the first block from the ring: the common head to wbn, each
+    // tail to wbt (zero past its fs)
 #pragma unroll 1
-    for (int i = lo + t; i < hi; i += nt) {
-        const long long li = pos + i, gi = start + li;
+    for (int i = t; i < fsc + TL; i += EST_THREADS) {
         float2 x = make_float2(0.0f, 0.0f);
-        if (i < tail_fs(g, 2) && li >= 0 && li < nvalid && gi >= 0 &&
-            gi < g.n_total)
-            x = ring_sample(g, ring, gi);
-        const float2 w = make_float2(x.x * hann[min(i, g.Ndft - 1)],
-                                     x.y * hann[min(i, g.Ndft - 1)]);
-        if (head) {
-            wbn[i] = w;
-        } else {                          // each tail zero past its fs
+        if (i < tail_fs(g, 2))
+            x = lane_sample(g, b.ring, start, nvalid, pos + i);
+        const float w = b.hann[min(i, Ndft - 1)];
+        const float2 y = make_float2(x.x * w, x.y * w);
+        if (i < fsc) {
+            b.wbn[i] = y;
+        } else {
 #pragma unroll
             for (int c = 0; c < 3; ++c)
-                wbt[c * TL + i - fsc] =
-                    i < tail_fs(g, c) ? w : make_float2(0.0f, 0.0f);
+                b.wbt[c * TL + i - fsc] =
+                    i < tail_fs(g, c) ? y : make_float2(0.0f, 0.0f);
         }
     }
-    if (head) {
-        asm volatile("bar.sync 1, %0;\n" :: "n"(DFT_THREADS) : "memory");
-        dft_partials(wbn, tab, idx4, half, logh, 0, fsc, common_groups(half),
-                     g.span_common, t, DFT_THREADS, part_c);
-        return;
-    }
-    asm volatile("bar.sync 3, %0;\n" :: "n"(TAIL_THREADS) : "memory");
+    bar_sync(BAR_EST, EST_THREADS);
+    PHASE(8, EST_WARP0);
+
+    // 2. its DFT: the head in Gc sample groups, each tail in one, a thread
+    // DFT_BINS bins of one of them
 #pragma unroll 1
-    for (int e = t; e < 3 * half; e += TAIL_THREADS) {
-        const int c = e >> logh, fs = tail_fs(g, c);
-        dft_partials(wbt + c * TL - fsc, tab, idx4, half, logh, fsc, fs, 1,
-                     (fs - fsc + 3) & ~3, e & (half - 1), half,
-                     part_t + 2 * c * half);
+    for (int u = t; u < (Gc + 3) * kb; u += EST_THREADS) {
+        const int s = u >> logkb, k = u & (kb - 1), c = s - Gc;
+        const bool head = s < Gc;
+        const int i0 = head ? min(s * g.span_common, fsc) : fsc;
+        const int i1 = head ? min(fsc, i0 + g.span_common) : tail_fs(g, c);
+        const float2* xb = head ? b.wbn : b.wbt + c * TL - fsc;
+        float* ore = head ? b.part_c + s * half : b.part_t + 2 * c * half;
+        float* oim = head ? b.part_c + (Gc + s) * half
+                          : b.part_t + (2 * c + 1) * half;
+        if (b.idx_smem)      // two copies: the first loads from shared
+            dft_bins(xb, b.tab, b.idx_s, half, k, kb, i0, i1, ore, oim);
+        else
+            dft_bins(xb, b.tab, b.idx_g, half, k, kb, i0, i1, ore, oim);
+    }
+    bar_sync(BAR_EST, EST_THREADS);
+    PHASE(9, EST_WARP0);
+
+    // 3. the candidate EMAs, a bin a thread: the head's groups added in
+    // order, then each candidate's tail (a nin short of a block leaves the
+    // EMA as it was)
+#pragma unroll 1
+    for (int k = t; k < half; k += EST_THREADS) {
+        float re = b.part_c[k], im = b.part_c[Gc * half + k];
+#pragma unroll 1
+        for (int grp = 1; grp < Gc; ++grp) {
+            re = re + b.part_c[grp * half + k];
+            im = im + b.part_c[(Gc + grp) * half + k];
+        }
+        const float prev = prev_ema[k];
+        float tr[3], ti[3];
+#pragma unroll
+        for (int x = 0; x < 3; ++x) {
+            tr[x] = b.part_t[2 * x * half + k];
+            ti[x] = b.part_t[(2 * x + 1) * half + k];
+        }
+#pragma unroll
+        for (int x = 0; x < 3; ++x)
+            ema_out[x * half + k] =
+                cand_nin(g, x, nin_given) >= Ndft
+                    ? ema_step(g, k, prev, re + tr[x], im + ti[x])
+                    : prev;
+    }
+    bar_sync(BAR_EST, EST_THREADS);
+
+    // 3b. the blocks after the first (geometries whose nin reaches 2 Ndft),
+    // each candidate's in turn: the Hann-windowed samples (over the first
+    // nin - (j+1) Ndft samples of block j: fsk.c's quirk) in G sample
+    // groups (unwindowed samples add exact zeros and are skipped), combined
+    // in group order, band-masked magnitude, EMA
+    if (g.max_blocks > 1) {
+        const int G = dft_groups(half), logG = __ffs(G) - 1;
+#pragma unroll 1
+        for (int x = 0; x < 3; ++x) {
+            const int nin = cand_nin(g, x, nin_given);
+#pragma unroll 1
+            for (int j = 1; j < nin / Ndft; ++j) {
+                const int fs = min(max(nin - (j + 1) * Ndft, 0), Ndft);
+#pragma unroll 1
+                for (int i = t; i < ((fs + 3) & ~3); i += EST_THREADS) {
+                    float2 y = make_float2(0.0f, 0.0f);
+                    if (i < fs) {
+                        const float2 s = lane_sample(g, b.ring, start, nvalid,
+                                                     pos + j * Ndft + i);
+                        y = make_float2(s.x * b.hann[i], s.y * b.hann[i]);
+                    }
+                    b.wb[i] = y;
+                }
+                bar_sync(BAR_EST, EST_THREADS);
+                const int span = (((fs + G - 1) >> logG) + 3) & ~3;
+#pragma unroll 1
+                for (int u = t; u < G * kb; u += EST_THREADS) {
+                    const int grp = u >> logkb, k = u & (kb - 1);
+                    const int i0 = min(grp * span, fs);
+                    dft_bins(b.wb, b.tab, b.idx_smem ? b.idx_s : b.idx_g,
+                             half, k, kb, i0, min(fs, i0 + span),
+                             b.part + grp * half, b.part + (G + grp) * half);
+                }
+                bar_sync(BAR_EST, EST_THREADS);
+#pragma unroll 1
+                for (int k = t; k < half; k += EST_THREADS) {
+                    float re = b.part[k], im = b.part[G * half + k];
+#pragma unroll 1
+                    for (int grp = 1; grp < G; ++grp) {
+                        re = re + b.part[grp * half + k];
+                        im = im + b.part[(G + grp) * half + k];
+                    }
+                    ema_out[x * half + k] =
+                        ema_step(g, k, ema_out[x * half + k], re, im);
+                }
+                bar_sync(BAR_EST, EST_THREADS);      // part; ema_out of x
+            }
+        }
+    }
+    PHASE(10, EST_WARP0);
+
+    // 4. M first-max peak picks with +/- f_zero_bins blanking on a copy of
+    // the candidate's EMA in registers, sorted ascending; latch; carrier
+    // phases (warp EST_WARP0 + c takes candidate c; lane m forms tone m's)
+    const int c = warp - EST_WARP0;
+    if (c < 3) {
+        float v[MAX_BINS];
+#pragma unroll
+        for (int r = 0; r < MAX_BINS; ++r)
+            v[r] = 32 * r + wl < half ? ema_out[c * half + 32 * r + wl]
+                                      : -1.0f;
+        int peaks[M] = {};
+#pragma unroll 1
+        for (int pk = 0; pk < M; ++pk) {
+            const int imax = warp_argmax(v, half);
+            if (wl == pk) peaks[0] = imax;    // lane pk keeps pick pk
+#pragma unroll
+            for (int r = 0; r < MAX_BINS; ++r) {
+                if (32 * r >= half) break;       // warp-uniform
+                const int k = 32 * r + wl;
+                if (k < half && k >= imax - g.f_zero_bins &&
+                    k < imax + g.f_zero_bins)
+                    v[r] = 0.0f;
+            }
+        }
+#pragma unroll
+        for (int r = 1; r < M; ++r)           // every lane, every pick
+            peaks[r] = __shfl_sync(0xffffffffu, peaks[0], r);
+        peaks[0] = __shfl_sync(0xffffffffu, peaks[0], 0);
+#pragma unroll
+        for (int a = 1; a < M; ++a)          // insertion sort
+#pragma unroll
+            for (int bb = a; bb > 0; --bb)
+                if (peaks[bb - 1] > peaks[bb]) {
+                    const int tmp = peaks[bb];
+                    peaks[bb] = peaks[bb - 1];
+                    peaks[bb - 1] = tmp;
+                }
+        if (wl < M) {
+            const int m = wl, nin = cand_nin(g, c, nin_given);
+            int pk = peaks[0];
+#pragma unroll
+            for (int r = 1; r < M; ++r) pk = r == m ? peaks[r] : pk;
+            const bool first = prev_fnew[0] < 1.0f;
+            const float noldf = (float)(g.Nmem - nin);
+            const float ninf = (float)nin;
+            const float Sf = (float)g.S;
+            const float fn = (float)pk * g.bin_hz;
+            const float la = first ? fn : prev_fnew[m];
+            const float a = -((g.two_pi * (noldf - Sf)) * la);
+            const float th = fma1(a, g.inv_fs, prev_phi[m]);
+            const float x = fma1(
+                g.two_pi_fs, fma1(la, noldf, fn * (ninf - Sf)), th);
+            float r = fmodf(x, g.two_pi);        // floor-mod (jnp.mod)
+            if (r != 0.0f && ((r < 0.0f) != (g.two_pi < 0.0f)))
+                r = r + g.two_pi;
+            est_out[c][0][m] = fn;
+            est_out[c][1][m] = la;
+            est_out[c][2][m] = th;
+            est_out[c][3][m] = r;
+        }
+        PHASE(11, EST_WARP0);
     }
 }
 
@@ -440,33 +724,29 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
     double* red = (double*)(smem + Lo.red);       // 2 x NWARPS timing sums
     char* ring = smem + Lo.ring;
     float2* tab = (float2*)(smem + Lo.tab);       // twiddles (see 1.)
-    const uint2* idx4 =                           // their (sample, bin) index
-        g.idx_smem ? (const uint2*)(smem + Lo.idx) : p.tw_idx;
     float* hann = (float*)(smem + Lo.hann);
     float* spin_re = (float*)(smem + Lo.spin);
     float* spin_im = spin_re + g.NP;
-    float2* win = (float2*)(smem + Lo.win);       // Nmem: the frame's window
-    float2* wb = (float2*)(smem + Lo.wb);         // blocks x (Ndft + 4)
     float2* d = (float2*)(smem + Lo.d);           // M x Nmem: downconverted
-    float2* fi = (float2*)(smem + Lo.fi);         // M x NP: integrators
-    float* fft = (float*)(smem + Lo.fft);         // half: EMA of the spectrum
-    float* part = (float*)(smem + Lo.part);       // 2 x G x half partials
-    float2* wbn = (float2*)(smem + Lo.wbn);       // the next block's head
-    float2* wbt = (float2*)(smem + Lo.wbt);       // and its three tails
-    float* part_c = (float*)(smem + Lo.part_c);   // 2 x Gc x half: the DFTs
-    float* part_t = (float*)(smem + Lo.part_t);   // 3 x 2 x half
+    float2* fi = (float2*)(smem + Lo.fi);         // 2 x M x NP: integrators
+    float* fft = (float*)(smem + Lo.fft);         // half: the EMA in
+    float* ema = (float*)(smem + Lo.ema);         // 2 x 3 x half: candidates
+    const EstBufs eb = {ring, tab, (const uint2*)(smem + Lo.idx), p.tw_idx,
+                        g.idx_smem != 0, hann,
+                        (float2*)(smem + Lo.wb), (float2*)(smem + Lo.wbn),
+                        (float2*)(smem + Lo.wbt), (float*)(smem + Lo.part),
+                        (float*)(smem + Lo.part_c), (float*)(smem + Lo.part_t)};
 
-    __shared__ float st_fest[M], st_phi[M];
-    __shared__ float f_new[M], latched[M], theta0[M], phi_next[M];
-    __shared__ float st_norm, st_ppm, st_ebno, st_snr, sh_high;
-    __shared__ int st_pos, st_nin;
+    __shared__ float st_fest[M], st_phi[M];       // the state in, then out
+    __shared__ float est[2][3][4][M];   // by frame parity and nin choice:
+    //                                     f_new, latched, theta0, phi_next
+    __shared__ float sh_high;
+    __shared__ int st_pos[2], st_nin[2];          // by frame parity
+    __shared__ int st_frames, st_last, st_nin_end;
 
     const int lane = blockIdx.x, tid = threadIdx.x;
     const int warp = tid >> 5, wl = tid & 31;
     const int Nmem = g.Nmem, half = g.half, Ndft = g.Ndft, NP = g.NP;
-    const int logh = __ffs(half) - 1, G = dft_groups(half);
-    const int logG = __ffs(G) - 1, Gc = common_groups(half);
-    const int WBS = Ndft + 4, n_comb = min(half, THREADS);
     const long long start = p.starts[lane], nvalid = p.n_valid[lane];
 
     // stage the tables and the state
@@ -492,13 +772,10 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
         st_phi[tid] = p.phi_in[lane * M + tid];
     }
     if (tid == 0) {
-        st_pos = p.pos_in[lane];
-        st_nin = p.nin_in[lane];
-        st_norm = p.norm_in[lane];
-        st_ppm = p.ppm_in[lane];
-        st_ebno = p.ebno_in[lane];
-        st_snr = p.snr_in[lane];
+        st_pos[0] = p.pos_in[lane];
+        st_nin[0] = p.nin_in[lane];
         sh_high = 0.0f;
+        st_frames = 0;
     }
     // the ring's first fill: the first frame's window and the lookahead
     long long next_chunk = 0;
@@ -509,259 +786,238 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
         cp_async_wait_all();
     }
     __syncthreads();
-    if (warp >= 1)                                  // the first frame's
-        dft_common(g, ring, wbn, wbt, hann, tab, idx4, part_c, part_t, start,
-                   nvalid, p.pos_in[lane], logh);
 
-    int f = 0;
+    if (warp >= EST_WARP0) {
+        // ---- the estimator warps: frame f+1's candidates during frame f,
+        // and first (f = -1) frame 0's from the state, its nin as given
 #pragma unroll 1
-    for (; f < g.num_frames; ++f) {
-        __syncthreads();                           // the state; the ring
-        const int pos = st_pos, nin = st_nin;
-        if ((long long)pos + nin > nvalid) break;     // block-uniform
-        PHASE(0);
-        const int nold = Nmem - nin;
-        const long long frame = (long long)lane * g.num_frames + f;
-        const int n_blocks = nin / Ndft;
-
-        // 2a. tone estimator, block 0: its DFT was summed during the frame
-        // before (4.); warps 0..3 add the head's groups and this nin's tail,
-        // take the band-masked magnitude and the EMA, while the window is
-        // read
-        if (n_blocks > 0 && tid < n_comb) {
-            const int c = nin < g.N ? 0 : (nin == g.N ? 1 : 2);
-            const float* pt = part_t + 2 * c * half;
-#pragma unroll 1
-            for (int k = tid; k < half; k += n_comb) {
-                float re = part_c[k], im = part_c[Gc * half + k];
-#pragma unroll 1
-                for (int grp = 1; grp < Gc; ++grp) {
-                    re = re + part_c[grp * half + k];
-                    im = im + part_c[(Gc + grp) * half + k];
-                }
-                re = re + pt[k];
-                im = im + pt[half + k];
-                const bool band = k >= g.f_min_bin && k < g.f_max_bin - 1;
-                const float mag = sqrtf(band ? re * re + im * im : 0.0f);
-                fft[k] = fft[k] * g.one_m_tc + mag * g.tc;
+        for (int f = -1; f < g.num_frames; ++f) {
+            long long pos1;
+            int given, nxt;
+            const float *pe, *pf, *pp;
+            if (f < 0) {
+                pos1 = st_pos[0];
+                given = st_nin[0];
+                pe = fft;
+                pf = st_fest;
+                pp = st_phi;
+                nxt = 0;
+            } else {
+                if (warp == PRODUCER) cp_async_wait_all();   // the ring's fill
+                PHASE(14, EST_WARP0);
+                bar_sync(BAR_GO, THREADS);
+                const int pos = st_pos[f & 1], nin = st_nin[f & 1];
+                if ((long long)pos + nin > nvalid) break;     // block-uniform
+                PHASE(7, EST_WARP0);
+                if (warp == PRODUCER)
+                    ring_fill(g, p.data, ring, next_chunk,
+                              start + pos + nin + g.ahead);
+                if (f + 1 == g.num_frames) break;   // no frame to estimate
+                const int cur = f & 1, x = nin_choice(g, nin);
+                pos1 = (long long)pos + nin;
+                given = g.N;
+                pe = ema + (3 * cur + x) * half;
+                pf = est[cur][x][0];
+                pp = est[cur][x][3];
+                nxt = cur ^ 1;
             }
-            PHASE(9);
+            estimate<M>(g, eb, start, nvalid, pos1, given, pe, pf, pp,
+                        ema + 3 * nxt * half, est[nxt], f);
         }
-
-        // 1. the window from the ring: lane samples pos + nin - Nmem ..
-        // pos + nin - 1, and the Hann-windowed estimator blocks after the
-        // first (over the first nin - (j+1) Ndft samples of block j: fsk.c's
-        // quirk)
-        if (warp == PRODUCER)
-            ring_fill(g, p.data, ring, next_chunk,
-                      start + pos + nin + g.ahead);
-        const long long base = (long long)pos + nin - Nmem;
+        if (warp == PRODUCER) cp_async_wait_all();
+    } else if (warp >= 1) {
+        // ---- the demod warps: downconvert and integrate frame f
+        const int dt = tid - 32, dw = warp - 1;
 #pragma unroll 1
-        for (int t = tid; t < Nmem; t += THREADS) {
-            const long long li = base + t, gi = start + li;
-            float2 x = make_float2(0.0f, 0.0f);
-            if (li >= 0 && li < nvalid && gi >= 0 && gi < g.n_total)
-                x = ring_sample(g, ring, gi);
-            win[t] = x;
-#pragma unroll 1
-            for (int j = 1; j < n_blocks; ++j) {
-                const int fs = min(max(nin - (j + 1) * Ndft, 0), Ndft);
-                const int i = t - nold - j * Ndft;
-                if (i >= 0 && i < fs)
-                    wb[j * WBS + i] = make_float2(x.x * hann[i], x.y * hann[i]);
-            }
-        }
-        if (tid >= 4 && tid < 4 * n_blocks) {   // zeros up to a multiple of 4
-            const int j = tid >> 2;
-            wb[j * WBS + min(max(nin - (j + 1) * Ndft, 0), Ndft) + (tid & 3)] =
-                make_float2(0.0f, 0.0f);
-        }
-        __syncthreads();
-        PHASE(1);
-
-        // 2b. the blocks after the first (geometries whose nin reaches 2
-        // Ndft): the DFT of the windowed samples in G sample groups
-        // (unwindowed samples add exact zeros and are skipped), combined in
-        // group order, band-masked magnitude, EMA
-#pragma unroll 1
-        for (int j = 1; j < n_blocks; ++j) {
-            const int fs = min(max(nin - (j + 1) * Ndft, 0), Ndft);
-            const int span = (((fs + G - 1) >> logG) + 3) & ~3;
-            dft_partials(wb + j * WBS, tab, idx4, half, logh, 0, fs, G, span,
-                         tid, THREADS, part);
-            __syncthreads();
-            if (tid < n_comb) {
-#pragma unroll 1
-                for (int k = tid; k < half; k += n_comb) {
-                    float re = part[k], im = part[G * half + k];
-#pragma unroll 1
-                    for (int grp = 1; grp < G; ++grp) {
-                        re = re + part[grp * half + k];
-                        im = im + part[(G + grp) * half + k];
-                    }
-                    const bool band = k >= g.f_min_bin && k < g.f_max_bin - 1;
-                    const float mag = sqrtf(band ? re * re + im * im : 0.0f);
-                    fft[k] = fft[k] * g.one_m_tc + mag * g.tc;
-                }
-            }
-            __syncthreads();                  // fft for warp 0; part reused
-        }
-
-        // 3. M first-max peak picks with +/- f_zero_bins blanking on a copy
-        // of the EMA in registers, sorted ascending; latch; carrier phases
-        // (warp 0; lane m forms tone m's)
-        if (warp == 0) {
-            float v[MAX_BINS];
-#pragma unroll
-            for (int r = 0; r < MAX_BINS; ++r)
-                v[r] = 32 * r + wl < half ? fft[32 * r + wl] : -1.0f;
-            PHASE(2);
-            int peaks[M] = {};
-#pragma unroll 1
-            for (int pk = 0; pk < M; ++pk) {
-                const int imax = warp_argmax(v);
-                if (wl == pk) peaks[0] = imax;    // lane pk keeps pick pk
-#pragma unroll
-                for (int r = 0; r < MAX_BINS; ++r) {
-                    const int k = 32 * r + wl;
-                    if (k < half && k >= imax - g.f_zero_bins &&
-                        k < imax + g.f_zero_bins)
-                        v[r] = 0.0f;
-                }
-            }
-#pragma unroll
-            for (int r = 1; r < M; ++r)           // every lane, every pick
-                peaks[r] = __shfl_sync(0xffffffffu, peaks[0], r);
-            peaks[0] = __shfl_sync(0xffffffffu, peaks[0], 0);
-#pragma unroll
-            for (int a = 1; a < M; ++a)          // insertion sort
-#pragma unroll
-                for (int b = a; b > 0; --b)
-                    if (peaks[b - 1] > peaks[b]) {
-                        const int t = peaks[b];
-                        peaks[b] = peaks[b - 1];
-                        peaks[b - 1] = t;
-                    }
-            if (wl < M) {
-                const int m = wl;
-                int pk = peaks[0];
-#pragma unroll
-                for (int r = 1; r < M; ++r) pk = r == m ? peaks[r] : pk;
-                const bool first = st_fest[0] < 1.0f;
-                const float noldf = (float)nold;
-                const float ninf = (float)nin;
-                const float Sf = (float)g.S;
-                const float fn = (float)pk * g.bin_hz;
-                const float la = first ? fn : st_fest[m];
-                const float a = -((g.two_pi * (noldf - Sf)) * la);
-                const float th = fma1(a, g.inv_fs, st_phi[m]);
-                const float x = fma1(
-                    g.two_pi_fs, fma1(la, noldf, fn * (ninf - Sf)), th);
-                float r = fmodf(x, g.two_pi);        // floor-mod (jnp.mod)
-                if (r != 0.0f && ((r < 0.0f) != (g.two_pi < 0.0f)))
-                    r = r + g.two_pi;
-                f_new[m] = fn;
-                latched[m] = la;
-                theta0[m] = th;
-                phi_next[m] = r;
-            }
-        }
-        __syncthreads();
-        PHASE(3);
-
-        // 4. downconvert: old samples at the latched tones, new ones at this
-        // frame's, phase-continuous: stream * e^{-j ang}; PROBE: the EMA
-        // after this frame's update
-        if constexpr (PROBE) {
-#pragma unroll 1
-            for (int k = tid; k < half; k += THREADS)
-                p.tr_fft[frame * half + k] = fft[k];
-        }
-        {
-            const float noldf = (float)nold;
+        for (int f = 0; f < g.num_frames; ++f) {
+            PHASE(13, 1);
+            bar_sync(BAR_GO, THREADS);            // frame f's estimate; ring
+            const int pos = st_pos[f & 1], nin = st_nin[f & 1];
+            if ((long long)pos + nin > nvalid) break;     // block-uniform
+            PHASE(0, 1);
+            const int nold = Nmem - nin, x = nin_choice(g, nin);
+            const long long frame = (long long)lane * g.num_frames + f;
+            float fn[M], la[M], th[M];
 #pragma unroll
             for (int m = 0; m < M; ++m) {
+                fn[m] = est[f & 1][x][0][m];
+                la[m] = est[f & 1][x][1][m];
+                th[m] = est[f & 1][x][2][m];
+            }
+            // 4. downconvert: old samples at the latched tones, new ones at
+            // this frame's, phase-continuous: stream * e^{-j ang}, the
+            // window (lane samples pos + nin - Nmem .. pos + nin - 1) read
+            // from the ring; PROBE: the chosen candidate's EMA
+            if constexpr (PROBE) {
+                const float* em = ema + ((f & 1) * 3 + x) * half;
 #pragma unroll 1
-                for (int t = tid; t < Nmem; t += THREADS) {
+                for (int k = dt; k < half; k += DEMOD_THREADS)
+                    p.tr_fft[frame * half + k] = em[k];
+            }
+            {
+                const long long base = (long long)pos + nin - Nmem;
+                const float noldf = (float)nold;
+#pragma unroll 2
+                for (int t = dt; t < Nmem; t += DEMOD_THREADS) {
+                    const float2 s =
+                        lane_sample(g, ring, start, nvalid, base + t);
                     const float tf = (float)t;
-                    const float inner =
-                        fma1(f_new[m], fmaxf(tf - noldf, 0.0f),
-                             latched[m] * fminf(tf, noldf));
-                    const float ang = fma1(g.two_pi_fs, inner, theta0[m]);
-                    const float c = cosf(ang), s = sinf(ang);
-                    const float2 x = win[t];
-                    d[m * Nmem + t] =
-                        make_float2(x.x * c + x.y * s, x.y * c - x.x * s);
-                }
-            }
-        }
-        __syncthreads();
-        PHASE(4);
-
-        // 5. integrate-and-dump (window sums of Ts samples at stride S) and
-        // the timing line's terms, summed in float64
-        {
-            double are = 0.0, aim = 0.0;
-#pragma unroll 1
-            for (int q = tid; q < NP; q += THREADS) {
-                float ft = 0.0f;
 #pragma unroll
-                for (int m = 0; m < M; ++m) {
-                    const float2* x = d + m * Nmem + q * g.S;
-                    float re = x[0].x, im = x[0].y;
-#pragma unroll 1
-                    for (int u = 1; u < g.Ts; ++u) {
-                        re = re + x[u].x;
-                        im = im + x[u].y;
+                    for (int m = 0; m < M; ++m) {
+                        const float inner =
+                            fma1(fn[m], fmaxf(tf - noldf, 0.0f),
+                                 la[m] * fminf(tf, noldf));
+                        const float ang = fma1(g.two_pi_fs, inner, th[m]);
+                        const float cs = cosf(ang), sn = sinf(ang);
+                        d[m * Nmem + t] = make_float2(s.x * cs + s.y * sn,
+                                                      s.y * cs - s.x * sn);
                     }
-                    fi[m * NP + q] = make_float2(re, im);
-                    if constexpr (PROBE)
-                        p.tr_fint[(frame * M + m) * NP + q] =
-                            make_float2(re, im);
-                    const float v = fma1(re, re, im * im);
-                    ft = m == 0 ? v : ft + v;
                 }
-                are += (double)ft * (double)spin_re[q];
-                aim += (double)ft * (double)spin_im[q];
             }
-            for (int off = 16; off > 0; off >>= 1) {
-                are += __shfl_down_sync(0xffffffffu, are, off);
-                aim += __shfl_down_sync(0xffffffffu, aim, off);
+            bar_sync(BAR_DEMOD, DEMOD_THREADS);
+            PHASE(1, 1);
+
+            // 5. integrate-and-dump (window sums of Ts samples at stride S)
+            // and the timing line's terms, summed in float64: slot t of 512
+            // sums q = t, t + 512, ..., each 32 slots by a shuffle tree; a
+            // warp takes SLOTS slots of 32 at once (chains in flight)
+            float2* fo = fi + (f & 1) * M * NP;
+#pragma unroll 1
+            for (int v0 = dw; v0 < NWARPS; v0 += SLOTS * DEMOD_WARPS) {
+                double are[SLOTS], aim[SLOTS];
+#pragma unroll
+                for (int h = 0; h < SLOTS; ++h) are[h] = aim[h] = 0.0;
+#pragma unroll 1
+                for (int q0 = wl; q0 < NP; q0 += THREADS) {
+                    int q[SLOTS];
+                    bool on[SLOTS];
+                    float ft[SLOTS];
+#pragma unroll
+                    for (int h = 0; h < SLOTS; ++h) {
+                        const int vw = v0 + h * DEMOD_WARPS;
+                        q[h] = q0 + 32 * vw;
+                        on[h] = vw < NWARPS && q[h] < NP;
+                        ft[h] = 0.0f;
+                    }
+#pragma unroll
+                    for (int m = 0; m < M; ++m) {
+                        const float2* xs[SLOTS];
+                        float re[SLOTS], im[SLOTS];
+#pragma unroll
+                        for (int h = 0; h < SLOTS; ++h) {
+                            xs[h] = d + m * Nmem + (on[h] ? q[h] : 0) * g.S;
+                            re[h] = xs[h][0].x;
+                            im[h] = xs[h][0].y;
+                        }
+                        if (g.Ts <= TS_MAX) {
+                            // every load issued at once: the samples past
+                            // Ts (inside shared memory) are read, not added
+#pragma unroll
+                            for (int u = 1; u < TS_MAX; ++u)
+#pragma unroll
+                                for (int h = 0; h < SLOTS; ++h) {
+                                    const float2 x = xs[h][u];
+                                    if (u < g.Ts) {
+                                        re[h] = re[h] + x.x;
+                                        im[h] = im[h] + x.y;
+                                    }
+                                }
+                        } else {
+#pragma unroll 1
+                            for (int u = 1; u < g.Ts; ++u)
+#pragma unroll
+                                for (int h = 0; h < SLOTS; ++h) {
+                                    re[h] = re[h] + xs[h][u].x;
+                                    im[h] = im[h] + xs[h][u].y;
+                                }
+                        }
+#pragma unroll
+                        for (int h = 0; h < SLOTS; ++h) {
+                            if (on[h]) {
+                                fo[m * NP + q[h]] = make_float2(re[h], im[h]);
+                                if constexpr (PROBE)
+                                    p.tr_fint[(frame * M + m) * NP + q[h]] =
+                                        make_float2(re[h], im[h]);
+                            }
+                            const float v = fma1(re[h], re[h], im[h] * im[h]);
+                            ft[h] = m == 0 ? v : ft[h] + v;
+                        }
+                    }
+#pragma unroll
+                    for (int h = 0; h < SLOTS; ++h)
+                        if (on[h]) {
+                            are[h] += (double)ft[h] * (double)spin_re[q[h]];
+                            aim[h] += (double)ft[h] * (double)spin_im[q[h]];
+                        }
+                }
+                for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+                    for (int h = 0; h < SLOTS; ++h) {
+                        are[h] += __shfl_down_sync(0xffffffffu, are[h], off);
+                        aim[h] += __shfl_down_sync(0xffffffffu, aim[h], off);
+                    }
+                }
+                if (wl == 0) {
+#pragma unroll
+                    for (int h = 0; h < SLOTS; ++h) {
+                        const int vw = v0 + h * DEMOD_WARPS;
+                        if (vw < NWARPS) {
+                            red[vw] = are[h];
+                            red[NWARPS + vw] = aim[h];
+                        }
+                    }
+                }
             }
-            if (wl == 0) {
-                red[warp] = are;
-                red[NWARPS + warp] = aim;
-            }
+            PHASE(2, 1);
+            __syncwarp();
+            bar_arrive(BAR_RED, DEMOD_THREADS + 32);
         }
-        if (warp == PRODUCER) cp_async_wait_all();   // the next windows
-        __syncthreads();
-        PHASE(5);
-
-        // the next frame's common DFT (4.), beside warp 0's serial tail
-        if (warp >= 1)
-            dft_common(g, ring, wbn, wbt, hann, tab, idx4, part_c, part_t,
-                       start, nvalid, (long long)pos + nin, logh);
-
-        // 6-8. timing, symbol decisions, Eb/N0 and the new state (warp 0)
-        if (warp == 0) {
+    } else {
+        // ---- warp 0: frame f's timing, then (off the chain) its decisions
+        int pos = st_pos[0], nin = st_nin[0];
+        float st_norm = p.norm_in[lane], st_ppm = p.ppm_in[lane];
+        float st_ebno = p.ebno_in[lane], st_snr = p.snr_in[lane];
+        float last_high = 0.0f;
+        int f = 0;
+        if (g.num_frames > 0) bar_arrive(BAR_GO, THREADS);
+#pragma unroll 1
+        for (; f < g.num_frames; ++f) {
+            if ((long long)pos + nin > nvalid) break;     // block-uniform
+            const long long frame = (long long)lane * g.num_frames + f;
+            PHASE(12, 0);
+            bar_sync(BAR_RED, DEMOD_THREADS + 32);
+            PHASE(3, 0);
+            // frame f's candidate: its f_new and phi_next, the state
+            const int x = nin_choice(g, nin);
+            const float fnew = wl < M ? est[f & 1][x][0][wl] : 0.0f;
+            const float phin = wl < M ? est[f & 1][x][3][wl] : 0.0f;
             double are = wl < NWARPS ? red[wl] : 0.0;
             double aim = wl < NWARPS ? red[NWARPS + wl] : 0.0;
             for (int off = NWARPS / 2; off > 0; off >>= 1) {
                 are += __shfl_down_sync(0xffffffffu, are, off);
                 aim += __shfl_down_sync(0xffffffffu, aim, off);
             }
-            float norm = 0.0f, ppm = 0.0f, low = 0.0f, fract = 0.0f,
-                  high = 0.0f;
+            // the chain: the timing, frame f+1's nin, the hand-off
+            float norm = 0.0f;
             int nin_next = 0;
             if (wl == 0) {
                 norm = atan2_poly(g, (float)aim, (float)are) / g.two_pi;
+                nin_next = norm > 0.25f ? g.N + g.Ts / 2
+                           : (norm < -0.25f ? g.N - g.Ts / 2 : g.N);
+                st_pos[(f + 1) & 1] = pos + nin;
+                st_nin[(f + 1) & 1] = nin_next;
+            }
+            PHASE(4, 0);
+            __syncwarp();
+            if (f + 1 < g.num_frames) bar_arrive(BAR_GO, THREADS);
+            // off the chain: the rest of the timing line
+            float ppm = 0.0f, low = 0.0f, fract = 0.0f, high = 0.0f;
+            if (wl == 0) {
                 const float rx = norm * (float)g.P;
                 const float d_norm = norm - st_norm;
                 const float appm = 1e6f * d_norm / (float)g.Nsym;
                 ppm = fabsf(d_norm) < 0.2f ? 0.9f * st_ppm + 0.1f * appm
                                            : st_ppm;
-                nin_next = norm > 0.25f ? g.N + g.Ts / 2
-                           : (norm < -0.25f ? g.N - g.Ts / 2 : g.N);
                 low = floorf(rx);
                 fract = rx - low;
                 high = low + (fract > 0.0f ? 1.0f : 0.0f);
@@ -770,13 +1026,14 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
                     p.tr_high[frame] = (int)high;
                 }
             }
+            nin_next = __shfl_sync(0xffffffffu, nin_next, 0);
             low = __shfl_sync(0xffffffffu, low, 0);
             fract = __shfl_sync(0xffffffffu, fract, 0);
             high = __shfl_sync(0xffffffffu, high, 0);
-            PHASE(6);
 
             // symbol decisions with linear interpolation between the floor
             // and ceil integrator phases
+            const float2* fo = fi + (f & 1) * M * NP;
             float sm = 0.0f, sw = 0.0f;
             float* so = p.soft + frame * g.Nbits;
             uint8_t* bo = p.bits + frame * g.Nbits;
@@ -792,7 +1049,7 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
                 float tmax[M];
 #pragma unroll
                 for (int m = 0; m < M; ++m) {
-                    const float2 a = fi[m * NP + ilo], b = fi[m * NP + ihi];
+                    const float2 a = fo[m * NP + ilo], b = fo[m * NP + ihi];
                     const float tr = a.x * w_lo + b.x * fract;
                     const float ti = a.y * w_lo + b.y * fract;
                     tmax[m] = tr * tr + ti * ti;
@@ -817,7 +1074,7 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
                 sm = sm + sqrtf(wv);
                 sw = sw + wv;
             }
-            PHASE(7);
+            PHASE(5, 0);
             for (int off = 16; off > 0; off >>= 1) {
                 sm = sm + __shfl_down_sync(0xffffffffu, sm, off);
                 sw = sw + __shfl_down_sync(0xffffffffu, sw, off);
@@ -834,23 +1091,37 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
                 p.o_norm[frame] = norm;
                 p.o_ppm[frame] = ppm;
                 p.o_nin[frame] = nin;
-                st_pos = pos + nin;
-                st_nin = nin_next;
                 st_norm = norm;
                 st_ppm = ppm;
                 st_ebno = ebno;
-                sh_high = high;
+                last_high = high;
+                st_last = (f & 1) * 3 + x;
             }
             if (wl < M) {
-                p.o_fest[frame * M + wl] = f_new[wl];
-                st_fest[wl] = f_new[wl];
-                st_phi[wl] = phi_next[wl];
+                p.o_fest[frame * M + wl] = fnew;
+                st_fest[wl] = fnew;
+                st_phi[wl] = phin;
             }
-            PHASE(8);
+            PHASE(6, 0);
+            pos += nin;
+            nin = nin_next;
+        }
+        if (wl == 0) {
+            st_frames = f;
+            st_nin_end = nin;
+            sh_high = last_high;
+            p.pos_out[lane] = pos;
+            p.nin_out[lane] = nin;
+            p.norm_out[lane] = st_norm;
+            p.ppm_out[lane] = st_ppm;
+            p.ebno_out[lane] = st_ebno;
+            p.snr_out[lane] = st_snr;
         }
     }
-    if (warp == PRODUCER) cp_async_wait_all();
     __syncthreads();
+    const int f = st_frames;
+    // the last valid frame's EMA, else the state's
+    const float* ema_end = f > 0 ? ema + st_last * half : fft;
 
     // frames past the lane's end: invalid, fields zeroed
 #pragma unroll 1
@@ -867,7 +1138,7 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
             p.o_ebno[frame] = 0.0f;
             p.o_norm[frame] = 0.0f;
             p.o_ppm[frame] = 0.0f;
-            p.o_nin[frame] = st_nin;
+            p.o_nin[frame] = st_nin_end;
         }
         if constexpr (PROBE) {
 #pragma unroll 1
@@ -875,7 +1146,7 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
                 p.tr_fint[frame * M * NP + e] = make_float2(0.0f, 0.0f);
 #pragma unroll 1
             for (int k = tid; k < half; k += THREADS)
-                p.tr_fft[frame * half + k] = fft[k];
+                p.tr_fft[frame * half + k] = ema_end[k];
             if (tid == 0) {
                 p.tr_rx[frame] = 0.0f;
                 p.tr_high[frame] = 0;
@@ -886,9 +1157,10 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
     // the eye probe: the last valid frame's integrators, on chip still
     if (p.eye_re != nullptr) {
         const bool ok = f > 0;
+        const float2* fl = fi + ((f - 1) & 1) * M * NP;
 #pragma unroll 1
         for (int e = tid; e < M * NP; e += THREADS) {
-            const float2 v = ok ? fi[e] : make_float2(0.0f, 0.0f);
+            const float2 v = ok ? fl[e] : make_float2(0.0f, 0.0f);
             p.eye_re[(size_t)lane * M * NP + e] = v.x;
             p.eye_im[(size_t)lane * M * NP + e] = v.y;
         }
@@ -900,18 +1172,10 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
 
 #pragma unroll 1
     for (int k = tid; k < half; k += THREADS)
-        p.fft_out[lane * half + k] = fft[k];
+        p.fft_out[lane * half + k] = ema_end[k];
     if (tid < M) {
         p.fest_out[lane * M + tid] = st_fest[tid];
         p.phi_out[lane * M + tid] = st_phi[tid];
-    }
-    if (tid == 0) {
-        p.pos_out[lane] = st_pos;
-        p.nin_out[lane] = st_nin;
-        p.norm_out[lane] = st_norm;
-        p.ppm_out[lane] = st_ppm;
-        p.ebno_out[lane] = st_ebno;
-        p.snr_out[lane] = st_snr;
     }
 }
 

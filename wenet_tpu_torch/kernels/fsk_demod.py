@@ -155,13 +155,15 @@ def smem_layout_bytes(g: Geom) -> int:
         at = (at + nbytes + 15) // 16 * 16
     G = 1 if g.half >= THREADS else THREADS // g.half
     Gc = 1 if g.half >= DFT_THREADS else DFT_THREADS // g.half
+    later = g.max_blocks > 1           # blocks after the first
     for nbytes in (2 * (THREADS // 32) * 8, g.ring * SAMPLE_BYTES_BY_FMT[g.fmt],
                    g.n_tab * 8,
                    (g.Ndft // 4 + 1) * g.half * 8 if g.idx_smem else 0,
-                   g.Ndft * 4, 2 * g.NP * 4, g.Nmem * 8,
-                   g.max_blocks * (g.Ndft + 4) * 8, g.Ndft * 8,
-                   3 * g.tail_len * 8, g.M * g.Nmem * 8, g.M * g.NP * 8,
-                   g.half * 4, 2 * G * g.half * 4, 2 * Gc * g.half * 4,
+                   g.Ndft * 4, 2 * g.NP * 4,
+                   (g.Ndft + 4) * 8 if later else 0, g.Ndft * 8,
+                   3 * g.tail_len * 8, g.M * g.Nmem * 8, 2 * g.M * g.NP * 8,
+                   g.half * 4, 2 * 3 * g.half * 4,
+                   2 * G * g.half * 4 if later else 0, 2 * Gc * g.half * 4,
                    3 * 2 * g.half * 4):
         take(nbytes)
     return at
