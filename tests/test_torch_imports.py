@@ -331,7 +331,7 @@ def test_cuda_requests_raise_without_card():
                                   "wideband_scaling", "wideband_where",
                                   "fused_where", "fused_profile",
                                   "pp_breakdown", "stream_tune",
-                                  "bench", "corpus_e2e"])
+                                  "bench", "corpus_e2e", "WidebandReceiver"])
 def test_public_functions_default_to_the_card(name, monkeypatch):
     """Called without a device, the port's public demod and deframe entry
     points ask for CUDA, and without a card they raise instead of running
@@ -400,6 +400,7 @@ def test_public_functions_default_to_the_card(name, monkeypatch):
         # the benchmark and the corpus tool
         "bench": lambda: bench.main([]),
         "corpus_e2e": lambda: corpus_e2e.main(["--images", "none"]),
+        "WidebandReceiver": lambda: pipeline.WidebandReceiver(cfg=cfg),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[name]()

@@ -139,6 +139,49 @@ def test_chunked_resumption(mode, monkeypatch):
         assert log == calls["port_c"], name
 
 
+def _shift_buffer_fsm(bits, uw, allowed, syms, init):
+    """The acquisition FSM as the reference writes it: a byte a buffered
+    bit, shifted each symbol and compared bit by bit."""
+    buf, nuw = [int(b) for b in init], len(uw)
+    pos, final, t, n = [], None, 0, len(bits)
+    while t < n:
+        buf = buf[1:] + [int(bits[t])]
+        if sum(b == int(u) for b, u in zip(buf, uw)) >= nuw - allowed:
+            if t + syms >= n:
+                break
+            pos.append(t)
+            final = list(buf)
+            t += syms
+        t += 1
+    return pos, buf if final is None else final
+
+
+@pytest.mark.parametrize("nuw,allowed", [(1, 0), (13, 2), (63, 5),
+                                         (64, 6)])
+def test_fsm_register_holds_any_uw_width(nuw, allowed):
+    """The C FSM keeps its bit buffer in one 64-bit register: for every
+    width up to MAX_UW, with planted words (some with `allowed` errors)
+    and an init buffer, the shift-buffer FSM's positions and final
+    buffer."""
+    rng = np.random.default_rng(nuw)
+    uw = rng.integers(0, 2, nuw).astype(np.uint8)
+    bits = rng.integers(0, 2, 6000).astype(np.uint8)
+    for at in range(200, 5800, 700):
+        word = uw.copy()
+        word[rng.choice(nuw, min(allowed, nuw), replace=False)] ^= 1
+        bits[at - nuw + 1: at + 1] = word
+    init = rng.integers(0, 2, nuw).astype(np.int8)
+    syms = 97
+    want_p, want_f = _shift_buffer_fsm(bits, uw, allowed, syms, init)
+    assert len(want_p) >= 8
+    got_p, got_f = native.uw_detect(bits, uw, allowed, syms, init)
+    assert got_p.tolist() == want_p
+    assert got_f.tolist() == want_f
+    # bool hard decisions are read as the same bytes
+    got_p, _ = native.uw_detect(bits.astype(bool), uw, allowed, syms, init)
+    assert got_p.tolist() == want_p
+
+
 @pytest.mark.parametrize("fmt", ["cu8", "cs16"])
 def test_sample_conversion_bit_exact(fmt):
     """cu8_to_c64 / cs16_to_c64 over every input value and a random

@@ -14,12 +14,21 @@ whole capture in one fused device step of N overlap-save chunks
 flight (`decode_iq_fused_overlap`) and alone implies `--parallel 4*S`.
 `--format s16` (real s16 samples) converts on the host and pushes complex
 samples.  Unless `--no-udp`, the modem-stats records carry the eye
-diagram of the last valid frame.  `--channels N` reads the whole capture
-as one wideband stream at N times the mode's rate, channelizes it into N
-channels on the device and decodes them all
-(`ops.channelizer.demod_multichannel`; cu8 bytes are converted in the
-channelizer kernel, other formats on the host); `--channel-select` keeps
-only the channels it names.
+diagram of the last valid frame.  `--channels N` takes the input as one
+wideband stream at N times the mode's rate and decodes it as it streams
+in: each chunk goes through the streaming wideband receiver
+(`rx.pipeline.WidebandReceiver`: the channelizer, with its filter history
+carried from chunk to chunk, and the N channels as lanes of one demod call
+on the device, a UW FSM a channel and one decode batch on the host; cu8
+bytes are converted in the channelizer kernel, other formats on the host),
+pipelined as `--pipelined` makes the single-channel receiver (a chunk's
+payloads come with the next chunk), so it runs live on a pipe from an
+SDR set to N times the rate:
+
+    <SDR's cu8 at 7.68 MS/s> | python -m wenet_tpu_torch rx - --format cu8 \
+        --mode v2 --channels 8
+
+`--channel-select` keeps only the channels it names.
 """
 from __future__ import annotations
 
@@ -89,7 +98,7 @@ def add_args(ap: argparse.ArgumentParser):
     ap.add_argument("--pipelined", action="store_true",
                     help="overlap device demod of chunk k+1 with host "
                          "deframe of chunk k (payloads arrive one chunk "
-                         "later)")
+                         "later); --channels always does")
     ap.add_argument("--parallel", type=int, default=0, metavar="N",
                     help="one-shot overlap-save decode of the whole capture "
                          "with N chunks demodulated as lanes of one device "
@@ -101,9 +110,11 @@ def add_args(ap: argparse.ArgumentParser):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without a card)")
     ap.add_argument("--channels", type=int, default=0, metavar="N",
-                    help="wideband mode: polyphase-channelize the capture "
-                         "into N channels of --fs each and demodulate them "
-                         "all as lanes of one device call")
+                    help="wideband mode: the input is one band of N "
+                         "channels of --fs each, channelized and "
+                         "demodulated as it streams in (each chunk: the "
+                         "channelizer and the channels as lanes of one "
+                         "device call)")
     ap.add_argument("--channel-select", default=None, metavar="K[,K...]",
                     help="with --channels: only decode these channel indices")
 
@@ -134,7 +145,7 @@ def main(argv=None):
 
     conv, dtype, width = INPUT_CONVERTERS[args.format]
     if args.channels:
-        return _wideband(args, cfg, conv, dtype)
+        return _wideband(args, cfg, conv, dtype, width)
     if args.slabs > 1 and not args.parallel:
         args.parallel = 4 * args.slabs
         print(f"--slabs {args.slabs} implies --parallel {args.parallel} "
@@ -232,38 +243,48 @@ def main(argv=None):
     return 0
 
 
-def _wideband(args, cfg, conv, dtype) -> int:
-    """--channels N: the whole capture through the channelizer and the
-    per-channel decode; cu8 bytes go to the device as they are and are
-    converted in the channelizer kernel, other formats are converted on
-    the host; payloads routed in channel order."""
-    from ..ops.channelizer import demod_multichannel
+def _wideband(args, cfg, conv, dtype, width) -> int:
+    """--channels N: the stream read chunk by chunk (`--chunk-seconds` of
+    the band), each chunk pushed through the streaming wideband receiver
+    (`rx.pipeline.WidebandReceiver`: the channelizer and the channels'
+    demod on the device, a UW FSM a channel and one decode batch on the
+    host); cu8 bytes go to the device as they are and are converted in
+    the channelizer kernel, other formats are converted on the host;
+    payloads routed in channel order one chunk after the chunk that
+    completes them (the receiver is pipelined), the last at the end."""
+    from ..rx.pipeline import WidebandReceiver
     from ..rx.router import PacketRouter, UDPEmitter
 
-    fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
-    buf = np.frombuffer(fin.read(), dtype=dtype)
-    if fin is not sys.stdin.buffer:
-        fin.close()
     native = args.format == "cu8"
-    iq = buf if native else conv(buf)
-    n_samp = len(buf) // 2 if native else len(iq)
     sel = ([int(k) for k in args.channel_select.split(",")]
            if args.channel_select else None)
+    rx = WidebandReceiver(mode=args.mode, n_channels=args.channels,
+                          channels=sel, cfg=cfg,
+                          input_format="cu8" if native else "c64",
+                          device=args.device)
     router = PacketRouter(image_dir=args.image_dir, log_dir=args.log_dir,
                           partial_update=args.partialupdate,
                           headless=args.headless,
                           emitter=UDPEmitter(enabled=not args.no_udp))
+    chunk_bytes = (int(cfg.Fs * args.channels * args.chunk_seconds) * width
+                   * np.dtype(dtype).itemsize)
+    fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
+    n = n_samp = 0
     t0 = time.time()
-    per_channel = demod_multichannel(
-        iq, Fs_total=cfg.Fs * args.channels, n_channels=args.channels,
-        cfg=cfg, mode=args.mode, channels=sel, device=args.device,
-        input_format="cu8" if native else "c64")
-    n = 0
-    for k in sorted(per_channel):
-        for payload in per_channel[k]:
+    try:
+        for raw in _chunk_reader(fin, chunk_bytes):
+            buf = np.frombuffer(raw, dtype=dtype)
+            n_samp += len(buf) // width
+            for _, payload in rx.push(buf if native else conv(buf)):
+                router.handle_packet(payload)
+                n += 1
+    finally:
+        for _, payload in rx.flush():
             router.handle_packet(payload)
             n += 1
-    router.flush()
+        router.flush()
+        if fin is not sys.stdin.buffer:
+            fin.close()
     dt = time.time() - t0
     # samples at the full wideband rate Fs_total = cfg.Fs * channels
     print(f"wideband: {args.channels} channels, {n} packets, "

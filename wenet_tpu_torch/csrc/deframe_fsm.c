@@ -11,50 +11,62 @@
  * bound with ctypes (`wenet_tpu_torch.native`).
  */
 #include <stdint.h>
-#include <string.h>
 
-/* Sliding UW detector over hard decisions of `soft` (bit = soft < 0).
+/* Set bits of x (a libgcc call, not inline, for __builtin_popcountll on
+ * an x86-64 build without -mpopcnt). */
+static inline int ones64(uint64_t x)
+{
+    x = x - ((x >> 1) & 0x5555555555555555ULL);
+    x = (x & 0x3333333333333333ULL) + ((x >> 2) & 0x3333333333333333ULL);
+    x = (x + (x >> 4)) & 0x0f0f0f0f0f0f0f0fULL;
+    return (int)((x * 0x0101010101010101ULL) >> 56);
+}
+
+/* Sliding UW detector over hard decisions `bits` (one byte a bit, 0 or 1).
  * init_buf: nuw bytes of prior bit_buffer state (zeros at stream start).
  * Returns the number of detections (UW-end indices) written to out_pos
  * (at most max_out of them); final_buf receives the bit_buffer content
  * after the last detection, or at the stream's end if there was none.
  * A detection whose packet window [t+1, t+syms] does not fit ends the
- * search (the reference deframer simply runs out of input). */
-long uw_detect(const float *soft, long n, const uint8_t *uw, int nuw,
+ * search (the reference deframer simply runs out of input).
+ *
+ * The bit buffer is one 64-bit register, its oldest bit the highest of
+ * the nuw it holds, so a shift takes in a bit and the score is nuw less
+ * the mismatches, a popcount of the register against the UW's bits. */
+long uw_detect(const uint8_t *bits, long n, const uint8_t *uw, int nuw,
                int allowed, long syms, const int8_t *init_buf,
                int64_t *out_pos, long max_out, int8_t *final_buf)
 {
-    int8_t buf[64];
-    int thresh = nuw - allowed;
+    const uint64_t mask = nuw == 64 ? ~(uint64_t)0
+                                    : (((uint64_t)1 << nuw) - 1);
+    uint64_t reg = 0, want = 0, last = 0;
     long ndet = 0;
     long t = 0;
-    int i, score;
+    int i;
 
-    memcpy(buf, init_buf, nuw);
+    for (i = 0; i < nuw; i++) {
+        reg = (reg << 1) | (init_buf[i] != 0);
+        want = (want << 1) | (uw[i] != 0);
+    }
 
     while (t < n) {
-        /* shift in the next hard bit */
-        memmove(buf, buf + 1, nuw - 1);
-        buf[nuw - 1] = soft[t] < 0.0f;
-
-        score = 0;
-        for (i = 0; i < nuw; i++)
-            score += (buf[i] == uw[i]);
-
-        if (score >= thresh) {
+        reg = ((reg << 1) | (bits[t] != 0)) & mask;   /* shift in a bit */
+        if (ones64(reg ^ want) <= allowed) {
             if (t + syms >= n)
                 break;              /* packet cannot complete: stream ends */
             if (ndet < max_out)
                 out_pos[ndet] = t;
             ndet++;
-            memcpy(final_buf, buf, nuw);   /* buffer frozen during COLLECT */
-            t += syms;                     /* skip the collected symbols */
-            memcpy(buf, final_buf, nuw);   /* resume with the stale buffer */
+            last = reg;
+            t += syms;    /* skip the collected symbols; the buffer stays
+                             frozen as it was at the detection */
         }
         t++;
     }
-    if (ndet == 0)
-        memcpy(final_buf, buf, nuw);
+    if (ndet)
+        reg = last;
+    for (i = 0; i < nuw; i++)
+        final_buf[i] = (int8_t)((reg >> (nuw - 1 - i)) & 1);
     return ndet;
 }
 

@@ -78,7 +78,7 @@ def load() -> ctypes.CDLL:
         from numpy.ctypeslib import ndpointer
         lib.uw_detect.restype = ctypes.c_long
         lib.uw_detect.argtypes = [
-            ndpointer(ctypes.c_float, flags="C_CONTIGUOUS"), ctypes.c_long,
+            ndpointer(ctypes.c_uint8, flags="C_CONTIGUOUS"), ctypes.c_long,
             ndpointer(ctypes.c_uint8, flags="C_CONTIGUOUS"), ctypes.c_int,
             ctypes.c_int, ctypes.c_long,
             ndpointer(ctypes.c_int8, flags="C_CONTIGUOUS"),
@@ -95,24 +95,24 @@ def load() -> ctypes.CDLL:
         return lib
 
 
-def uw_detect(soft: np.ndarray, uw: np.ndarray, allowed: int, syms: int,
+def uw_detect(bits: np.ndarray, uw: np.ndarray, allowed: int, syms: int,
               init_buffer: np.ndarray):
-    """The C acquisition FSM over the hard decisions of `soft` (bit = soft
-    < 0) -> (positions int64[], final_buffer int8[]): UW-end indices, and
-    the bit buffer after the last detection (at the stream's end where
-    there was none)."""
+    """The C acquisition FSM over the hard decisions `bits` (0 or 1, one
+    byte each) -> (positions int64[], final_buffer int8[]): UW-end
+    indices, and the bit buffer after the last detection (at the stream's
+    end where there was none)."""
     lib = load()
-    soft = np.ascontiguousarray(soft, np.float32)
+    bits = np.ascontiguousarray(bits).view(np.uint8)
     uw = np.ascontiguousarray(uw, np.uint8)
     init = np.ascontiguousarray(init_buffer, np.int8)
     if not 0 < len(uw) <= MAX_UW or len(init) != len(uw):
         raise ValueError(f"uw of 1..{MAX_UW} bits and an init buffer of "
                          f"its length (got {len(uw)}, {len(init)})")
     # a detection and its packet take syms + 1 symbols
-    max_out = max(len(soft) // (syms + 1) + 2, 16)
+    max_out = max(len(bits) // (syms + 1) + 2, 16)
     out = np.zeros(max_out, np.int64)
     final = np.zeros(len(uw), np.int8)
-    n = lib.uw_detect(soft, len(soft), uw, len(uw), allowed, syms, init,
+    n = lib.uw_detect(bits, len(bits), uw, len(uw), allowed, syms, init,
                       out, max_out, final)
     return out[:n].copy(), final
 

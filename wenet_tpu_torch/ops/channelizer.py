@@ -10,7 +10,10 @@ the channelizer kernel (`kernels.channelize`), which reads float32 pairs
 or the capture's raw cu8 bytes and writes the selected channels straight
 into the buffer that the demod kernel reads as lanes; on a CPU tensor
 `channelize_reference` computes it as the JAX package does (shifted
-slices, an einsum, `utils.compat.dft`).
+slices, an einsum, `utils.compat.dft`).  `StreamingChannelizer` runs it
+over a stream cut into pushes, carrying the filter history (the streaming
+`rx.pipeline.WidebandReceiver`); `demod_multichannel` decodes a whole
+capture.
 """
 from __future__ import annotations
 
@@ -116,6 +119,57 @@ def channelize_pairs(x: torch.Tensor, n_channels: int,
         iq = torch.complex(x[:, 0].contiguous(), x[:, 1].contiguous())
     ch = channelize_reference(iq, n_channels, taps_per_phase, sel)
     return torch.view_as_real(ch).reshape(-1, 2)
+
+
+class StreamingChannelizer:
+    """`channelize_pairs` over a stream cut into pushes of any length: the
+    channels of each push's new frames are those of the whole stream.
+
+    Frame m of the stream reads samples mN - (T N - 1) .. mN (zero before
+    the stream).  A push runs `channelize_pairs` on the band history (the
+    samples from T frames before the first frame not yet made, at most T N
+    + N - 1 of them) followed by the push's samples, and drops the output
+    frames that reach before that buffer (read there as zeros), which the
+    earlier pushes made whole.  Every frame is computed from the same
+    samples in the same order as over the whole stream, so on a card the
+    output is the whole-stream kernel's bit for bit; on the CPU the plain
+    version's sums may take another blocking.
+
+    input_format: "c64" ((n, 2) float32 pairs) or "cu8" (2 n raw bytes,
+    converted in the kernel); the history stays on the pushes' device.
+    The filter has `channelize_pairs`' default 12 taps a phase."""
+
+    def __init__(self, n_channels: int, channels=None,
+                 input_format: str = "c64"):
+        if input_format not in ("c64", "cu8"):
+            raise ValueError(f"input_format must be 'c64' or 'cu8', got "
+                             f"{input_format!r}")
+        self.N, self.T = int(n_channels), 12
+        self.channels = _selection(channels, self.N)
+        self.input_format = input_format
+        self._history = None       # band samples from _base on
+        self._base = 0             # stream index of the history's first
+        self.frames = 0            # frames made so far
+
+    def push(self, x: torch.Tensor) -> torch.Tensor:
+        """x: the push's samples as `channelize_pairs` takes them ->
+        (Nsel, F, 2) float32, the selected channels' new frames (F may be
+        0; a view of the call's output)."""
+        buf = x if self._history is None else torch.cat([self._history, x])
+        unit = 2 if self.input_format == "cu8" else 1   # rows a sample
+        n = buf.shape[0] // unit
+        made = self.frames - self._base // self.N      # in the history
+        L, F = len(self.channels), n // self.N
+        if F <= made:
+            self._history = buf
+            return buf.new_zeros((L, 0, 2), dtype=torch.float32)
+        out = channelize_pairs(buf, self.N, self.T, self.channels,
+                               self.input_format)
+        self.frames = self._base // self.N + F
+        keep = max(self.frames - self.T, 0) * self.N
+        self._history = buf[(keep - self._base) * unit:]
+        self._base = keep
+        return out.reshape(L, F, 2)[:, made:]
 
 
 def _device_input(iq, device, input_format: str = "c64") -> torch.Tensor:

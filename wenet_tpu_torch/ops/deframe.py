@@ -72,18 +72,21 @@ def uw_detect_positions(hard_bits: np.ndarray, mode: str = "v2",
     nuw = len(uw)
     thresh = nuw - allowed
     n = len(hard_bits)
-    hard_bits = np.asarray(hard_bits, np.int8)
     if init_buffer is None:
         init_buffer = np.zeros(nuw, np.int8)
     if n < 1:
         return np.zeros(0, np.int64), init_buffer
 
     if not force_numpy:
-        soft_pm = np.where(hard_bits > 0, -1.0, 1.0).astype(np.float32)
-        pos, final = native.uw_detect(soft_pm, uw.astype(np.uint8), allowed,
+        bits = np.asarray(hard_bits)
+        if bits.dtype.itemsize != 1:
+            bits = bits.astype(np.uint8)
+        pos, final = native.uw_detect(bits, uw.astype(np.uint8), allowed,
                                       syms_per_packet, init_buffer)
         final = final if len(pos) else init_buffer
         return pos, np.asarray(final, np.int8)
+
+    hard_bits = np.asarray(hard_bits, np.int8)
 
     # scores[t] = matching bits of the window ending at t, with the buffer
     # preloaded with init_buffer: one +/-1 correlation
@@ -148,23 +151,26 @@ def decode_windows(windows: np.ndarray, mode: str = "v2",
     return _decode_batch(*_soft_decisions(windows, mode), max_iter, device)
 
 
+# the v2 descramble's +/-1 pattern over a codeword (framing.rx_descramble_soft)
+_DESCRAMBLE = np.resize(framing.SCRAMBLE_PM1, T.CODE_LEN).astype(np.float32)
+
+
 def _soft_decisions(windows: np.ndarray, mode: str):
     """(B, syms) soft windows -> ((Bp, CODE_LEN) float32 soft decisions, B):
-    the v2 descramble or the v1 RS232 strip on the host, in float64, and
-    the batch bucketed to a power of two Bp >= 4, padded with the last row
-    (no rows for B = 0)."""
+    the v2 descramble (a sign flip, exact in float32) or the v1 RS232
+    strip (a selection) on the host, and the batch bucketed to a power of
+    two Bp >= 4, padded with the last row (no rows for B = 0)."""
     B = len(windows)
     if B == 0:
         return np.zeros((0, T.CODE_LEN), np.float32), 0
-    windows = np.asarray(windows, np.float64)
-    if mode == "v2":
-        sd = framing.rx_descramble_soft(windows)[:, : T.CODE_LEN]
-    else:
-        sd = framing.rs232_strip_soft(windows)[:, : T.CODE_LEN]
+    windows = np.asarray(windows)
     Bp = 1 << max(int(np.ceil(np.log2(B))), 2)
-    sd = np.asarray(sd, np.float32)
-    if Bp != B:
-        sd = np.concatenate([sd, np.tile(sd[-1:], (Bp - B, 1))], axis=0)
+    sd = np.empty((Bp, T.CODE_LEN), np.float32)
+    if mode == "v2":
+        np.multiply(windows[:, : T.CODE_LEN], _DESCRAMBLE, out=sd[:B])
+    else:
+        sd[:B] = framing.rs232_strip_soft(windows)[:, : T.CODE_LEN]
+    sd[B:] = sd[B - 1]
     return sd, B
 
 
@@ -192,13 +198,43 @@ def decode_candidates(soft: np.ndarray, positions: np.ndarray,
     clocks: a stage clock dict (`utils.spans`) that takes the gather and
     host soft decisions as "deframe.gather", the device batch as
     "deframe.bp", both also under "deframe"."""
+    return decode_candidates_lanes([soft], [positions], mode, max_iter,
+                                   device, clocks)[0]
+
+
+def decode_candidates_lanes(softs: list, positions: list, mode: str = "v2",
+                            max_iter: int = T.MAX_ITER, device="cuda",
+                            clocks: dict | None = None) -> list:
+    """`decode_candidates` of several streams in ONE decode batch (one
+    copy back): softs[i] and positions[i] a stream's soft bits and its
+    candidates -> [(packets_raw, crc_ok, iters)] a stream."""
     _, _, syms = _mode_params(mode)
     with span("deframe.gather", clocks, "deframe"):
-        idx = (np.asarray(positions, np.int64)[:, None] + 1
-               + np.arange(syms)[None, :])
-        sd, B = _soft_decisions(soft[idx], mode)
+        wins = np.empty((sum(len(p) for p in positions), syms), np.float32)
+        row = 0
+        for soft, pos in zip(softs, positions):
+            for t in np.asarray(pos, np.int64):
+                wins[row] = soft[t + 1: t + 1 + syms]
+                row += 1
+        sd, B = _soft_decisions(wins, mode)
     with span("deframe.bp", clocks, "deframe"):
-        return _decode_batch(sd, B, max_iter, device)
+        pkts, ok, iters = _decode_batch(sd, B, max_iter, device)
+        if len(positions) == 1:
+            return [(pkts, ok, iters)]
+        cuts = np.cumsum([len(p) for p in positions])[:-1]
+        return list(zip(np.split(pkts, cuts), np.split(ok, cuts),
+                        np.split(iters, cuts)))
+
+
+def decode_streams(deframers: list, positions: list) -> list:
+    """The candidates of several `StreamDeframer`s of one mode and device
+    (each at its own UW-end positions, as `detect` found them) in one
+    decode batch, clocked in the first one's clocks -> [(packets_raw,
+    crc_ok)] a deframer, for its `consume`."""
+    d = deframers[0]
+    res = decode_candidates_lanes([x._buf for x in deframers], positions,
+                                  d.mode, d.max_iter, d.device, d.seconds)
+    return [(pkts, ok) for pkts, ok, _ in res]
 
 
 STAGES = ("deframe.detect", "deframe.fsm", "deframe.gather", "deframe.bp",

@@ -7,11 +7,18 @@ the device, converts it there, runs the frame-loop demod with the carried
 one packed array.  The host then runs the UW FSM and sends the candidate
 windows as one batch through the device decoder (`ops.deframe`).  Chunked
 pushes equal one-shot decoding, as in the reference.
+
+`WidebandReceiver.push` does the same for a band of N channels as it
+streams in: the streaming channelizer (`ops.channelizer`) on the device,
+the channels as lanes of one demod call (`stream_step_lanes`), a UW FSM a
+channel and one decode batch for all of them on the host.  Both share the
+stages of `_Stages` and their clocks (`utils.spans`).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -47,6 +54,10 @@ _TORCH_DTYPES = {np.uint8: torch.uint8, np.int16: torch.int16,
 DEMOD_STAGES = ("rx.buffer", "rx.copy_in", "rx.launch", "rx.wait",
                 "rx.retire")
 DEFRAME_STAGES = ("rx.fetch",) + deframe.STAGES
+# the wideband receiver's: the band history, the channelizer and the lane
+# buffer's assembly after the copy in
+WIDEBAND_DEMOD_STAGES = ("rx.buffer", "rx.copy_in", "rx.channelize",
+                         "rx.launch", "rx.wait", "rx.retire")
 
 
 @dataclasses.dataclass
@@ -73,42 +84,95 @@ def stream_step(cfg: fsk.FSKConfig, data: torch.Tensor, state: fsk.DemodState,
     [soft (nf*Nbits) | valid (nf) | ebno, ppm, n_valid_frames, last, f_est]
     — the host needs exactly one copy of it.  with_eye appends the last
     valid frame's eye probe: [f_int re (M*NP) | f_int im | high_sample].
+    `stream_step_lanes` with one lane.
 
     Nothing here waits for the device: the last valid frame's stats are
     taken with device-side gathers, so on a card the call only queues work.
     """
     dev = data.device
-    res = fsk._drop(fsk.demod_raw(
-        cfg, data, fmt, nf, torch.zeros(1, dtype=torch.int64, device=dev),
-        torch.full((1,), n_valid, dtype=torch.int64, device=dev),
-        fsk.lane_state(state, 1), with_eye))
+    final, packed = stream_step_lanes(
+        cfg, data, fsk.lane_state(state, 1),
+        torch.zeros(1, dtype=torch.int64, device=dev),
+        torch.full((1,), n_valid, dtype=torch.int64, device=dev), fmt, nf,
+        with_eye)
+    return fsk.DemodState(*(t[0] for t in final)), packed
+
+
+def stream_step_lanes(cfg: fsk.FSKConfig, data: torch.Tensor,
+                      state: fsk.DemodState, starts: torch.Tensor,
+                      n_valid: torch.Tensor, fmt: str, nf: int,
+                      with_eye: bool = False):
+    """`stream_step` over L lanes of one raw buffer (`ops.fsk.demod_raw`'s
+    starts, n_valid and lane-stacked state) -> (final lane-stacked state,
+    packed), packed being [soft (L, nf, Nbits) | valid (L, nf) | the L
+    lanes' stats rows (ebno, ppm, n_valid_frames, last, f_est) | with_eye
+    f_int re (L, M, NP) | f_int im | high_sample (L)], read by `_unpack`."""
+    dev = data.device
+    res = fsk.demod_raw(cfg, data, fmt, nf, starts, n_valid, state, with_eye)
     final, outs = res[:2]
+    L = starts.shape[0]
     vidx = torch.arange(nf, device=dev)
-    last = torch.max(torch.where(outs.valid, vidx, -1)).reshape(1)
-    li = torch.clamp(last, min=0)
-    stats = torch.cat([outs.ebno_db.index_select(0, li),
-                       outs.ppm.index_select(0, li),
-                       outs.valid.float().sum().reshape(1), last.float(),
-                       outs.f_est.index_select(0, li).reshape(-1).float()])
-    parts = [outs.soft.reshape(-1), outs.valid.float(), stats]
+    last = torch.amax(torch.where(outs.valid, vidx, -1), dim=1)
+    li = torch.clamp(last, min=0)[:, None]
+    stats = torch.cat([outs.ebno_db.gather(1, li), outs.ppm.gather(1, li),
+                       outs.valid.float().sum(1, keepdim=True),
+                       last.float()[:, None],
+                       outs.f_est.gather(1, li[:, :, None].expand(
+                           L, 1, cfg.M)).reshape(L, cfg.M).float()], dim=1)
+    parts = [outs.soft.reshape(-1), outs.valid.float().reshape(-1),
+             stats.reshape(-1)]
     if with_eye:
         eye = res[2]
         parts += [eye.f_int.real.reshape(-1), eye.f_int.imag.reshape(-1),
-                  eye.high_sample.float().reshape(1)]
+                  eye.high_sample.float().reshape(-1)]
     return final, torch.cat(parts)
+
+
+def _unpack(p: np.ndarray, cfg: fsk.FSKConfig, L: int, nf: int,
+            with_eye: bool):
+    """`stream_step_lanes`' packed vector on the host -> (soft (L, nf,
+    Nbits), valid (L, nf) bool, stats rows (L, 4 + M), and with_eye the
+    eye probes (f_int (L, M, NP) complex64, high_sample (L,)) else
+    None)."""
+    nbits, o = cfg.Nbits, L * nf * cfg.Nbits
+    soft = p[:o].reshape(L, nf, nbits)
+    valid = p[o: o + L * nf].reshape(L, nf) > 0.5
+    o += L * nf
+    stats = p[o: o + L * (4 + cfg.M)].reshape(L, 4 + cfg.M)
+    if not with_eye:
+        return soft, valid, stats, None
+    o += L * (4 + cfg.M)
+    n_int = L * cfg.M * (cfg.Nsym + 1) * cfg.P
+    f_int = (p[o: o + n_int] + 1j * p[o + n_int: o + 2 * n_int]).astype(
+        np.complex64).reshape(L, cfg.M, -1)
+    return soft, valid, stats, (f_int, p[o + 2 * n_int:].astype(np.int64))
+
+
+def _count(st: RxStats, row: np.ndarray, n_new: int) -> int:
+    """Fold one lane's stats row of a push into its RxStats -> the push's
+    valid frames."""
+    nframes = int(row[2])
+    st.frames += nframes
+    st.samples += n_new
+    if nframes:
+        st.ebno_db = float(row[0])
+        st.ppm = float(row[1])
+        st.f_est = tuple(float(x) for x in row[4:])
+    return nframes
 
 
 class _InFlight(NamedTuple):
     """A chunk whose demod is queued: the carry on the device, the packed
     vector and (pos, nin) (on a card, pinned host copies that are whole
-    once `done` has fired), the frame count, the raw buffer and the new
-    samples it holds."""
+    once `done` has fired), the frame count, the buffer the demod read
+    (the raw chunk with its history; the wideband receiver's lane tensor)
+    and the new samples it holds (a lane's, for the wideband receiver)."""
     final: fsk.DemodState
     packed: torch.Tensor
     pos_nin: torch.Tensor
     done: torch.cuda.Event | None
     nf: int
-    buf: np.ndarray
+    buf: np.ndarray | torch.Tensor
     n_new: int
 
 
@@ -119,7 +183,75 @@ def _to_host_async(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-class Receiver:
+class _Stages:
+    """What the streaming receivers share: the chunk as raw units, the
+    device work on the receiver's own CUDA stream, the copies of a push's
+    packed result and carry behind it, and the wait for them, each under
+    the stage clock (`utils.spans`) of `seconds` it belongs to."""
+
+    def __init__(self, device, input_format: str, stages: tuple):
+        if input_format not in _RAW_DTYPES:
+            raise ValueError("input_format must be 'c64', 'cu8' or 'cs16'")
+        self.device = resolve_device(device)
+        self.input_format = input_format
+        self._width = 2 if input_format in ("cu8", "cs16") else 1
+        self.seconds = dict.fromkeys(("demod", "deframe") + stages, 0.0)
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._pending = None         # the chunk in flight, when pipelined
+
+    def _on_stream(self):
+        """The context in which this receiver's device work is queued: its
+        own stream on a card, nothing on the CPU."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def _units(self, chunk) -> np.ndarray:
+        """A chunk as the input format's raw units, whole samples only."""
+        chunk = np.asarray(chunk, _RAW_DTYPES[self.input_format])
+        if self._width == 2:
+            chunk = chunk[: 2 * (len(chunk) // 2)]
+        return chunk
+
+    def _queue_out(self, packed: torch.Tensor, pos_nin: torch.Tensor):
+        """On a card, non-blocking copies of the packed result and of pos
+        and nin into pinned memory behind the demod, and the event that
+        marks them whole -> (packed, pos_nin, event or None)."""
+        if self._stream is None:
+            return packed, pos_nin, None
+        packed, pos_nin = _to_host_async(packed), _to_host_async(pos_nin)
+        done = torch.cuda.Event()
+        done.record(self._stream)
+        return packed, pos_nin, done
+
+    def _wait(self, inflight: _InFlight):
+        """Wait for a push's copies to the host."""
+        with span("rx.wait", self.seconds, "demod"):
+            if inflight.done is not None:
+                inflight.done.synchronize()
+
+    def _push_pipelined(self, chunk) -> list:
+        """Retire the chunk in flight (wait for its copies, keep its
+        carry), queue this chunk's device work, then do the host half of
+        the retired one while the device works -> the retired chunk's
+        results."""
+        prev, self._pending = self._pending, None
+        if prev is not None:
+            self._retire_state(prev)
+        self._pending = self._dispatch(chunk)
+        return [] if prev is None else self._complete(prev)
+
+    def flush(self) -> list:
+        """End of stream: the results of the chunk in flight, if any."""
+        prev, self._pending = self._pending, None
+        if prev is None:
+            return []
+        self._retire_state(prev)
+        return self._complete(prev)
+
+
+class Receiver(_Stages):
     """Streaming Wenet receiver (one logical channel).
 
     Args:
@@ -152,33 +284,24 @@ class Receiver:
                  estimator_limits: tuple | None = None, max_iter: int = 10,
                  pipelined: bool = False, input_format: str = "c64",
                  with_eye: bool = False, device="cuda"):
-        if input_format not in _RAW_DTYPES:
-            raise ValueError("input_format must be 'c64', 'cu8' or 'cs16'")
-        self.device = resolve_device(device)
+        super().__init__(device, input_format, DEMOD_STAGES + DEFRAME_STAGES)
         self.mode = mode
         self.with_eye = with_eye
         self.last_eye = None      # (f_int (M, (Nsym+1)P) complex64, high)
-        self.input_format = input_format
         base = MODE_CONFIGS[mode] if cfg is None else cfg
         if estimator_limits is not None:
             base = dataclasses.replace(
                 base, est_min=estimator_limits[0], est_max=estimator_limits[1])
         self.cfg = base
-        self.seconds = dict.fromkeys(
-            ("demod", "deframe") + DEMOD_STAGES + DEFRAME_STAGES, 0.0)
         self.deframer = deframe.StreamDeframer(mode, max_iter=max_iter,
                                                device=self.device,
                                                clocks=self.seconds)
         self.state = None            # DemodState on the device, lazily
         self._pos = 0                # host copies of state.pos / state.nin
         self._nin = self.cfg.N
-        self._width = 2 if input_format in ("cu8", "cs16") else 1
         self._history = np.zeros(0, _RAW_DTYPES[input_format])
         self.stats = RxStats()
         self.pipelined = pipelined
-        self._pending = None
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------- one-shot
 
@@ -197,13 +320,6 @@ class Receiver:
 
     # ------------------------------------------------------------ streaming
 
-    def _on_stream(self):
-        """The context in which this receiver's device work is queued: its
-        own stream on a card, nothing on the CPU."""
-        if self._stream is None:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self._stream)
-
     def _dispatch(self, chunk: np.ndarray):
         """Queue the demod of a chunk on the device, then the copies of its
         packed result and of its carry's pos and nin to the host behind
@@ -213,9 +329,7 @@ class Receiver:
         not queue behind this demod."""
         cfg, w, clocks = self.cfg, self._width, self.seconds
         with span("rx.buffer", clocks, "demod"):
-            chunk = np.asarray(chunk, _RAW_DTYPES[self.input_format])
-            if w == 2:
-                chunk = chunk[: 2 * (len(chunk) // 2)]
+            chunk = self._units(chunk)
             buf = np.concatenate([self._history, chunk])
             n_samples = len(buf) // w
             nf = cfg.num_frames(max(n_samples - self._pos, 0))
@@ -231,16 +345,11 @@ class Receiver:
                 self.state = fsk.demod_init(cfg, self.device)
             # a pageable copy: it waits for this stream, idle here
             data_t = torch.from_numpy(data).to(self.device)
-        done = None
         with span("rx.launch", clocks, "demod"), self._on_stream():
             final, packed = stream_step(cfg, data_t, self.state, n_samples,
                                         self.input_format, nf, self.with_eye)
-            pos_nin = torch.stack([final.pos, final.nin])
-            if self._stream is not None:
-                packed, pos_nin = _to_host_async(packed), _to_host_async(
-                    pos_nin)
-                done = torch.cuda.Event()
-                done.record(self._stream)
+            packed, pos_nin, done = self._queue_out(
+                packed, torch.stack([final.pos, final.nin]))
         return _InFlight(final, packed, pos_nin, done, nf, buf,
                          len(chunk) // w)
 
@@ -248,9 +357,7 @@ class Receiver:
         """Fold the in-flight chunk's carry back: wait for its copies, take
         pos and nin on the host; the rest of the state stays on the
         device."""
-        with span("rx.wait", self.seconds, "demod"):
-            if inflight.done is not None:
-                inflight.done.synchronize()
+        self._wait(inflight)
         with span("rx.retire", self.seconds, "demod"):
             end_pos, nin = (int(v) for v in inflight.pos_nin)
             keep = min(end_pos, self.cfg.Nmem)
@@ -277,57 +384,204 @@ class Receiver:
     def _fetch(self, packed: torch.Tensor, nf: int, n_new: int):
         """The packed array on the host: the valid frames' soft bits, with
         the stats and the eye probe taken in."""
-        p = packed.cpu().numpy()
-        nbits = self.cfg.Nbits
-        soft = p[: nf * nbits].reshape(nf, nbits)
-        valid = p[nf * nbits: nf * (nbits + 1)] > 0.5
-        cfg = self.cfg
-        stats = p[nf * (nbits + 1): nf * (nbits + 1) + 4 + cfg.M]
-        soft = soft[valid].reshape(-1)
-        nframes = int(stats[2])
-        if nframes and self.with_eye:     # the last valid frame's probe
-            eye = p[nf * (nbits + 1) + 4 + cfg.M:]
-            n_int = cfg.M * (cfg.Nsym + 1) * cfg.P
-            f_int = (eye[:n_int] + 1j * eye[n_int: 2 * n_int]).astype(
-                np.complex64).reshape(cfg.M, -1)
-            self.last_eye = (f_int, int(eye[2 * n_int]))
-
-        self.stats.frames += nframes
-        self.stats.samples += n_new
-        if nframes:
-            self.stats.ebno_db = float(stats[0])
-            self.stats.ppm = float(stats[1])
-            self.stats.f_est = tuple(float(x) for x in stats[4:])
-        return soft
+        soft, valid, stats, eye = _unpack(packed.cpu().numpy(), self.cfg, 1,
+                                          nf, self.with_eye)
+        if _count(self.stats, stats[0], n_new) and eye is not None:
+            self.last_eye = (eye[0][0], int(eye[1][0]))  # last valid frame's
+        return soft[0][valid[0]].reshape(-1)
 
     def push(self, chunk: np.ndarray) -> list:
         """Feed samples (complex64, or raw u8/s16 IQ for cu8/cs16
         receivers); returns newly completed CRC-valid payloads (from the
         previous chunk when pipelined)."""
-        if not self.pipelined:
-            inflight = self._dispatch(chunk)
-            if inflight is None:
-                return []
-            self._retire_state(inflight)
-            return self._complete(inflight)
-
-        payloads = []
-        if self._pending is not None:
-            prev, self._pending = self._pending, None
-            self._retire_state(prev)
-            self._pending = self._dispatch(chunk)
-            payloads = self._complete(prev)
-        else:
-            self._pending = self._dispatch(chunk)
-        return payloads
-
-    def flush(self) -> list:
-        """Drain the in-flight chunk (pipelined mode); serial mode no-op."""
-        if self._pending is None:
+        if self.pipelined:
+            return self._push_pipelined(chunk)
+        inflight = self._dispatch(chunk)
+        if inflight is None:
             return []
-        prev, self._pending = self._pending, None
-        self._retire_state(prev)
-        return self._complete(prev)
+        self._retire_state(inflight)
+        return self._complete(inflight)
+
+
+class WidebandReceiver(_Stages):
+    """Streaming wideband receiver: one band of n_channels channels of the
+    mode's rate (channel k centred at k * Fs, negative ks wrapped, as
+    `ops.channelizer.channel_centres`), each channel a Wenet stream.
+
+    A push takes the band's raw samples (cu8 bytes, converted in the
+    channelizer kernel, or complex64) and returns the (channel, payload)
+    pairs that the previous push completed, in channel order and each
+    channel's in stream order; `flush` returns the last push's.  The
+    receiver is pipelined, as `Receiver(pipelined=True)`: a push retires
+    the previous push's device work, queues its own, then does the
+    previous push's host half while the device works, so the card is not
+    left idle through the host deframe.  On the device: the band history
+    and the channelizer
+    (`ops.channelizer.StreamingChannelizer`), then the selected channels
+    written into one lane buffer after each lane's carry, then one demod
+    call over all lanes with the lane-stacked state (`stream_step_lanes`),
+    one packed vector and the lanes' pos and nin copied back behind it.
+    On the host: each lane's valid soft bits go to its own
+    `StreamDeframer` (the C UW FSM on a card) and the candidates of all
+    lanes through one decode batch (`ops.deframe.decode_streams`).
+
+    A lane's carry is its last Nmem samples before its next fresh sample
+    and the samples it has not consumed, right-aligned in a (L, C, 2)
+    device tensor (C = Nmem + N + Ts / 2 bounds it), so the next push's
+    lane buffer is the carry followed by the new frames and each lane's
+    start and valid count differ by its carry's length.  Each lane's
+    frames equal a `Receiver` (c64) fed that channel's samples in the same
+    pushes, and the payloads those of `ops.channelizer.demod_multichannel`
+    on the whole capture.
+
+    Args: mode, n_channels, channels (indices in [-N, N), negative ones
+    counted from the end; the pairs carry them as given; default all),
+    input_format ('cu8' or 'c64'), max_iter, with_eye (each lane's last
+    valid frame's eye probe in `last_eye`), cfg (the channels' FSKConfig;
+    default the mode's), device (CUDA unless the caller asks for another;
+    raises without a card).
+
+    `seconds` holds the stage clocks (`WIDEBAND_DEMOD_STAGES`,
+    `DEFRAME_STAGES`, the deframe stages summed over the lanes) and their
+    sums "demod" and "deframe"; `stats` an `RxStats` a lane, `bp_windows`
+    the UW candidates a lane sent to BP.
+    """
+
+    def __init__(self, mode: str = "v2", n_channels: int = 8, channels=None,
+                 input_format: str = "cu8", max_iter: int = 10,
+                 with_eye: bool = False, cfg: fsk.FSKConfig | None = None,
+                 device="cuda"):
+        if input_format not in ("cu8", "c64"):
+            raise ValueError("input_format must be 'cu8' or 'c64'")
+        from ..ops import channelizer
+        super().__init__(device, input_format,
+                         WIDEBAND_DEMOD_STAGES + DEFRAME_STAGES)
+        self.mode, self.with_eye = mode, with_eye
+        self.cfg = cfg = MODE_CONFIGS[mode] if cfg is None else cfg
+        self.n_channels = int(n_channels)
+        self.channels = (list(range(self.n_channels)) if channels is None
+                         else [int(k) for k in channels])
+        self.channelizer = channelizer.StreamingChannelizer(
+            self.n_channels, self.channels, input_format)
+        L = len(self.channels)
+        self._order = sorted(range(L), key=lambda i: self.channels[i])
+        self.deframers = [deframe.StreamDeframer(mode, max_iter=max_iter,
+                                                 device=self.device,
+                                                 clocks=self.seconds)
+                          for _ in range(L)]
+        self.stats = [RxStats() for _ in range(L)]
+        self.bp_windows = [0] * L
+        self.last_eye = [None] * L
+        self.state = None            # lane-stacked DemodState, lazily
+        self._carry = None           # (L, C, 2) float32 on the device
+        self._C = cfg.Nmem + cfg.N + cfg.Ts // 2
+        self._c = np.zeros(L, np.int64)      # samples a lane carries
+        self._pos = np.zeros(L, np.int64)    # its next fresh sample there
+        self._pinned = None          # the pushes' host staging buffer
+
+    def _dispatch(self, chunk) -> _InFlight:
+        """Queue a band chunk's channelizer and demod on the device, then
+        the copies of the packed result and of the lanes' pos and nin."""
+        cfg, clocks, L = self.cfg, self.seconds, len(self.channels)
+        with span("rx.buffer", clocks, "demod"):
+            data = self._units(chunk)
+            if self.input_format == "c64":
+                data = data.view(np.float32).reshape(-1, 2)
+        with span("rx.copy_in", clocks, "demod"), self._on_stream():
+            if self.state is None:
+                self.state = fsk.lane_state(fsk.demod_init(cfg, self.device),
+                                            L)
+                self._carry = torch.zeros((L, self._C, 2),
+                                          dtype=torch.float32,
+                                          device=self.device)
+            x = self._staged(data)
+        with span("rx.channelize", clocks, "demod"), self._on_stream():
+            new = self.channelizer.push(x)
+            F = new.shape[1]
+            lanes = torch.cat([self._carry, new], dim=1)
+            W = self._C + F
+            n_valid = self._c + F
+            args = torch.as_tensor(
+                np.stack([np.arange(L) * W + self._C - self._c, n_valid]),
+                dtype=torch.int64, device=self.device)
+            nf = cfg.num_frames(int((n_valid - self._pos).max()))
+        with span("rx.launch", clocks, "demod"), self._on_stream():
+            final, packed = stream_step_lanes(
+                cfg, lanes.reshape(-1, 2), self.state, args[0], args[1],
+                "c64", nf, self.with_eye)
+            packed, pos_nin, done = self._queue_out(
+                packed, torch.stack([final.pos, final.nin]))
+        return _InFlight(final, packed, pos_nin, done, nf, lanes, F)
+
+    def _staged(self, data: np.ndarray) -> torch.Tensor:
+        """The push's samples on the device.  On a card they go through a
+        pinned buffer kept across pushes, and the copy to the card is
+        queued without blocking: the next push refills the buffer only
+        after this one's wait, which follows the copy on the stream."""
+        with warnings.catch_warnings():    # read-only input bytes:
+            warnings.simplefilter("ignore", UserWarning)  # only read
+            src = torch.from_numpy(data)
+        if self._stream is None:
+            return src.to(self.device)
+        n = src.numel()
+        if self._pinned is None or self._pinned.numel() < n:
+            self._pinned = torch.empty(n, dtype=src.dtype, pin_memory=True)
+        staged = self._pinned[:n].view(src.shape)
+        staged.copy_(src)
+        return staged.to(self.device, non_blocking=True)
+
+    def _retire_state(self, inflight: _InFlight):
+        """Wait for the push's copies; each lane keeps its last Nmem
+        samples before its next fresh sample and those not consumed."""
+        self._wait(inflight)
+        with span("rx.retire", self.seconds, "demod"):
+            end = np.asarray(inflight.pos_nin[0], np.int64)
+            keep = np.minimum(end, self.cfg.Nmem)
+            self._c = keep + self._c + inflight.n_new - end
+            self._pos = keep
+            if (self._c > self._C).any():
+                raise RuntimeError(f"lane carry {self._c} past {self._C}")
+            with self._on_stream():
+                self._carry = inflight.buf[:, -self._C:].clone()
+                self.state = inflight.final._replace(pos=torch.as_tensor(
+                    keep, dtype=torch.int32, device=self.device))
+
+    def _complete(self, inflight: _InFlight) -> list:
+        """The host half: each lane's soft bits through its UW FSM, the
+        candidates of all lanes through one decode batch."""
+        clocks = self.seconds
+        with span("rx.fetch", clocks, "deframe"):
+            softs = self._fetch(inflight.packed, inflight.nf, inflight.n_new)
+        found = [d.detect(s) for d, s in zip(self.deframers, softs)]
+        decoded = deframe.decode_streams(self.deframers,
+                                         [f[1] for f in found])
+        with span("deframe.consume", clocks, "deframe"):
+            got = []
+            for i, (d, (hard, pos, stale), (pkts, ok)) in enumerate(
+                    zip(self.deframers, found, decoded)):
+                self.bp_windows[i] += len(pos)
+                got.append(d.consume(hard, pos, stale, pkts, ok))
+                self.stats[i].detections = d.n_detections
+                self.stats[i].crc_ok = d.n_crc_ok
+            return [(self.channels[i], p) for i in self._order
+                    for p in got[i]]
+
+    def _fetch(self, packed: torch.Tensor, nf: int, n_new: int) -> list:
+        """The packed array on the host -> each lane's valid frames' soft
+        bits, with its stats and eye probe taken in."""
+        L = len(self.channels)
+        soft, valid, stats, eye = _unpack(packed.cpu().numpy(), self.cfg, L,
+                                          nf, self.with_eye)
+        for i in range(L):
+            if _count(self.stats[i], stats[i], n_new) and eye is not None:
+                self.last_eye[i] = (eye[0][i], int(eye[1][i]))
+        return [soft[i][valid[i]].reshape(-1) for i in range(L)]
+
+    def push(self, chunk) -> list:
+        """Feed the band's raw samples (cu8 bytes, or complex64) -> the
+        (channel, payload) pairs the previous push's samples completed
+        (pipelined: this push's come with the next push or `flush`)."""
+        return self._push_pipelined(chunk)
 
 
 # ------------------------------------------------------ whole-capture paths

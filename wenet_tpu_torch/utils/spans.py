@@ -20,6 +20,12 @@ The receiver's stages (`rx.pipeline.Receiver.seconds`):
     rx.buffer rx.copy_in rx.launch rx.wait rx.retire    -> "demod"
     rx.fetch deframe.detect deframe.fsm deframe.gather
     deframe.bp deframe.consume                          -> "deframe"
+
+The wideband receiver's (`rx.pipeline.WidebandReceiver.seconds`) add
+`rx.channelize` (the band history, the channelizer, the lane buffer)
+after `rx.copy_in`; its deframe stages sum over the channels
+(`deframe.detect` and `deframe.fsm` once a channel, `deframe.gather`,
+`deframe.bp` and `deframe.consume` once a push for all of them).
 """
 from __future__ import annotations
 
