@@ -3,7 +3,10 @@
     python3 chip_profile.py [--batch 70] [--snr 2.5] [--seed 5]
     python3 chip_profile.py --kernel fsk_demod [--source FILE] [--mode v1]
         [--set DEMOD_WARPS=N]
-    python3 chip_profile.py --kernel fsk_demod --digest FILE [FILE ...]
+    python3 chip_profile.py --kernel fsk_demod --digest FILE[:WRAPPER] ...
+    python3 chip_profile.py --kernel fsk_demod --lanes 1,8,16,64,132
+        [--frames 16,64,256,4000] [--traffic slips|clean|flight|noise_lane]
+        [--mode v1]
     python3 chip_profile.py --kernel deframe_topk [--source FILE]
     python3 chip_profile.py --kernel channelize [--source FILE]
 
@@ -33,9 +36,24 @@ fsk_demod --digest: builds each given demod source as it ships (no
 clocks), runs every one on the same inputs (v2 and v1 cu8 at L=1 over a
 2-s push of frames, 16 lanes, the channelizer's 8 c64 lanes, the
 two-block and M=4 geometries, a push carried into a second launch, the
-PROBE variant) and prints, per case and source, the SHA-1 of the raw bytes
-of every output and the kernel's CUDA-event time, and whether every
-source's digests are equal.
+PROBE variant; the first ten slip 0.4 % fast and slow, nin moving every
+few frames; then a 2-s push of the benchmark generator's v2 traffic after
+a first push, one of it drifting 60 ppm fast then slow, and a noise push)
+and prints, per case and source, the SHA-1 of the raw bytes of every
+output and the kernel's CUDA-event time, and whether every source's
+digests are equal.
+A source given as SOURCE:WRAPPER is called through that copy of
+kernels/fsk_demod.py (an earlier revision's, whose C interface it
+matches); a wrapper with the frame-parallel path runs every case on both
+sides of its shape rule (`[lane]`, `[frames]`; the traces take the lane
+path only) and prints the path's work counters (`spec_stats`).
+
+fsk_demod --lanes L,...: the CUDA-event time of both demod paths at those
+lane counts and --frames frames a lane, their outputs compared: what the
+shape rule is set from.  --traffic: random bits at 10 dB slipping 0.4 %
+(slips, nin moving every few frames) or not (clean), at 15 dB (flight,
+the flight traffic's level), or that with the last lane noise alone
+(noise_lane: a channel with no signal, left to the lane path).
 
 deframe_topk: builds the top-k acquisition kernel (csrc/deframe_topk.cu,
 or --source, e.g. its first revision) a second time with
@@ -277,18 +295,29 @@ def profile_demod(args) -> int:
     return 0
 
 
-def _demod_capture(cfg, n, seed, fmt):
-    """(n, 2) raw pairs of random bits at 10 dB, resampled 0.4 % fast in
-    the first half and 0.4 % slow in the second, so nin takes all three
-    values."""
+def _demod_capture(cfg, n, seed, fmt, kind="slips"):
+    """(n, 2) raw pairs.  slips: random bits at 10 dB, resampled 0.4 %
+    fast in the first half and 0.4 % slow in the second, so nin takes all
+    three values every few frames; ppm60: random bits at 10 dB, 60 ppm
+    fast in the first half and 60 ppm slow in the second (a slip every
+    couple of hundred frames); clean: the bits at 10 dB alone; noise:
+    complex noise alone (nin random); flight: the bits at 15 dB alone."""
     from wenet_tpu_torch.ops import channel, fsk
     rng = np.random.default_rng(seed)
-    bits = rng.integers(0, 2, (n // cfg.N + 4) * cfg.Nbits).astype(np.uint8)
-    sig, _ = fsk.fsk_mod_np(cfg, bits, 2 * cfg.Rs, cfg.Rs)
-    h = len(sig) // 2
-    sig = np.concatenate([channel.resample_linear(sig[:h], 1.004),
-                          channel.resample_linear(sig[h:], 0.996)])[:n]
-    iq = channel.add_awgn(sig, 10.0, cfg.Fs, cfg.Rs, rng=rng) * 0.4
+    if kind == "noise":
+        iq = (rng.normal(0, 0.3, n) + 1j * rng.normal(0, 0.3, n)).astype(
+            np.complex64)
+    else:
+        bits = rng.integers(0, 2, (n // cfg.N + 4) * cfg.Nbits).astype(
+            np.uint8)
+        sig, _ = fsk.fsk_mod_np(cfg, bits, 2 * cfg.Rs, cfg.Rs)
+        h = len(sig) // 2
+        r = {"slips": 0.004, "ppm60": 60e-6, "clean": 0.0,
+             "flight": 0.0}[kind]
+        sig = np.concatenate([channel.resample_linear(sig[:h], 1 + r),
+                              channel.resample_linear(sig[h:], 1 - r)])[:n]
+        db = 15.0 if kind == "flight" else 10.0
+        iq = channel.add_awgn(sig, db, cfg.Fs, cfg.Rs, rng=rng) * 0.4
     if fmt == "cu8":
         return fsk.iq_to_cu8(iq).reshape(-1, 2)
     if fmt == "cs16":
@@ -298,38 +327,100 @@ def _demod_capture(cfg, n, seed, fmt):
                                 .reshape(-1, 2))
 
 
+def _generator_push(cfg, seconds, seed):
+    """(n, 2) cu8 pairs of the benchmark generator's v2 traffic (15 dB,
+    back-to-back frames)."""
+    import torch
+    from benchmark import traffic
+    with open(os.path.join(ROOT, "benchmark", "configs",
+                           "v2_flight.json")) as fh:
+        dep = traffic.Deployment.from_file(json.load(fh))
+    rec = traffic.make_recording(dep, seconds, 15.0, seed, 0, 0, 0,
+                                 torch.device("cuda"))
+    return rec.raw.reshape(-1, 2)
+
+
+def _wrapper_module(path):
+    """The demod wrapper: the package's, or a saved copy of another
+    revision's, loaded as a module of the package so that its relative
+    imports resolve."""
+    import hashlib
+    import importlib.util
+    from wenet_tpu_torch.kernels import fsk_demod
+    if path is None:
+        return fsk_demod
+    with open(path, "rb") as fh:
+        tag = hashlib.sha1(fh.read()).hexdigest()[:12]
+    name = f"wenet_tpu_torch.kernels._fsk_demod_{tag}"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def digest_demod(args) -> int:
     """Every output of each demod source on the same inputs, as SHA-1
-    digests, and the kernel's time on each."""
+    digests, and the kernel's time on each.  A source given as
+    SOURCE:WRAPPER runs through that copy of the wrapper (an earlier
+    revision's); a wrapper with two paths runs every case on both sides
+    of its shape rule (`lane`: the lane path alone, `frames`: the
+    frame-parallel path first), with its work counters."""
     import ctypes as C
     import hashlib
     import torch
     from wenet_tpu_torch import kernels
-    from wenet_tpu_torch.kernels import fsk_demod
     from wenet_tpu_torch.ops import fsk
 
     dev = torch.device("cuda")
     two_blocks = fsk.FSKConfig(Fs=48000, Rs=9600, Nsym=51)
     m4 = fsk.FSKConfig(Fs=96000, Rs=9600, M=4)
-    # name: cfg, fmt, lanes, frames a lane, eye, probe, pushes
+    # name: cfg, fmt, lanes, frames a lane, eye, probe, pushes, input
     cases = {
-        "v2_cu8_L1": (fsk.V2_CONFIG, "cu8", 1, 4000, True, False, 1),
-        "v1_cu8_L1": (fsk.V1_CONFIG, "cu8", 1, 4800, True, False, 1),
-        "v2_cu8_L16": (fsk.V2_CONFIG, "cu8", 16, 120, True, False, 1),
-        "v1_cs16_L16": (fsk.V1_CONFIG, "cs16", 16, 120, False, False, 1),
-        "v2_c64_8lanes": (fsk.V2_CONFIG, "c64", 8, 822, True, False, 1),
-        "two_blocks_c64": (two_blocks, "c64", 1, 600, True, False, 1),
-        "m4_cu8_L3": (m4, "cu8", 3, 300, True, False, 1),
-        "v2_cu8_carried": (fsk.V2_CONFIG, "cu8", 1, 2000, True, False, 2),
-        "v2_c64_probe": (fsk.V2_CONFIG, "c64", 1, 600, True, True, 1),
-        "two_blocks_probe": (two_blocks, "c64", 2, 300, False, True, 1),
+        "v2_cu8_L1": (fsk.V2_CONFIG, "cu8", 1, 4000, True, False, 1, "slips"),
+        "v1_cu8_L1": (fsk.V1_CONFIG, "cu8", 1, 4800, True, False, 1, "slips"),
+        "v2_cu8_L16": (fsk.V2_CONFIG, "cu8", 16, 120, True, False, 1,
+                       "slips"),
+        "v1_cs16_L16": (fsk.V1_CONFIG, "cs16", 16, 120, False, False, 1,
+                        "slips"),
+        "v2_c64_8lanes": (fsk.V2_CONFIG, "c64", 8, 822, True, False, 1,
+                          "slips"),
+        "two_blocks_c64": (two_blocks, "c64", 1, 600, True, False, 1,
+                           "slips"),
+        "m4_cu8_L3": (m4, "cu8", 3, 300, True, False, 1, "slips"),
+        "v2_cu8_carried": (fsk.V2_CONFIG, "cu8", 1, 2000, True, False, 2,
+                           "slips"),
+        "v2_c64_probe": (fsk.V2_CONFIG, "c64", 1, 600, True, True, 1,
+                         "slips"),
+        "two_blocks_probe": (two_blocks, "c64", 2, 300, False, True, 1,
+                             "slips"),
+        # a 2-s push of the generator's traffic after a first one (the
+        # second keeps nin = N throughout), a push drifting 60 ppm, noise
+        "v2_generator_push": (fsk.V2_CONFIG, "cu8", 1, 8000, True, False, 2,
+                              "generator"),
+        "v2_ppm60_push": (fsk.V2_CONFIG, "cu8", 1, 4000, True, False, 1,
+                          "generator_ppm60"),
+        "v2_noise_push": (fsk.V2_CONFIG, "cu8", 1, 4000, True, False, 1,
+                          "noise"),
     }
     inputs = {}
-    for i, (name, (cfg, fmt, L, nf, _, _, pushes)) in enumerate(
+    for i, (name, (cfg, fmt, L, nf, _, _, pushes, kind)) in enumerate(
             cases.items()):
         span = nf * cfg.N                      # a lane's samples
         n = span // 2 * (L + 1) if L > 1 else span + 3 * cfg.N
-        data = torch.from_numpy(_demod_capture(cfg, n, 100 + i, fmt)).to(dev)
+        if kind.startswith("generator"):
+            raw = _generator_push(cfg, n / cfg.Fs + 0.1, 100 + i)[:n]
+            if kind == "generator_ppm60":       # an SDR 60 ppm fast, then slow
+                from wenet_tpu_torch.ops import channel
+                iq = fsk.iq_from_cu8(raw.reshape(-1))
+                h = len(iq) // 2
+                raw = fsk.iq_to_cu8(np.concatenate([
+                    channel.resample_linear(iq[:h], 1 + 60e-6),
+                    channel.resample_linear(iq[h:], 1 - 60e-6)])).reshape(
+                        -1, 2)
+        else:
+            raw = _demod_capture(cfg, n, 100 + i, fmt, kind)
+        data = torch.from_numpy(np.ascontiguousarray(raw)).to(dev)
         starts = torch.arange(L, dtype=torch.int64, device=dev) * (span // 2)
         if L > 1:
             starts[0] -= 3 * cfg.N + 5         # before sample 0
@@ -339,18 +430,18 @@ def digest_demod(args) -> int:
             n_valid[-1] += cfg.N               # past the buffer's end
         inputs[name] = (data, starts, n_valid)
 
-    def run(name):
-        cfg, fmt, L, nf, eye, probe, pushes = cases[name]
+    def run(demod, name):
+        cfg, fmt, L, nf, eye, probe, pushes, _ = cases[name]
         data, starts, n_valid = inputs[name]
         if pushes == 1:
-            return [fsk_demod.demod(cfg, data, fmt, nf + 3, starts, n_valid,
-                                    with_eye=eye, with_probe=probe)]
+            return [demod(cfg, data, fmt, nf + 3, starts, n_valid,
+                          with_eye=eye, with_probe=probe)]
         # a push and the next one, the state carried; as Receiver splits
-        out = fsk_demod.demod(cfg, data, fmt, nf // 2, starts,
-                              torch.full_like(n_valid, nf // 2 * cfg.N),
-                              with_eye=eye)
-        return [out, fsk_demod.demod(cfg, data, fmt, nf // 2 + 3, starts,
-                                     n_valid, out[0], with_eye=eye)]
+        out = demod(cfg, data, fmt, nf // 2, starts,
+                    torch.full_like(n_valid, nf // 2 * cfg.N),
+                    with_eye=eye)
+        return [out, demod(cfg, data, fmt, nf // 2 + 3, starts, n_valid,
+                           out[0], with_eye=eye)]
 
     def digests(res):
         out = {}
@@ -362,8 +453,9 @@ def digest_demod(args) -> int:
                         hashlib.sha1(b).hexdigest()[:16]
         return out
 
-    per_source = {}
-    for path in args.digest:
+    per_run = {}
+    for entry in args.digest:
+        path, _, wrapper = entry.partition(":")
         with open(path) as fh:
             src = fh.read()
         tag = hashlib.sha1(src.encode()).hexdigest()[:12]
@@ -380,42 +472,130 @@ def digest_demod(args) -> int:
             raise RuntimeError(f"nvcc failed on {path}:\n"
                                + built.stdout + built.stderr)
         lib = C.CDLL(so)
-        lib.fsk_demod_launch.restype = C.c_int
-        lib.fsk_demod_launch.argtypes = [C.POINTER(fsk_demod.Geom),
-                                         C.POINTER(fsk_demod.Ptrs),
-                                         C.c_void_p]
-        fsk_demod._lib = lambda lib=lib: lib
-        rec = {}
-        for name in cases:
-            res = run(name)
-            torch.cuda.synchronize()
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            times = []
-            for _ in range(5):
-                ev[0].record()
-                run(name)
-                ev[1].record()
+        mod = _wrapper_module(wrapper or None)
+        if hasattr(mod, "bind"):
+            mod.bind(lib)
+        else:
+            lib.fsk_demod_launch.restype = C.c_int
+            lib.fsk_demod_launch.argtypes = [C.POINTER(mod.Geom),
+                                             C.POINTER(mod.Ptrs), C.c_void_p]
+        mod._lib = lambda lib=lib: lib
+        sides = ({"lane": False, "frames": True} if hasattr(mod, "_demod")
+                 else {"": None})
+        for side, spec in sides.items():
+            rec = {}
+            for name in cases:
+                if cases[name][5] and spec:
+                    continue                  # the traces: the lane path
+                if spec is None:
+                    demod = mod.demod
+                else:
+                    def demod(*a, spec=spec, **k):
+                        return mod._demod(*a, spec=spec, **k)
+                before = (mod.spec_stats() if hasattr(mod, "spec_stats")
+                          else None)
+                res = run(demod, name)
                 torch.cuda.synchronize()
-                times.append(ev[0].elapsed_time(ev[1]))
-            nins = torch.cat([r[1].nin[r[1].valid] for r in res])
-            rec[name] = {"ms": float(np.median(times)),
-                         "valid_frames": int(nins.numel()),
-                         "nin_values": sorted(set(nins.tolist())),
-                         "digests": digests(res)}
-        per_source[os.path.relpath(path, ROOT)] = rec
-        print(json.dumps({"source": os.path.relpath(path, ROOT),
-                          "ptxas": ptxas,
-                          **{n: {k: v for k, v in r.items()
-                                 if k != "digests"} for n, r in rec.items()},
-                          "card": smi_line()}))
-    first = next(iter(per_source.values()))
-    differ = {s: [f"{n}:{k}" for n in cases
-                  for k, v in r[n]["digests"].items()
-                  if first[n]["digests"].get(k) != v]
-              for s, r in per_source.items()}
-    print(json.dumps({"digests": {n: first[n]["digests"] for n in cases},
-                      "equal": not any(differ.values()), "differ": differ}))
+                stats = None
+                if before is not None:
+                    after = mod.spec_stats()
+                    stats = {k: after[k] - before[k] for k in after}
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                times = []
+                for _ in range(5):
+                    ev[0].record()
+                    run(demod, name)
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                    times.append(ev[0].elapsed_time(ev[1]))
+                nins = torch.cat([r[1].nin[r[1].valid] for r in res])
+                rec[name] = {"ms": float(np.median(times)),
+                             "valid_frames": int(nins.numel()),
+                             "nin_values": sorted(set(nins.tolist())),
+                             "spec_stats": stats,
+                             "digests": digests(res)}
+            label = os.path.relpath(path, ROOT) + (f"[{side}]" if side
+                                                   else "")
+            per_run[label] = rec
+            print(json.dumps({"source": label, "ptxas": ptxas,
+                              **{n: {k: v for k, v in r.items()
+                                     if k != "digests"}
+                                 for n, r in rec.items()},
+                              "card": smi_line()}))
+    first = {}
+    for rec in per_run.values():
+        for n, r in rec.items():
+            first.setdefault(n, r["digests"])
+    differ = {s: [f"{n}:{k}" for n, r in rec.items()
+                  for k, v in r["digests"].items()
+                  if first[n].get(k) != v]
+              for s, rec in per_run.items()}
+    print(json.dumps({"digests": first, "equal": not any(differ.values()),
+                      "differ": differ}))
     return 0 if not any(differ.values()) else 1
+
+
+def scale_demod(args) -> int:
+    """The CUDA-event time of the demod on each path (the lane path alone,
+    the frame-parallel path first) at L lanes of F frames, the lanes'
+    starts 977 samples apart in one cu8 capture of --traffic: what the
+    shape rule is set from."""
+    import torch
+    from wenet_tpu_torch.kernels import fsk_demod
+    from wenet_tpu_torch.ops import fsk
+    dev = torch.device("cuda")
+    cfg = fsk.V1_CONFIG if args.mode == "v1" else fsk.V2_CONFIG
+    kind = {"noise_lane": "flight"}.get(args.traffic, args.traffic)
+    rows = []
+    for nf in (int(v) for v in args.frames.split(",")):
+        span = nf * cfg.N
+        raw = _demod_capture(cfg, span * 2, 7, "cu8", kind)
+        if args.traffic == "noise_lane":
+            raw = np.concatenate([raw, _demod_capture(cfg, span, 8, "cu8",
+                                                      "noise")])
+        data = torch.from_numpy(raw).to(dev)
+        for L in (int(v) for v in args.lanes.split(",")):
+            starts = (torch.arange(L, dtype=torch.int64, device=dev) * 977
+                      % max(span, 1))
+            if args.traffic == "noise_lane":
+                starts[-1] = 2 * span
+            n_valid = torch.full((L,), span, dtype=torch.int64, device=dev)
+            row = {"lanes": L, "frames": nf,
+                   "rule": fsk_demod.frame_parallel(cfg, "cu8", L, nf + 3,
+                                                    dev) > 0}
+            outs = {}
+            for side, spec in (("lane", False), ("frames", True)):
+                if spec and not fsk_demod._spec_fits(cfg, "cu8", L, dev):
+                    continue
+                before = fsk_demod.spec_stats()
+                outs[side] = fsk_demod._demod(cfg, data, "cu8", nf + 3,
+                                              starts, n_valid, spec=spec)
+                torch.cuda.synchronize()
+                after = fsk_demod.spec_stats()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                times = []
+                for _ in range(5):
+                    ev[0].record()
+                    fsk_demod._demod(cfg, data, "cu8", nf + 3, starts,
+                                     n_valid, spec=spec)
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                    times.append(ev[0].elapsed_time(ev[1]))
+                row[f"{side}_ms"] = float(np.median(times))
+                if spec:
+                    row["spec_stats"] = {k: after[k] - before[k]
+                                         for k in after}
+            if len(outs) == 2:
+                row["equal"] = all(
+                    torch.equal(a, b) for pa, pb in zip(outs["lane"],
+                                                        outs["frames"])
+                    for a, b in zip(pa, pb))
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    print(json.dumps({"mode": args.mode, "traffic": args.traffic,
+                      "card": smi_line(),
+                      "equal": all(r.get("equal", True) for r in rows)}))
+    return 0 if all(r.get("equal", True) for r in rows) else 1
 
 
 def instrument_topk(src: str) -> str:
@@ -756,7 +936,16 @@ def main() -> int:
                     help="fsk_demod: rebuild with this #define changed "
                     "(e.g. DEMOD_WARPS=6, the demod warps)")
     ap.add_argument("--digest", nargs="+", default=None,
-                    help="fsk_demod: compare these sources' outputs")
+                    help="fsk_demod: compare these sources' outputs "
+                    "(SOURCE:WRAPPER: through that copy of the wrapper)")
+    ap.add_argument("--lanes", default=None,
+                    help="fsk_demod: time both demod paths at these lane "
+                    "counts (e.g. 1,8,16,64,132)")
+    ap.add_argument("--frames", default="16,64,256,4000",
+                    help="fsk_demod --lanes: frames a lane")
+    ap.add_argument("--traffic", default="slips",
+                    choices=["slips", "clean", "flight", "noise_lane"],
+                    help="fsk_demod --lanes: the lanes' capture")
     ap.add_argument("--source", default=None,
                     help="fsk_demod, deframe_topk, channelize: the "
                     "kernel source to profile")
@@ -766,6 +955,8 @@ def main() -> int:
         raise SystemExit("chip_profile: torch.cuda.is_available() is False")
     sys.path.insert(0, ROOT)
     if args.kernel == "fsk_demod":
+        if args.lanes:
+            return scale_demod(args)
         return digest_demod(args) if args.digest else profile_demod(args)
     if args.kernel == "deframe_topk":
         return profile_topk(args)

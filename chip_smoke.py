@@ -146,6 +146,11 @@ ACQ_PACKETS = 4
 ACQ_SHIFT_HZ = 300e3
 ACQ_LOCK_HZ = (132e3, 468e3)  # offsets that bring both tones into the band
 DEMOD_CASES = ((1, 600), (16, 120))  # (lanes, frames) of demod_vs_plain
+#                               (the lane path: short calls)
+# (mode, lanes, frames) of demod_vs_plain at the main path's 2-s pushes:
+# one lane of v2 and of v1 (the frame-parallel path) and the wideband
+# receiver's eight v2 lanes (the lane path, as the shape rule has it)
+DEMOD_PUSH_CASES = (("v2", 1, 4000), ("v1", 1, 4800), ("v2", 8, 4000))
 DEMOD_LANE_STRIDE = 30000     # samples between the lanes' starts
 DEMOD_SOFT_TOL = 1e-4         # max |d soft| / mean |soft|: summation order
 DEMOD_BIT_TOL = 1e-3          # hard bits compared where |soft| > this share
@@ -2229,10 +2234,14 @@ def main() -> int:
         n_valid = torch.full((lanes,), frames * cfg2.N, dtype=torch.int64,
                              device=dev)
         args = (cfg2, data_d, "cu8", frames + 2, starts, n_valid)
-        fsk_demod.launches = 0
+        fsk_demod.launches = fsk_demod.spec_launches = 0
+        spec0 = fsk_demod.spec_stats()
         got = fsk.demod_raw(*args, with_eye=True)
         torch.cuda.synchronize()
         require(fsk_demod.launches == 1, "demod_vs_plain: no kernel launch")
+        require(fsk_demod.spec_launches == 0,
+                f"demod_vs_plain L={lanes}: the frame-parallel path ran")
+        spec = {k: v - spec0[k] for k, v in fsk_demod.spec_stats().items()}
         want = fsk.demod_raw_reference(*args, with_eye=True)
         cmp = demod_compare(got, want)
         require(cmp["valid"] == cmp["nin"] == cmp["f_est"] == cmp["bits"] == 0
@@ -2262,6 +2271,75 @@ def main() -> int:
             share_of_one_sm_bound=f"{bound_sm / ms:.5f}",
             smem_bytes=fsk_demod.smem_bytes(fsk_demod.geometry(
                 cfg2, "cu8", lanes, frames, data_d.shape[0])),
+            frame_parallel=fsk_demod.frame_parallel(
+                cfg2, "cu8", lanes, frames + 2, dev), spec_stats=spec,
+            card=repr(smi))
+
+    # the same at the main path's push shapes: the frame-parallel path at one
+    # lane, the lane path at the wideband receiver's eight
+    # (clean traffic, so that the guesses hold after acquisition)
+    for mode, lanes, frames in DEMOD_PUSH_CASES:
+        cfg_p = fsk.V1_CONFIG if mode == "v1" else cfg2
+        span = (frames + 2) * cfg_p.N + (lanes - 1) * DEMOD_LANE_STRIDE
+        n_pk = span // cfg_p.Ts // 5000 + 2
+        raw_p = make_capture(cfg_p, mode, [text_message(f"push {i}", i)
+                                           for i in range(n_pk)], EBNO_DB,
+                             np.random.default_rng(SEED + 610 + lanes))
+        data_p = torch.from_numpy(raw_p.reshape(-1, 2)).to(dev)
+        starts = torch.arange(lanes, dtype=torch.int64,
+                              device=dev) * DEMOD_LANE_STRIDE
+        n_valid = torch.full((lanes,), frames * cfg_p.N, dtype=torch.int64,
+                             device=dev)
+        args = (cfg_p, data_p, "cu8", frames + 2, starts, n_valid)
+        window = fsk_demod.frame_parallel(cfg_p, "cu8", lanes, frames + 2,
+                                          dev)
+        spec_path = lanes <= fsk_demod.SPEC_MAX_LANES
+        require((window > 0) == spec_path,
+                f"demod_vs_plain {mode} L={lanes} x {frames}: window "
+                f"{window} where the shape rule expects "
+                f"{'the frame-parallel' if spec_path else 'the lane'} path")
+        fsk_demod.launches = fsk_demod.spec_launches = 0
+        spec0 = fsk_demod.spec_stats()
+        got = fsk.demod_raw(*args, with_eye=True)
+        torch.cuda.synchronize()
+        spec = {k: v - spec0[k] for k, v in fsk_demod.spec_stats().items()}
+        n_launch = (fsk_demod.launches, fsk_demod.spec_launches)
+        require(n_launch == (1, int(spec_path)),
+                f"demod_vs_plain {mode} L={lanes}: "
+                f"{n_launch} lane and frame-parallel launches")
+        require((spec["spec_frames"] > 0) == spec_path,
+                f"demod_vs_plain {mode} L={lanes}: frames kept on the "
+                f"frame-parallel path: {spec}")
+        t0 = time.perf_counter()
+        want = fsk.demod_raw_reference(*args, with_eye=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        cmp = demod_compare(got, want)
+        require(cmp["valid"] == cmp["nin"] == cmp["f_est"] == cmp["bits"] == 0
+                and cmp["rel_err"] <= DEMOD_SOFT_TOL and cmp["eye"] == 0
+                and cmp["eye_rel_err"] <= DEMOD_SOFT_TOL,
+                f"demod_vs_plain {mode} L={lanes} x {frames}: {cmp}")
+        ms = event_ms(lambda: fsk.demod_raw(*args), 5)
+        bound, by, bound_sm = demod_bound(cfg_p, want[1],
+                                          lanes * frames * cfg_p.N, 2)
+        demod_times[(mode, lanes, frames)] = dict(
+            cmp, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            bound_one_sm_ms=bound_sm, spec_stats=spec)
+        say("demod_vs_plain", kernel="fsk_demod", case="push", mode=mode,
+            lanes=lanes, frames=cmp["frames"], valid_mismatch=cmp["valid"],
+            nin_mismatch=cmp["nin"], f_est_mismatch=cmp["f_est"],
+            bit_mismatch=cmp["bits"], max_abs_err=f"{cmp['max_abs_err']:.3e}",
+            rel_err=f"{cmp['rel_err']:.3e}", tol=DEMOD_SOFT_TOL,
+            eye_mismatch=cmp["eye"], eye_rel_err=f"{cmp['eye_rel_err']:.3e}",
+            kernel_ms=f"{ms:.4f}",
+            kernel_ms_per_frame=f"{ms / (cmp['frames'] / lanes):.5f}",
+            plain_ms=f"{plain_ms:.2f}", plain_timing="host clock, one call",
+            bound_ms=f"{bound:.6f}", bound_by=by,
+            share_of_bound=f"{bound / ms:.5f}",
+            bound_one_sm_ms=f"{bound_sm:.6f}",
+            share_of_one_sm_bound=f"{bound_sm / ms:.5f}",
+            frame_parallel=window, spec_stats=spec,
+            lane_launches=n_launch[0], frame_parallel_launches=n_launch[1],
             card=repr(smi))
 
     # 5. main path, v2 at flight rate (the counted run)
@@ -2274,12 +2352,14 @@ def main() -> int:
     ldpc.decode = lambda llr, *a, **k: (batches.append(llr.shape[0]),
                                         decode(llr, *a, **k))[1]
     bp_decode.launches = fsk_demod.launches = kcrc.launches = 0
+    fsk_demod.spec_launches = 0
     try:
         got2, dt2, rx2 = run_receiver(cfg2, "v2", raw2)
     finally:
         ldpc.decode = decode
     main_launches = {"bp_decode": bp_decode.launches,
-                     "fsk_demod": fsk_demod.launches}
+                     "fsk_demod": fsk_demod.launches,
+                     "fsk_demod_spec": fsk_demod.spec_launches}
     require(kcrc.launches == len(batches),
             f"v2 main path: {kcrc.launches} crc_pack launches for "
             f"{len(batches)} decode batches")
@@ -2297,6 +2377,7 @@ def main() -> int:
         deframe_share=f"{sec2['deframe'] / dt2:.3f}",
         bp_launches=main_launches["bp_decode"],
         demod_launches=main_launches["fsk_demod"],
+        demod_frame_parallel_launches=main_launches["fsk_demod_spec"],
         crc_launches=kcrc.launches, frames=rx2.stats.frames,
         decode_batches=batches, card=repr(smi))
 
@@ -3134,7 +3215,15 @@ def main() -> int:
                 "wideband_c64_ms": dw["ms"],
                 "wideband_c64_plain_ms": dw["plain_ms"],
                 "wideband_c64_bound_ms": dw["bound_ms"],
-                "wideband_c64_max_abs_err": dw["max_abs_err"]})
+                "wideband_c64_max_abs_err": dw["max_abs_err"],
+                "spec_launches": main_launches["fsk_demod_spec"],
+                "push_cases": [
+                    {"mode": mode, "lanes": lanes, "frames": frames,
+                     **{k: demod_times[(mode, lanes, frames)][k]
+                        for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "bound_one_sm_ms", "max_abs_err",
+                                  "spec_stats")}}
+                    for mode, lanes, frames in DEMOD_PUSH_CASES]})
     # the PROBE variant of the same kernel, as probe_demod runs it: it
     # replaces the per-frame trace scan of wenet_tpu/utils/probe.py
     out.append({"name": "fsk_demod_probe", "route": "cuda",

@@ -644,3 +644,279 @@ def test_three_candidate_estimator_equals_the_serial_one(name):
         frames += 1
     assert frames >= 20 and chosen == {0, 1, 2}
     assert float(fest[0]) > 0
+
+
+# ------------------------------------------------ the frame-parallel path
+
+
+def _window(cfg, f0, pos0, nin0, n, nf, W):
+    """Frames the window at frame f0 takes (spec_window of the kernel)."""
+    if f0 >= nf or pos0 + nin0 > n:
+        return 0
+    return min(W, nf - f0, (n - pos0 - nin0) // cfg.N + 1)
+
+
+def emulate_frame_parallel(cfg, iq, nf, state=None, n_valid=None,
+                           first=K.SPEC_FIRST_WINDOW, cap=K.SPEC_WINDOW):
+    """The frame-parallel path's schedule (csrc/fsk_demod.cu, 6.) run with
+    the plain loop's per-frame pieces: a window of frames whose nin after
+    the first is guessed N; (a) each frame's estimator magnitudes, (b) the
+    EMA chain, (c) the peaks, (d) the phase chain, (e) each frame's demod
+    and the first frame whose next nin missed the guess, (f) the ppm and
+    SNR chains over the frames kept up to it; the next window from the
+    first frame not kept; a lane whose rounds miss before keeping
+    SPEC_MIN_WINDOW frames SPEC_MAX_POOR times in a row is left to the lane
+    path (here the plain loop).  Returns (final state, FrameOut stacked over frames,
+    rounds, fell back, the windows' (first frame, frames, kept))."""
+    dev = torch.device("cpu")
+    iq = torch.as_tensor(iq).to(torch.complex64)
+    n = iq.shape[0] if n_valid is None else n_valid
+    consts = fsk._constants(cfg, dev)
+    pad, NB = cfg.Nmem, cfg.Ndft * cfg.max_fft_blocks
+    buf = torch.cat([torch.zeros(pad, dtype=torch.complex64), iq,
+                     torch.zeros(cfg.Nmem + NB, dtype=torch.complex64)])
+    st = fsk.demod_init(cfg, dev) if state is None else state
+    cap = min(cap, nf)
+    W, f0, rounds, poor, fell = min(first, cap), 0, 0, 0, False
+    outs, windows = [], []
+    while True:
+        pos0, nin0 = int(st.pos), int(st.nin)
+        wlen = _window(cfg, f0, pos0, nin0, n, nf, W)
+        if wlen == 0:
+            break
+        nins = [nin0] + [cfg.N] * (wlen - 1)
+        poss = [pos0] + [pos0 + nin0 + (j - 1) * cfg.N
+                         for j in range(1, wlen)]
+        nin_t = [torch.tensor(v, dtype=torch.int32) for v in nins]
+        mags = [fsk._est_mags(cfg, buf[pad + p + consts["ar_nb"]], v,
+                              consts) for p, v in zip(poss, nin_t)]   # (a)
+        emas, e = [], st.fft_est
+        for j in range(wlen):                                      # (b)
+            e = fsk._est_ema(cfg, e, mags[j], nin_t[j])
+            emas.append(e)
+        fnew = [fsk._est_peaks(cfg, e, consts) for e in emas]      # (c)
+        phases, f_prev, phi = [], st.f_est, st.phi
+        for j in range(wlen):                                      # (d)
+            phases.append(fsk._tone_phases(cfg, f_prev, phi, fnew[j],
+                                           nin_t[j]))
+            f_prev, phi = fnew[j], phases[-1][2]
+        body = []
+        for j in range(wlen):                                      # (e)
+            end = pad + poss[j] + nins[j]
+            stream = buf[end - cfg.Nmem + consts["ar_nmem"]]
+            la, th0, _ = phases[j]
+            body.append(fsk._demod_body(cfg, stream, la, fnew[j], th0,
+                                        nin_t[j], consts))
+        miss = next((j for j in range(wlen - 1)
+                     if int(body[j][3]) != cfg.N), None)
+        keep = wlen if miss is None else miss + 1
+        norm_prev, ppm, snr = st.norm_rx_timing, st.ppm, st.snr_est
+        for j in range(keep):                                      # (f)
+            _, _, norm, _, soft, bits, ebno, _, _ = body[j]
+            ppm = fsk._ppm_step(cfg, norm_prev, ppm, norm)
+            snr = 0.5 * snr + 0.5 * ebno
+            outs.append(fsk.FrameOut(soft, bits, torch.tensor(True),
+                                     fnew[j], ebno, norm, ppm, nin_t[j]))
+            norm_prev = norm
+        last = keep - 1
+        st = fsk.DemodState(
+            pos=torch.tensor(poss[last] + nins[last], dtype=torch.int32),
+            nin=body[last][3], fft_est=emas[last], f_est=fnew[last],
+            phi=phases[last][2], norm_rx_timing=norm_prev, ppm=ppm,
+            ebno_db=body[last][6], snr_est=snr)
+        windows.append((f0, wlen, keep))
+        rounds, f0 = rounds + 1, f0 + keep
+        W = (min(max(2 * keep, K.SPEC_MIN_WINDOW), cap) if miss is not None
+             else min(2 * W, cap))
+        poor = poor + 1 if miss is not None and keep < K.SPEC_MIN_WINDOW else 0
+        if poor >= K.SPEC_MAX_POOR:
+            fell = True
+            break
+    if f0 < nf:                     # the lane path from the frame reached
+        st, rest = fsk.demod_stream_reference(cfg, iq, nf - f0, st, n)
+        outs += [fsk.FrameOut(*(t[k] for t in rest))
+                 for k in range(nf - f0)]
+    return (st, fsk.FrameOut(*(torch.stack(t) for t in zip(*outs))),
+            rounds, fell, windows)
+
+
+def _predicted_rounds(cfg, nins, first, cap, nf):
+    """Rounds and fallback of the schedule from the plain loop's nin of
+    each valid frame alone: a window misses at its first frame whose next
+    frame's nin is not N."""
+    f0, W, rounds, poor = 0, min(first, cap), 0, 0
+    while f0 < len(nins):
+        wlen = min(W, len(nins) - f0, nf - f0)
+        miss = next((j for j in range(wlen - 1)
+                     if nins[f0 + j + 1] != cfg.N), None)
+        keep = wlen if miss is None else miss + 1
+        rounds, f0 = rounds + 1, f0 + keep
+        W = (min(max(2 * keep, K.SPEC_MIN_WINDOW), cap) if miss is not None
+             else min(2 * W, cap))
+        poor = poor + 1 if miss is not None and keep < K.SPEC_MIN_WINDOW else 0
+        if poor >= K.SPEC_MAX_POOR:
+            return rounds, True
+    return rounds, False
+
+
+def _generator(mode, frames, seed, ppm=0.0):
+    """`frames` frames of flight traffic: back-to-back random-payload
+    packets at 15 dB, resampled ppm parts per million fast (an SDR clock
+    offset), through cu8 and back as a receiver reads them."""
+    from wenet_tpu_torch.tools import captures
+    cfg = GEOMETRIES[mode]
+    rng = np.random.default_rng(seed)
+    per_packet = len(captures.make_packet_bits(
+        cfg, 1, np.random.default_rng(0), gap_bits=0, lead_bits=0,
+        mode=mode))
+    n_packets = -(-(frames + 60) * cfg.Nbits // per_packet)
+    bits = captures.make_packet_bits(cfg, n_packets, rng, gap_bits=0,
+                                     lead_bits=0, mode=mode)
+    sig, _ = fsk.fsk_mod_np(cfg, bits, 2 * cfg.Rs, cfg.Rs)
+    if ppm:
+        sig = channel.resample_linear(sig, 1 + ppm * 1e-6)
+    iq = channel.add_awgn(sig, 15.0, cfg.Fs, cfg.Rs, rng=rng)
+    raw = fsk.iq_to_cu8(iq).reshape(-1, 2).astype(np.float32) - 127.0
+    iq = (raw[:, 0] + 1j * raw[:, 1]).astype(np.complex64) / np.float32(128)
+    return iq[: frames * cfg.N]
+
+
+def _noise(cfg, frames, seed):
+    rng = np.random.default_rng(seed)
+    n = frames * cfg.N
+    return (rng.normal(0, 0.3, n) + 1j * rng.normal(0, 0.3, n)).astype(
+        np.complex64)
+
+
+def _assert_schedule_equals_plain(cfg, iq, nf, got, state=None, n_valid=None):
+    st, out = got[:2]
+    want_st, want = fsk.demod_stream_reference(
+        cfg, torch.from_numpy(iq), nf, state, n_valid)
+    v = want.valid
+    assert torch.equal(out.valid, v)
+    for name in fsk.FrameOut._fields:
+        a, b = getattr(out, name)[v], getattr(want, name)[v]
+        assert torch.equal(a.view(torch.uint8) if a.is_floating_point()
+                           else a, b.view(torch.uint8)
+                           if b.is_floating_point() else b), name
+    for name, a, b in zip(fsk.DemodState._fields, st, want_st):
+        assert torch.equal(a, b), name
+    return want
+
+
+# (traffic, frames, first window, window cap): the generator's traffic in
+# one window after acquisition; drifting 60 ppm fast and slow in windows of
+# 48 frames, several of which hold a slip; noise alone
+SCHEDULE_CASES = {
+    "v2_generator": ("v2", 0.0, 220, K.SPEC_FIRST_WINDOW, K.SPEC_WINDOW),
+    "v1_generator": ("v1", 0.0, 220, K.SPEC_FIRST_WINDOW, K.SPEC_WINDOW),
+    "v2_fast_60ppm": ("v2", 60.0, 420, 48, 48),
+    "v2_slow_60ppm": ("v2", -60.0, 420, 48, 48),
+    "v2_noise": ("v2", None, 90, K.SPEC_FIRST_WINDOW, K.SPEC_WINDOW),
+}
+
+
+@pytest.mark.parametrize("case", list(SCHEDULE_CASES))
+def test_frame_parallel_schedule_equals_the_plain_loop(case):
+    """The schedule, bit for bit the plain loop on every valid frame's
+    outputs and in the final state, with the rounds and the fallback that
+    the plain loop's own nin sequence predicts: the generator's traffic
+    misses only in acquisition, drift misses at its slips and goes on,
+    noise falls back to the lane path."""
+    mode, ppm, frames, first, cap = SCHEDULE_CASES[case]
+    cfg = GEOMETRIES[mode]
+    iq = (_noise(cfg, frames, 7) if ppm is None
+          else _generator(mode, frames, 5 + frames, ppm))
+    nf = cfg.num_frames(len(iq))
+    got = emulate_frame_parallel(cfg, iq, nf, first=first, cap=cap)
+    want = _assert_schedule_equals_plain(cfg, iq, nf, got)
+    nins = want.nin[want.valid].tolist()
+    assert got[2:4] == _predicted_rounds(cfg, nins, first, min(cap, nf), nf)
+    rounds, fell, windows = got[2:]
+    if ppm is None:
+        assert fell and rounds == K.SPEC_MAX_POOR
+    else:
+        assert not fell and sum(k for _, _, k in windows) == len(nins)
+        changes = sum(a != b for a, b in zip(nins, nins[1:]))
+        assert changes > 0
+    if ppm:
+        slips = [w for w in windows if w[2] < w[1]]
+        assert len(windows) >= 8 and len(slips) >= 2
+
+
+def test_frame_parallel_schedule_over_carried_pushes():
+    """Noise, then the generator's traffic, then noise, in pushes of 70
+    frames with the state carried (a launch each, as the receiver's): the
+    frames of the pushes are the plain loop's over the whole stream, the
+    noise pushes fall back and the traffic's keep to the frame-parallel
+    path."""
+    cfg = GEOMETRIES["v2"]
+    iq = np.concatenate([_noise(cfg, 45, 8), _generator("v2", 190, 9),
+                         _noise(cfg, 45, 10)])
+    push = 70 * cfg.N
+    st, frames, verdicts = None, [], []
+    for end in range(push, len(iq) + push, push):
+        n_valid = min(end, len(iq))
+        got = emulate_frame_parallel(cfg, iq, 80, st, n_valid)
+        st, out = got[:2]
+        frames.append(fsk.FrameOut(*(t[out.valid] for t in out)))
+        verdicts.append(got[3])
+    nf = cfg.num_frames(len(iq))
+    want_st, want = fsk.demod_stream_reference(cfg, torch.from_numpy(iq), nf)
+    v = want.valid
+    for k, name in enumerate(fsk.FrameOut._fields):
+        joined = torch.cat([f[k] for f in frames])
+        assert torch.equal(joined, getattr(want, name)[v]), name
+    for a, b in zip(st, want_st):
+        assert torch.equal(a, b)
+    assert verdicts[0] and not verdicts[1] and not verdicts[2]
+
+
+def _mod_two_pi_kernel(x):
+    """mod_two_pi's short path in exact arithmetic (numpy float32 for its
+    float32 products, fractions for the fmaf remainders, which are exact
+    for the right quotient and only compared otherwise)."""
+    from fractions import Fraction
+    y = np.float32(fsk.TWO_PI)
+    ax = np.float32(abs(x))
+    q = np.trunc(np.float32(ax * np.float32(np.float32(1) / y)))
+    rem = [Fraction(float(ax)) - Fraction(float(k)) * Fraction(float(y))
+           for k in (q, q - 1, q + 1)]
+    r0 = rem[0]
+    r = rem[1] if r0 < 0 else (rem[2] if r0 >= Fraction(float(y)) else r0)
+    r = np.float32(float(r))
+    r = np.float32(-r) if x < 0 or (x == 0 and np.signbit(x)) else r
+    if r != 0 and r < 0:
+        r = np.float32(r + y)
+    return r
+
+
+def test_mod_two_pi_short_path_is_the_floor_mod():
+    """The phase chain's floor-mod without fmodf's loop: the truncated
+    quotient from |x| / two_pi's reciprocal, corrected by one either way,
+    gives bit for bit jnp.mod's fmod-then-add on float32 phases of both
+    signs, next to the multiples of two_pi and up to 2^20."""
+    rng = np.random.default_rng(3)
+    y = np.float32(fsk.TWO_PI)
+    k = rng.integers(-2000, 2000, 400).astype(np.float32)
+    near = (k * y).astype(np.float32)
+    xs = np.concatenate([
+        rng.uniform(-4000, 4000, 600).astype(np.float32), near,
+        np.nextafter(near, np.float32(np.inf)),
+        np.nextafter(near, np.float32(-np.inf)),
+        np.float32([0.0, -0.0, 1e-30, -1e-30, 1048575.0, -1048575.0, y, -y])])
+    want = fsk._fmod_floor(torch.from_numpy(xs), float(y)).numpy()
+    got = np.array([_mod_two_pi_kernel(x) for x in xs], np.float32)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_schedule_constants_mirror_the_kernel():
+    """The wrapper's copies of the schedule's constants, which the
+    emulation above runs with, are the kernel's #defines."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(K.__file__), os.pardir, "csrc",
+                            "fsk_demod.cu")).read()
+    for name in ("SPEC_FIRST_WINDOW", "SPEC_MIN_WINDOW", "SPEC_MAX_POOR"):
+        m = re.search(rf"^#define {name} (\d+)", src, re.M)
+        assert m and int(m[1]) == getattr(K, name), name

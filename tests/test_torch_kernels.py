@@ -994,6 +994,140 @@ def test_demod_kernel_second_estimator_block():
     assert bool((nins >= 2 * cfg.Ndft).any())
 
 
+def _push(mode, frames, seed, ppm=0.0, noise=False):
+    """(n, 2) cu8 pairs of `frames` frames: random bits at 15 dB (the
+    flight traffic's level), resampled `ppm` parts per million fast (an
+    SDR clock offset); noise alone with noise=True."""
+    cfg = DEMOD_CFG[mode]
+    n = frames * cfg.N
+    rng = np.random.default_rng(seed)
+    if noise:
+        iq = (rng.normal(0, 0.3, n) + 1j * rng.normal(0, 0.3, n)).astype(
+            np.complex64)
+    else:
+        bits = rng.integers(0, 2, (frames + 4) * cfg.Nbits).astype(np.uint8)
+        sig, _ = fsk.fsk_mod_np(cfg, bits, 2 * cfg.Rs, cfg.Rs)
+        sig = channel.resample_linear(sig, 1 + ppm * 1e-6)[:n]
+        iq = channel.add_awgn(sig, 15.0, cfg.Fs, cfg.Rs, rng=rng) * 0.4
+    return fsk.iq_to_cu8(iq).reshape(-1, 2)
+
+
+def _assert_paths_equal(got, want):
+    for part_g, part_w in zip(got, want):
+        for name, a, b in zip(part_g._fields, part_g, part_w):
+            assert torch.equal(a, b), f"{type(part_g).__name__}.{name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["clean", "ppm60", "noise"])
+@pytest.mark.parametrize("mode", ["v2", "v1"])
+def test_demod_frame_parallel_path_equals_lane_path(mode, kind):
+    """A 2-s push (the receiver's launch) after a first one, the state
+    carried, on each path: every output bit for bit, the eye too.  A clean
+    push keeps every frame on the frame-parallel path; one drifting 60 ppm
+    misses, re-runs and keeps most; on noise the lane path takes over."""
+    dev = _card()
+    cfg = DEMOD_CFG[mode]
+    nf = 2 * cfg.Fs // cfg.N
+    raw = _push(mode, 2 * nf, 21, ppm=60.0 if kind == "ppm60" else 0.0,
+                noise=kind == "noise")
+    data = torch.from_numpy(raw).to(dev)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    first = fsk_demod._demod(cfg, data, "cu8", nf, zero,
+                             torch.full((1,), nf * cfg.N, dtype=torch.int64,
+                                        device=dev), spec=False)[0]
+    whole = torch.full((1,), data.shape[0], dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    before = fsk_demod.spec_stats()
+    got = fsk_demod._demod(cfg, data, "cu8", nf + 3, zero, whole, first,
+                           with_eye=True, spec=True)
+    torch.cuda.synchronize()
+    after = fsk_demod.spec_stats()
+    want = fsk_demod._demod(cfg, data, "cu8", nf + 3, zero, whole, first,
+                            with_eye=True, spec=False)
+    _assert_paths_equal(got, want)
+    d = {k: after[k] - before[k] for k in after}
+    valid = int(want[1].valid.sum())
+    assert valid >= nf - 2 and bool(want[2].ok.all())
+    assert d["spec_frames"] + d["lane_frames"] == valid
+    if kind == "clean":
+        assert d["spec_frames"] == valid and d["fallbacks"] == 0
+        assert d["rounds"] <= 2
+    elif kind == "ppm60":
+        assert len(set(want[1].nin[want[1].valid].tolist())) > 1
+        assert d["rounds"] > 2 and d["spec_frames"] > valid // 2
+    else:
+        assert d["fallbacks"] == 1 and d["lane_frames"] > valid // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["v2", "v1"])
+def test_demod_frame_parallel_split_launches_equal_one(mode):
+    """One buffer drifting 60 ppm demodulated in two launches on the
+    frame-parallel path, the second from the first's final state, gives bit
+    for bit the frames and the final state of one launch over the whole
+    buffer on either path."""
+    dev = _card()
+    cfg = DEMOD_CFG[mode]
+    data = torch.from_numpy(_push(mode, 900, 23, ppm=-60.0)).to(dev)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    whole = torch.full((1,), data.shape[0], dtype=torch.int64, device=dev)
+    nf = cfg.num_frames(data.shape[0]) + 2
+    before = fsk_demod.spec_stats()
+    s1, o1 = fsk_demod._demod(cfg, data, "cu8", nf // 2, zero,
+                              torch.full_like(whole, 430 * cfg.N + 7),
+                              spec=True)
+    s2, o2 = fsk_demod._demod(cfg, data, "cu8", nf, zero, whole, s1,
+                              spec=True)
+    torch.cuda.synchronize()
+    after = fsk_demod.spec_stats()
+    for spec in (True, False):
+        s, o = fsk_demod._demod(cfg, data, "cu8", nf, zero, whole, spec=spec)
+        torch.cuda.synchronize()
+        n1, n2 = int(o1.valid.sum()), int(o2.valid.sum())
+        assert n1 > 400 and n1 + n2 == int(o.valid.sum())
+        for name in fsk.FrameOut._fields:
+            a, b, w = getattr(o1, name), getattr(o2, name), getattr(o, name)
+            split = torch.cat([a[:, :n1], b[:, :n2]], dim=1)
+            assert torch.equal(split, w[:, : n1 + n2]), name
+        for a, b in zip(s2, s):
+            assert torch.equal(a, b)
+    assert after["spec_frames"] - before["spec_frames"] > 400
+
+
+@pytest.mark.cuda
+def test_demod_shape_rule():
+    """The frame-parallel path takes calls of at most SPEC_MAX_LANES lanes
+    and SPEC_MIN_FRAMES frames a lane, never the probe traces; the lane
+    path the rest."""
+    dev = _card()
+    cfg = fsk.V2_CONFIG
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rule = fsk_demod.frame_parallel
+    least = fsk_demod.SPEC_MIN_FRAMES
+    assert rule(cfg, "cu8", 1, 4803, dev) == fsk_demod.SPEC_WINDOW
+    assert rule(cfg, "c64", 8, 4003, dev) == 0
+    assert rule(cfg, "cu8", 16, 9000, dev) == 0
+    assert rule(cfg, "cu8", 1, least, dev) == least
+    assert rule(cfg, "cu8", 1, least - 1, dev) == 0
+    most = fsk_demod.SPEC_MAX_LANES
+    assert rule(cfg, "cu8", most, least, dev) == min(
+        least, fsk_demod.SPEC_FRAMES // most)
+    assert rule(cfg, "cu8", most + 1, 4003, dev) == 0
+    assert rule(cfg, "cu8", sms, 4003, dev) == 0
+    data = torch.from_numpy(_push("v2", least, 3)).to(dev)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    nv = torch.full((1,), data.shape[0], dtype=torch.int64, device=dev)
+    before = fsk_demod.spec_stats()
+    fsk.demod_raw(cfg, data, "cu8", least, zero, nv, with_probe=True)
+    fsk.demod_raw(cfg, data, "cu8", least - 1, zero, nv)
+    torch.cuda.synchronize()
+    assert fsk_demod.spec_stats() == before
+    fsk.demod_raw(cfg, data, "cu8", least, zero, nv)
+    torch.cuda.synchronize()
+    assert fsk_demod.spec_stats()["rounds"] > before["rounds"]
+
+
 # ---------------------------------------- CRC, top-k acquisition, channelizer
 
 def _codewords(B, seed, n_bad=0, width=2580):

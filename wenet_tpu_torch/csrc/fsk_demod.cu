@@ -7,11 +7,14 @@
 // frame).  Its plain version is that loop; the wrapper is
 // kernels/fsk_demod.py.
 //
-// Design: one block of 512 threads per lane (a capture, a chunk of a fused
-// slab, a trial of a sweep, an offset of the acquisition search).  The block
+// Design: two paths with the same per-frame arithmetic, bit for bit.  The
+// lane path: one block of 512 threads per lane (a capture, a chunk of a
+// fused slab, a trial of a sweep, an offset of the acquisition search)
 // walks its lane's frames in order with the whole DemodState in shared
-// memory.  A lane's frames are serial, so at small L the frame loop is
-// latency-bound; the design shortens each frame's dependency chain:
+// memory (1.-5.).  The frame-parallel path (6.) spreads a lane's frames over
+// the card; the lane path then takes over from the frame it reached.  A
+// lane's frames are serial, so at small L the lane path is latency-bound;
+// its design shortens each frame's dependency chain:
 //
 // 1. Twiddles and window on chip, exact.  The tone DFT needs cos/sin of
 //    (-2 pi / n) i k for i < fs <= Ndft samples and k < Ndft/2 bins, which
@@ -87,13 +90,50 @@
 //    the chosen candidate's EMA during the downconvert, the timing and high
 //    sample by warp 0's lane 0.  The stores are fire-and-forget: nothing
 //    waits on them.
+// 6. The frame-parallel path: speculate the elastic nin, verify, re-run.
+//    The only nonlinear dependence between frames is nin (frame f's timing
+//    sets frame f+1's, one of three values); given the nin of every frame,
+//    the rest splits into functions of one frame (its position, estimator
+//    DFT, peak picks, downconvert, sums, timing and decisions) and cheap
+//    serial recurrences (the EMA, 128 bins wide; the phase of each tone;
+//    the ppm IIR and the SNR average).  So one cooperative launch, its
+//    blocks resident and joined by grid barriers (grid.sync), runs
+//    rounds: each lane takes a window of frames from a frame whose state is
+//    known, guesses nin = N for every frame after the first, and runs
+//    (a) the estimator blocks' band-masked magnitudes, SPEC_FPB frames a
+//        block at once in the estimator warps' sample groups and orders;
+//    (b) the EMA, serial over the window, a thread a bin;
+//    (c) each frame's peak picks (a warp a frame), and the phase chain's
+//        terms off the chain, which need the frame before's picks too;
+//    (d) the phase chain, serial, a thread a tone (tone_chain; its fmod an
+//        exact fmaf remainder instead of fmodf's loop, mod_two_pi);
+//    (e) each frame's demod, a block a frame, in the lane path's sums;
+//        the first frame whose timing chose another nin than the guess;
+//    (f) the ppm and SNR chains over the frames up to that one, which are
+//        kept (their outputs are final); the next window starts at the
+//        first frame not kept with its nin exact.
+//    The serial passes run on one block a lane; the other threads of the
+//    block stream their inputs through shared memory with cp.async
+//    (stage_rows) and the chains run straight-line over whole chunks.  A
+//    window that kept every frame doubles; one that missed restarts at
+//    twice the frames it kept (SPEC_MIN_WINDOW at least).  A lane whose
+//    rounds miss before keeping SPEC_MIN_WINDOW frames SPEC_MAX_POOR times
+//    in a row (noise: nin moves about every other frame) is left to the
+//    lane path, which always runs after this launch from each lane's
+//    first frame not kept (DemodPtrs.first, the state in the outputs'
+//    place) and returns at once where nothing is left.  The eye probe of a
+//    lane that the lane path leaves alone is its last kept frame's
+//    integrators, formed again at the end.  Both launches are
+//    fsk_demod_kernel (a template flag): the profiler's name of the demod.
 
 // Bound: per frame a lane reads about N samples and writes Nbits soft bits,
 // Nbits hard bits and a few stats, a few kB; the work is about 8 fs Ndft/2
 // float32 operations for the DFT plus a few tens of thousands for the rest,
 // which one SM does in under a microsecond; a frame is a chain of dependent
-// steps, each a shared-memory or shuffle latency, so the loop is bound by
-// latency, not by bytes or operations.
+// steps, each a shared-memory or shuffle latency, so the lane path is bound
+// by latency, not by bytes or operations, and the frame-parallel path by
+// its serial chains (the phase chain's float64 adds and conversions, some
+// 90 ns a frame).
 //
 // Numerics follow the plain version.  The build passes -fmad=false, so
 // every a*b + c below rounds twice, as torch's eager ops do; the places where
@@ -105,6 +145,7 @@
 // torch's (DFT, window sums, means, the timing line), so soft bits agree to
 // a few float32 ulps, not bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -129,6 +170,19 @@
 #define BAR_DEMOD 3             // the demod warps
 #define BAR_EST 4               // the estimator warps
 
+// the frame-parallel path (see 6.)
+#define SPEC_MIN_WINDOW 32      // the smallest window after a miss,
+#define SPEC_FIRST_WINDOW 2048  // the first of a launch (it doubles on)
+#define SPEC_MAX_POOR 16        // a lane whose rounds miss before keeping
+//                                 SPEC_MIN_WINDOW frames this many times in
+//                                 a row is left to the lane path
+#define SPEC_FRAMES_PER_BLOCK 8 // grid: a block for this many frames
+// counters (DemodPtrs.counters)
+#define CNT_SPEC_FRAMES 0       // frames kept by the frame-parallel path
+#define CNT_ROUNDS 1            // its rounds, one a window of a lane
+#define CNT_LANE_FRAMES 2       // frames the lane path took after it
+#define CNT_FALLBACKS 3         // lanes it left to the lane path
+
 static_assert(DEMOD_WARPS >= 1 && NWARPS - EST_WARP0 >= 3,
               "a demod warp, and an estimator warp for each nin choice");
 
@@ -148,6 +202,8 @@ struct DemodGeom {
     int fs_common;               // samples of block 0 every nin windows
     int span_common;             // samples of a group of that common part
     int tail_len;                // the longest tail, a multiple of 4
+    int spec_cap;                // frames of a lane's frame-parallel window
+    //                              scratch (0: the lane path alone)
 };
 
 struct DemodPtrs {
@@ -193,6 +249,11 @@ struct DemodPtrs {
     float* tr_fft;          // (lanes, frames, half)      variant's traces
     float* tr_rx;           // (lanes, frames): norm_rx_timing * P
     int* tr_high;           // (lanes, frames)
+    const int* first;       // (lanes,) or null: the lane path's first frame
+    float* spec_f;          // the frame-parallel path's scratch
+    int* spec_i;            //   (spec_scratch), its first int the lanes'
+    //                           first frames for the lane path
+    unsigned long long* counters;   // or null: work counts (CNT_*)
 };
 
 #ifdef FSK_DEMOD_PHASES
@@ -207,8 +268,8 @@ struct DemodPtrs {
 // stamp 2: integrate      (demod warps: timing sums handed to warp 0)
 // stamp 3: sums_in        (warp 0: the sums received)
 // stamp 4: timing         (warp 0: frame f+1's nin handed off)
-// stamp 5: decisions      (warp 0: frame f's symbol decisions)
-// stamp 6: ebno_state     (warp 0: Eb/N0 and the stores)
+// stamp 5: decisions      (warp 0: frame f's symbol decisions and Eb/N0)
+// stamp 6: ebno_state     (warp 0: the stores)
 // stamp 7: est_go         (estimator: frame f's hand-off passed)
 // stamp 8: est_window     (estimator: frame f+1's first block windowed)
 // stamp 9: est_dft        (estimator: its head and tails summed)
@@ -491,14 +552,353 @@ __device__ __forceinline__ int cand_nin(const DemodGeom& g, int x,
     return x == nin_choice(g, given) ? given : g.N + (x - 1) * (g.Ts / 2);
 }
 
+// the band-masked magnitude of DFT bin k: sqrtf(0) outside the band, as
+// the plain version's, without the call that sqrtf takes for a zero
+__device__ __forceinline__ float band_mag(const DemodGeom& g, int k, float re,
+                                          float im) {
+    const bool band = k >= g.f_min_bin && k < g.f_max_bin - 1;
+    return band ? sqrtf(re * re + im * im) : 0.0f;
+}
+
+__device__ __forceinline__ float ema_update(const DemodGeom& g, float ema,
+                                            float mag) {
+    return ema * g.one_m_tc + mag * g.tc;
+}
+
 // the EMA after one estimator block: the DFT's band-masked magnitude
 __device__ __forceinline__ float ema_step(const DemodGeom& g, int k,
                                           float ema, float re, float im) {
-    const bool band = k >= g.f_min_bin && k < g.f_max_bin - 1;
-    // sqrtf(0) outside the band, as the plain version's, without the call
-    // that sqrtf takes for a zero
-    const float mag = band ? sqrtf(re * re + im * im) : 0.0f;
-    return ema * g.one_m_tc + mag * g.tc;
+    return ema_update(g, ema, band_mag(g, k, re, im));
+}
+
+// M first-max peak picks with +/- f_zero_bins blanking on one warp's copy
+// of an EMA row in registers (v[r]: bin 32 r + lane, -1 past the last),
+// sorted ascending; every lane gets every pick
+template <int M>
+__device__ __forceinline__ void pick_peaks(const DemodGeom& g,
+                                           float (&v)[MAX_BINS],
+                                           int (&peaks)[M]) {
+    const int wl = threadIdx.x & 31, half = g.half;
+#pragma unroll
+    for (int r = 0; r < M; ++r) peaks[r] = 0;
+#pragma unroll 1
+    for (int pk = 0; pk < M; ++pk) {
+        const int imax = warp_argmax(v, half);
+        if (wl == pk) peaks[0] = imax;    // lane pk keeps pick pk
+#pragma unroll
+        for (int r = 0; r < MAX_BINS; ++r) {
+            if (32 * r >= half) break;       // warp-uniform
+            const int k = 32 * r + wl;
+            if (k < half && k >= imax - g.f_zero_bins &&
+                k < imax + g.f_zero_bins)
+                v[r] = 0.0f;
+        }
+    }
+#pragma unroll
+    for (int r = 1; r < M; ++r)           // every lane, every pick
+        peaks[r] = __shfl_sync(0xffffffffu, peaks[0], r);
+    peaks[0] = __shfl_sync(0xffffffffu, peaks[0], 0);
+#pragma unroll
+    for (int a = 1; a < M; ++a)          // insertion sort
+#pragma unroll
+        for (int bb = a; bb > 0; --bb)
+            if (peaks[bb - 1] > peaks[bb]) {
+                const int tmp = peaks[bb];
+                peaks[bb] = peaks[bb - 1];
+                peaks[bb - 1] = tmp;
+            }
+}
+
+// floor-mod of x by g.two_pi (jnp.mod): fmod, then + two_pi where the signs
+// differ.  fmod is exact, so it is formed exactly here without fmodf's
+// loop: q, the truncated quotient of |x| by two_pi, is off by at most one
+// from |x| * (1 / two_pi) (|x| < 2^20), and |x| - q two_pi in one fmaf is
+// exact for the right q (it is the fmod); a wrong q shows as a remainder
+// below 0 or at least two_pi.  NaN and larger |x| take fmodf.
+__device__ __forceinline__ float mod_two_pi(const DemodGeom& g, float x) {
+    const float y = g.two_pi, ax = fabsf(x);
+    float r;
+    if (ax < 1048576.0f) {
+        const float q = truncf(ax * (1.0f / y));
+        const float r0 = fmaf(-q, y, ax);
+        const float rl = fmaf(-(q - 1.0f), y, ax);
+        const float rh = fmaf(-(q + 1.0f), y, ax);
+        r = copysignf(r0 < 0.0f ? rl : (r0 >= y ? rh : r0), x);
+    } else {
+        r = fmodf(x, y);
+    }
+    if (r != 0.0f && ((r < 0.0f) != (y < 0.0f))) r = r + y;
+    return r;
+}
+
+// mod_two_pi's short path alone, for |x| < 2^20; ok turns false where x
+// is not in that range (the caller forms those frames again with
+// mod_two_pi), so that a chain of them has no branch
+__device__ __forceinline__ float mod_two_pi_short(const DemodGeom& g, float x,
+                                                  bool& ok) {
+    const float y = g.two_pi, ax = fabsf(x);
+    ok = ok && ax < 1048576.0f;
+    const float q = truncf(ax * (1.0f / y));
+    const float r0 = fmaf(-q, y, ax);
+    const float rl = fmaf(-(q - 1.0f), y, ax);
+    const float rh = fmaf(-(q + 1.0f), y, ax);
+    float r = copysignf(r0 < 0.0f ? rl : (r0 >= y ? rh : r0), x);
+    if (r != 0.0f && ((r < 0.0f) != (y < 0.0f))) r = r + y;
+    return r;
+}
+
+// one tone of a frame of nin samples whose new estimate is fn, after a
+// frame whose estimates were prev0 (tone 0) and prevm (this tone): its
+// latched tone la and the float64 products that the phase chain adds
+// (theta0 = p1 + phi, phi_next = p2 + theta0, each rounded to float32)
+__device__ __forceinline__ void tone_terms(const DemodGeom& g, int nin,
+                                           float fn, float prev0, float prevm,
+                                           float& la, double& p1,
+                                           double& p2) {
+    const float noldf = (float)(g.Nmem - nin);
+    const float ninf = (float)nin;
+    const float Sf = (float)g.S;
+    la = prev0 < 1.0f ? fn : prevm;
+    const float a = -((g.two_pi * (noldf - Sf)) * la);
+    p1 = __dmul_rn((double)a, (double)g.inv_fs);
+    p2 = __dmul_rn((double)g.two_pi_fs,
+                   (double)fma1(la, noldf, fn * (ninf - Sf)));
+}
+
+// the phase chain of one tone and frame: theta0 from the phase phi the
+// frame before ended at, and the next phase (fma1's roundings)
+__device__ __forceinline__ void tone_chain(const DemodGeom& g, double p1,
+                                           double p2, float phi, float& th,
+                                           float& phin) {
+    th = __double2float_rn(__dadd_rn(p1, (double)phi));
+    phin = mod_two_pi(g, __double2float_rn(__dadd_rn(p2, (double)th)));
+}
+
+// tone_chain with mod_two_pi_short
+__device__ __forceinline__ void tone_chain_short(const DemodGeom& g, double p1,
+                                                 double p2, float phi,
+                                                 float& th, float& phin,
+                                                 bool& ok) {
+    th = __double2float_rn(__dadd_rn(p1, (double)phi));
+    phin = mod_two_pi_short(
+        g, __double2float_rn(__dadd_rn(p2, (double)th)), ok);
+}
+
+// both: a tone's latched frequency la, start phase th and next phase
+__device__ __forceinline__ void tone_phase(const DemodGeom& g, int nin,
+                                           float fn, float prev0, float prevm,
+                                           float phi, float& la, float& th,
+                                           float& phin) {
+    double p1, p2;
+    tone_terms(g, nin, fn, prev0, prevm, la, p1, p2);
+    tone_chain(g, p1, p2, phi, th, phin);
+}
+
+// window sample t of a frame (nold samples at the latched tones, the rest
+// at this frame's, phase-continuous): s * e^{-j ang} for each tone
+template <int M>
+__device__ __forceinline__ void downconvert(const DemodGeom& g, float2 s,
+                                           int t, float noldf,
+                                           const float (&fn)[M],
+                                           const float (&la)[M],
+                                           const float (&th)[M], float2* d) {
+    const float tf = (float)t;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+        const float inner = fma1(fn[m], fmaxf(tf - noldf, 0.0f),
+                                 la[m] * fminf(tf, noldf));
+        const float ang = fma1(g.two_pi_fs, inner, th[m]);
+        const float cs = cosf(ang), sn = sinf(ang);
+        d[m * g.Nmem + t] =
+            make_float2(s.x * cs + s.y * sn, s.y * cs - s.x * sn);
+    }
+}
+
+// integrate-and-dump (window sums of Ts samples at stride S) and the timing
+// line's terms, summed in float64: slot t of 512 sums q = t, t + 512, ...,
+// each 32 slots by a shuffle tree, into red[slot / 32].  The warp takes the
+// NS slots of 32 v0, v0 + vstep, ... at once (chains in flight); PROBE
+// traces the integrators of frame `frame`.
+template <int M, int NS, bool PROBE>
+__device__ __forceinline__ void slot_sums(const DemodGeom& g, const float2* d,
+                                          float2* fo, const float* spin_re,
+                                          const float* spin_im, int v0,
+                                          int vstep, double* red,
+                                          float2* tr_fint, long long frame) {
+    const int wl = threadIdx.x & 31, NP = g.NP, Nmem = g.Nmem;
+    double are[NS], aim[NS];
+#pragma unroll
+    for (int h = 0; h < NS; ++h) are[h] = aim[h] = 0.0;
+#pragma unroll 1
+    for (int q0 = wl; q0 < NP; q0 += THREADS) {
+        int q[NS];
+        bool on[NS];
+        float ft[NS];
+#pragma unroll
+        for (int h = 0; h < NS; ++h) {
+            const int vw = v0 + h * vstep;
+            q[h] = q0 + 32 * vw;
+            on[h] = vw < NWARPS && q[h] < NP;
+            ft[h] = 0.0f;
+        }
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+            const float2* xs[NS];
+            float re[NS], im[NS];
+#pragma unroll
+            for (int h = 0; h < NS; ++h) {
+                xs[h] = d + m * Nmem + (on[h] ? q[h] : 0) * g.S;
+                re[h] = xs[h][0].x;
+                im[h] = xs[h][0].y;
+            }
+            if (g.Ts <= TS_MAX) {
+                // every load issued at once: the samples past Ts (inside
+                // shared memory) are read, not added
+#pragma unroll
+                for (int u = 1; u < TS_MAX; ++u)
+#pragma unroll
+                    for (int h = 0; h < NS; ++h) {
+                        const float2 x = xs[h][u];
+                        if (u < g.Ts) {
+                            re[h] = re[h] + x.x;
+                            im[h] = im[h] + x.y;
+                        }
+                    }
+            } else {
+#pragma unroll 1
+                for (int u = 1; u < g.Ts; ++u)
+#pragma unroll
+                    for (int h = 0; h < NS; ++h) {
+                        re[h] = re[h] + xs[h][u].x;
+                        im[h] = im[h] + xs[h][u].y;
+                    }
+            }
+#pragma unroll
+            for (int h = 0; h < NS; ++h) {
+                if (on[h]) {
+                    fo[m * NP + q[h]] = make_float2(re[h], im[h]);
+                    if constexpr (PROBE)
+                        tr_fint[(frame * M + m) * NP + q[h]] =
+                            make_float2(re[h], im[h]);
+                }
+                const float v = fma1(re[h], re[h], im[h] * im[h]);
+                ft[h] = m == 0 ? v : ft[h] + v;
+            }
+        }
+#pragma unroll
+        for (int h = 0; h < NS; ++h)
+            if (on[h]) {
+                are[h] += (double)ft[h] * (double)spin_re[q[h]];
+                aim[h] += (double)ft[h] * (double)spin_im[q[h]];
+            }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int h = 0; h < NS; ++h) {
+            are[h] += __shfl_down_sync(0xffffffffu, are[h], off);
+            aim[h] += __shfl_down_sync(0xffffffffu, aim[h], off);
+        }
+    }
+    if (wl == 0) {
+#pragma unroll
+        for (int h = 0; h < NS; ++h) {
+            const int vw = v0 + h * vstep;
+            if (vw < NWARPS) {
+                red[vw] = are[h];
+                red[NWARPS + vw] = aim[h];
+            }
+        }
+    }
+}
+
+// warp 0's sum of the NWARPS slot groups' timing sums (every lane reads
+// red), then norm_rx_timing in lane 0
+__device__ __forceinline__ float timing_norm(const DemodGeom& g,
+                                             const double* red) {
+    const int wl = threadIdx.x & 31;
+    double are = wl < NWARPS ? red[wl] : 0.0;
+    double aim = wl < NWARPS ? red[NWARPS + wl] : 0.0;
+    for (int off = NWARPS / 2; off > 0; off >>= 1) {
+        are += __shfl_down_sync(0xffffffffu, are, off);
+        aim += __shfl_down_sync(0xffffffffu, aim, off);
+    }
+    return atan2_poly(g, (float)aim, (float)are) / g.two_pi;
+}
+
+// the elastic nin of the frame after one whose timing is norm
+__device__ __forceinline__ int next_nin(const DemodGeom& g, float norm) {
+    return norm > 0.25f ? g.N + g.Ts / 2
+                        : (norm < -0.25f ? g.N - g.Ts / 2 : g.N);
+}
+
+// the clock-offset ppm IIR, gated on jumps of the timing
+__device__ __forceinline__ float ppm_step(const DemodGeom& g, float norm,
+                                          float prev_norm, float ppm) {
+    const float d_norm = norm - prev_norm;
+    const float appm = 1e6f * d_norm / (float)g.Nsym;
+    return fabsf(d_norm) < 0.2f ? 0.9f * ppm + 0.1f * appm : ppm;
+}
+
+// the interpolation between the floor and ceil integrator phases at the
+// timing rx = norm * P
+__device__ __forceinline__ void timing_phases(float rx, float& low,
+                                              float& fract, float& high) {
+    low = floorf(rx);
+    fract = rx - low;
+    high = low + (fract > 0.0f ? 1.0f : 0.0f);
+}
+
+// one warp: the frame's symbol decisions from its integrators fo, soft and
+// hard bits stored, and lane 0 returns its Eb/N0
+template <int M>
+__device__ __forceinline__ float decide(const DemodGeom& g, const float2* fo,
+                                        float low, float fract, float high,
+                                        float* so, uint8_t* bo) {
+    const int wl = threadIdx.x & 31, NP = g.NP;
+    float sm = 0.0f, sw = 0.0f;
+    const float w_lo = 1.0f - fract;
+#pragma unroll 1
+    for (int k = wl; k < g.Nsym; k += 32) {
+        const int st = (k + 1) * g.P;
+        // rx timing lies in [-P/2, P/2], so both phases are in range; the
+        // clamp only keeps a NaN timing inside shared memory
+        const int ilo = min(max(st + (int)low, 0), NP - 1);
+        const int ihi = min(max(st + (int)high, 0), NP - 1);
+        float tmax[M];
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+            const float2 a = fo[m * NP + ilo], b = fo[m * NP + ihi];
+            const float tr = a.x * w_lo + b.x * fract;
+            const float ti = a.y * w_lo + b.y * fract;
+            tmax[m] = tr * tr + ti * ti;
+        }
+        float wv = tmax[0];
+        int sym = 0;
+#pragma unroll
+        for (int m = 1; m < M; ++m)
+            if (tmax[m] > wv) { wv = tmax[m]; sym = m; }
+        if (M == 2) {
+            bo[k] = tmax[1] > tmax[0] ? 1 : 0;
+            so[k] = sqrtf(tmax[0]) - sqrtf(tmax[1 % M]);
+        } else {
+            const float m0 = sqrtf(tmax[0]), m1 = sqrtf(tmax[1 % M]);
+            const float m2 = sqrtf(tmax[2 % M]), m3 = sqrtf(tmax[3 % M]);
+            bo[2 * k] = (sym >> 1) & 1;
+            bo[2 * k + 1] = sym & 1;
+            so[2 * k] = ((-m0 - m1) + m2) + m3;
+            so[2 * k + 1] = ((-m0 + m1) - m2) + m3;
+        }
+        sm = sm + sqrtf(wv);
+        sw = sw + wv;
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+        sm = sm + __shfl_down_sync(0xffffffffu, sm, off);
+        sw = sw + __shfl_down_sync(0xffffffffu, sw, off);
+    }
+    const float meane = sm / (float)g.Nsym;
+    float stde = sw / (float)g.Nsym - meane * meane;
+    stde = sqrtf(fmaxf(stde, 0.0f));
+    return -6.0f + 20.0f * log10f((1e-6f + meane) / (1e-6f + stde));
 }
 
 struct EstBufs {                 // the estimator's shared memory
@@ -660,51 +1060,17 @@ __device__ __forceinline__ void estimate(
         for (int r = 0; r < MAX_BINS; ++r)
             v[r] = 32 * r + wl < half ? ema_out[c * half + 32 * r + wl]
                                       : -1.0f;
-        int peaks[M] = {};
-#pragma unroll 1
-        for (int pk = 0; pk < M; ++pk) {
-            const int imax = warp_argmax(v, half);
-            if (wl == pk) peaks[0] = imax;    // lane pk keeps pick pk
-#pragma unroll
-            for (int r = 0; r < MAX_BINS; ++r) {
-                if (32 * r >= half) break;       // warp-uniform
-                const int k = 32 * r + wl;
-                if (k < half && k >= imax - g.f_zero_bins &&
-                    k < imax + g.f_zero_bins)
-                    v[r] = 0.0f;
-            }
-        }
-#pragma unroll
-        for (int r = 1; r < M; ++r)           // every lane, every pick
-            peaks[r] = __shfl_sync(0xffffffffu, peaks[0], r);
-        peaks[0] = __shfl_sync(0xffffffffu, peaks[0], 0);
-#pragma unroll
-        for (int a = 1; a < M; ++a)          // insertion sort
-#pragma unroll
-            for (int bb = a; bb > 0; --bb)
-                if (peaks[bb - 1] > peaks[bb]) {
-                    const int tmp = peaks[bb];
-                    peaks[bb] = peaks[bb - 1];
-                    peaks[bb - 1] = tmp;
-                }
+        int peaks[M];
+        pick_peaks<M>(g, v, peaks);
         if (wl < M) {
-            const int m = wl, nin = cand_nin(g, c, nin_given);
+            const int m = wl;
             int pk = peaks[0];
 #pragma unroll
             for (int r = 1; r < M; ++r) pk = r == m ? peaks[r] : pk;
-            const bool first = prev_fnew[0] < 1.0f;
-            const float noldf = (float)(g.Nmem - nin);
-            const float ninf = (float)nin;
-            const float Sf = (float)g.S;
             const float fn = (float)pk * g.bin_hz;
-            const float la = first ? fn : prev_fnew[m];
-            const float a = -((g.two_pi * (noldf - Sf)) * la);
-            const float th = fma1(a, g.inv_fs, prev_phi[m]);
-            const float x = fma1(
-                g.two_pi_fs, fma1(la, noldf, fn * (ninf - Sf)), th);
-            float r = fmodf(x, g.two_pi);        // floor-mod (jnp.mod)
-            if (r != 0.0f && ((r < 0.0f) != (g.two_pi < 0.0f)))
-                r = r + g.two_pi;
+            float la, th, r;
+            tone_phase(g, cand_nin(g, c, nin_given), fn, prev_fnew[0],
+                       prev_fnew[m], prev_phi[m], la, th, r);
             est_out[c][0][m] = fn;
             est_out[c][1][m] = la;
             est_out[c][2][m] = th;
@@ -714,11 +1080,16 @@ __device__ __forceinline__ void estimate(
     }
 }
 
-// ----------------------------------------------------------------- kernel
+// ------------------------------------------------------------ the lane path
 
+// The lane path (the warp-specialised frame loop of 3. above): one block a
+// lane walks the lane's frames from frame first[lane] (0 without `first`)
+// with the state of *_in, which the frame-parallel path leaves there for
+// it.  A lane with no valid frame left only closes: it zeroes the frames
+// past its end and stores the state.
 template <int M, bool PROBE>
-__global__ void __launch_bounds__(THREADS, 1)
-fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
+__device__ __forceinline__ void lane_body(const DemodGeom& g,
+                                          const DemodPtrs& p) {
     extern __shared__ __align__(16) char smem[];
     const Layout Lo = layout(g);
     double* red = (double*)(smem + Lo.red);       // 2 x NWARPS timing sums
@@ -748,22 +1119,31 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
     const int warp = tid >> 5, wl = tid & 31;
     const int Nmem = g.Nmem, half = g.half, Ndft = g.Ndft, NP = g.NP;
     const long long start = p.starts[lane], nvalid = p.n_valid[lane];
+    // the lane's first frame; f below counts the frames from it
+    const int f0 = p.first != nullptr ? p.first[lane] : 0;
+    const int nf = g.num_frames - f0;
+    const long long frame0 = (long long)lane * g.num_frames + f0;
+    const bool idle = nf <= 0 || (long long)p.pos_in[lane] + p.nin_in[lane]
+                                     > nvalid;
 
-    // stage the tables and the state
+    if (!idle) {
+        // stage the tables
 #pragma unroll 1
-    for (int e = tid; e < g.n_tab; e += THREADS) tab[e] = p.tw_tab[e];
-    if (g.idx_smem) {
+        for (int e = tid; e < g.n_tab; e += THREADS) tab[e] = p.tw_tab[e];
+        if (g.idx_smem) {
 #pragma unroll 1
-        for (int e = tid; e < (Ndft / 4 + 1) * half; e += THREADS)
-            ((uint2*)(smem + Lo.idx))[e] = p.tw_idx[e];
+            for (int e = tid; e < (Ndft / 4 + 1) * half; e += THREADS)
+                ((uint2*)(smem + Lo.idx))[e] = p.tw_idx[e];
+        }
+#pragma unroll 1
+        for (int e = tid; e < Ndft; e += THREADS) hann[e] = p.hann[e];
+#pragma unroll 1
+        for (int q = tid; q < NP; q += THREADS) {
+            spin_re[q] = p.spin_re[q];
+            spin_im[q] = p.spin_im[q];
+        }
     }
-#pragma unroll 1
-    for (int e = tid; e < Ndft; e += THREADS) hann[e] = p.hann[e];
-#pragma unroll 1
-    for (int q = tid; q < NP; q += THREADS) {
-        spin_re[q] = p.spin_re[q];
-        spin_im[q] = p.spin_im[q];
-    }
+    // and the state
 #pragma unroll 1
     for (int k = tid; k < half; k += THREADS)
         fft[k] = p.fft_in[lane * half + k];
@@ -779,7 +1159,7 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
     }
     // the ring's first fill: the first frame's window and the lookahead
     long long next_chunk = 0;
-    if (warp == PRODUCER) {
+    if (warp == PRODUCER && !idle) {
         const long long end = start + p.pos_in[lane] + p.nin_in[lane];
         next_chunk = (end - Nmem) >> chunk_shift(g.fmt);
         ring_fill(g, p.data, ring, next_chunk, end + g.ahead);
@@ -787,11 +1167,21 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
     }
     __syncthreads();
 
-    if (warp >= EST_WARP0) {
+    if (idle) {
+        if (warp == 0 && wl == 0) {
+            st_nin_end = p.nin_in[lane];
+            p.pos_out[lane] = p.pos_in[lane];
+            p.nin_out[lane] = p.nin_in[lane];
+            p.norm_out[lane] = p.norm_in[lane];
+            p.ppm_out[lane] = p.ppm_in[lane];
+            p.ebno_out[lane] = p.ebno_in[lane];
+            p.snr_out[lane] = p.snr_in[lane];
+        }
+    } else if (warp >= EST_WARP0) {
         // ---- the estimator warps: frame f+1's candidates during frame f,
         // and first (f = -1) frame 0's from the state, its nin as given
 #pragma unroll 1
-        for (int f = -1; f < g.num_frames; ++f) {
+        for (int f = -1; f < nf; ++f) {
             long long pos1;
             int given, nxt;
             const float *pe, *pf, *pp;
@@ -812,7 +1202,7 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
                 if (warp == PRODUCER)
                     ring_fill(g, p.data, ring, next_chunk,
                               start + pos + nin + g.ahead);
-                if (f + 1 == g.num_frames) break;   // no frame to estimate
+                if (f + 1 == nf) break;             // no frame to estimate
                 const int cur = f & 1, x = nin_choice(g, nin);
                 pos1 = (long long)pos + nin;
                 given = g.N;
@@ -829,14 +1219,14 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
         // ---- the demod warps: downconvert and integrate frame f
         const int dt = tid - 32, dw = warp - 1;
 #pragma unroll 1
-        for (int f = 0; f < g.num_frames; ++f) {
+        for (int f = 0; f < nf; ++f) {
             PHASE(13, 1);
             bar_sync(BAR_GO, THREADS);            // frame f's estimate; ring
             const int pos = st_pos[f & 1], nin = st_nin[f & 1];
             if ((long long)pos + nin > nvalid) break;     // block-uniform
             PHASE(0, 1);
-            const int nold = Nmem - nin, x = nin_choice(g, nin);
-            const long long frame = (long long)lane * g.num_frames + f;
+            const int x = nin_choice(g, nin);
+            const long long frame = frame0 + f;
             float fn[M], la[M], th[M];
 #pragma unroll
             for (int m = 0; m < M; ++m) {
@@ -844,10 +1234,9 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
                 la[m] = est[f & 1][x][1][m];
                 th[m] = est[f & 1][x][2][m];
             }
-            // 4. downconvert: old samples at the latched tones, new ones at
-            // this frame's, phase-continuous: stream * e^{-j ang}, the
-            // window (lane samples pos + nin - Nmem .. pos + nin - 1) read
-            // from the ring; PROBE: the chosen candidate's EMA
+            // 4. downconvert the window (lane samples pos + nin - Nmem ..
+            // pos + nin - 1) from the ring; PROBE: the chosen candidate's
+            // EMA
             if constexpr (PROBE) {
                 const float* em = ema + ((f & 1) * 3 + x) * half;
 #pragma unroll 1
@@ -856,118 +1245,24 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
             }
             {
                 const long long base = (long long)pos + nin - Nmem;
-                const float noldf = (float)nold;
+                const float noldf = (float)(Nmem - nin);
 #pragma unroll 2
-                for (int t = dt; t < Nmem; t += DEMOD_THREADS) {
-                    const float2 s =
-                        lane_sample(g, ring, start, nvalid, base + t);
-                    const float tf = (float)t;
-#pragma unroll
-                    for (int m = 0; m < M; ++m) {
-                        const float inner =
-                            fma1(fn[m], fmaxf(tf - noldf, 0.0f),
-                                 la[m] * fminf(tf, noldf));
-                        const float ang = fma1(g.two_pi_fs, inner, th[m]);
-                        const float cs = cosf(ang), sn = sinf(ang);
-                        d[m * Nmem + t] = make_float2(s.x * cs + s.y * sn,
-                                                      s.y * cs - s.x * sn);
-                    }
-                }
+                for (int t = dt; t < Nmem; t += DEMOD_THREADS)
+                    downconvert<M>(
+                        g, lane_sample(g, ring, start, nvalid, base + t), t,
+                        noldf, fn, la, th, d);
             }
             bar_sync(BAR_DEMOD, DEMOD_THREADS);
             PHASE(1, 1);
 
-            // 5. integrate-and-dump (window sums of Ts samples at stride S)
-            // and the timing line's terms, summed in float64: slot t of 512
-            // sums q = t, t + 512, ..., each 32 slots by a shuffle tree; a
-            // warp takes SLOTS slots of 32 at once (chains in flight)
+            // 5. integrate-and-dump and the timing sums (slot_sums), a warp
+            // SLOTS slots of 32 at once
             float2* fo = fi + (f & 1) * M * NP;
 #pragma unroll 1
-            for (int v0 = dw; v0 < NWARPS; v0 += SLOTS * DEMOD_WARPS) {
-                double are[SLOTS], aim[SLOTS];
-#pragma unroll
-                for (int h = 0; h < SLOTS; ++h) are[h] = aim[h] = 0.0;
-#pragma unroll 1
-                for (int q0 = wl; q0 < NP; q0 += THREADS) {
-                    int q[SLOTS];
-                    bool on[SLOTS];
-                    float ft[SLOTS];
-#pragma unroll
-                    for (int h = 0; h < SLOTS; ++h) {
-                        const int vw = v0 + h * DEMOD_WARPS;
-                        q[h] = q0 + 32 * vw;
-                        on[h] = vw < NWARPS && q[h] < NP;
-                        ft[h] = 0.0f;
-                    }
-#pragma unroll
-                    for (int m = 0; m < M; ++m) {
-                        const float2* xs[SLOTS];
-                        float re[SLOTS], im[SLOTS];
-#pragma unroll
-                        for (int h = 0; h < SLOTS; ++h) {
-                            xs[h] = d + m * Nmem + (on[h] ? q[h] : 0) * g.S;
-                            re[h] = xs[h][0].x;
-                            im[h] = xs[h][0].y;
-                        }
-                        if (g.Ts <= TS_MAX) {
-                            // every load issued at once: the samples past
-                            // Ts (inside shared memory) are read, not added
-#pragma unroll
-                            for (int u = 1; u < TS_MAX; ++u)
-#pragma unroll
-                                for (int h = 0; h < SLOTS; ++h) {
-                                    const float2 x = xs[h][u];
-                                    if (u < g.Ts) {
-                                        re[h] = re[h] + x.x;
-                                        im[h] = im[h] + x.y;
-                                    }
-                                }
-                        } else {
-#pragma unroll 1
-                            for (int u = 1; u < g.Ts; ++u)
-#pragma unroll
-                                for (int h = 0; h < SLOTS; ++h) {
-                                    re[h] = re[h] + xs[h][u].x;
-                                    im[h] = im[h] + xs[h][u].y;
-                                }
-                        }
-#pragma unroll
-                        for (int h = 0; h < SLOTS; ++h) {
-                            if (on[h]) {
-                                fo[m * NP + q[h]] = make_float2(re[h], im[h]);
-                                if constexpr (PROBE)
-                                    p.tr_fint[(frame * M + m) * NP + q[h]] =
-                                        make_float2(re[h], im[h]);
-                            }
-                            const float v = fma1(re[h], re[h], im[h] * im[h]);
-                            ft[h] = m == 0 ? v : ft[h] + v;
-                        }
-                    }
-#pragma unroll
-                    for (int h = 0; h < SLOTS; ++h)
-                        if (on[h]) {
-                            are[h] += (double)ft[h] * (double)spin_re[q[h]];
-                            aim[h] += (double)ft[h] * (double)spin_im[q[h]];
-                        }
-                }
-                for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-                    for (int h = 0; h < SLOTS; ++h) {
-                        are[h] += __shfl_down_sync(0xffffffffu, are[h], off);
-                        aim[h] += __shfl_down_sync(0xffffffffu, aim[h], off);
-                    }
-                }
-                if (wl == 0) {
-#pragma unroll
-                    for (int h = 0; h < SLOTS; ++h) {
-                        const int vw = v0 + h * DEMOD_WARPS;
-                        if (vw < NWARPS) {
-                            red[vw] = are[h];
-                            red[NWARPS + vw] = aim[h];
-                        }
-                    }
-                }
-            }
+            for (int v0 = dw; v0 < NWARPS; v0 += SLOTS * DEMOD_WARPS)
+                slot_sums<M, SLOTS, PROBE>(g, d, fo, spin_re, spin_im, v0,
+                                           DEMOD_WARPS, red, p.tr_fint,
+                                           frame);
             PHASE(2, 1);
             __syncwarp();
             bar_arrive(BAR_RED, DEMOD_THREADS + 32);
@@ -979,11 +1274,11 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
         float st_ebno = p.ebno_in[lane], st_snr = p.snr_in[lane];
         float last_high = 0.0f;
         int f = 0;
-        if (g.num_frames > 0) bar_arrive(BAR_GO, THREADS);
+        if (nf > 0) bar_arrive(BAR_GO, THREADS);
 #pragma unroll 1
-        for (; f < g.num_frames; ++f) {
+        for (; f < nf; ++f) {
             if ((long long)pos + nin > nvalid) break;     // block-uniform
-            const long long frame = (long long)lane * g.num_frames + f;
+            const long long frame = frame0 + f;
             PHASE(12, 0);
             bar_sync(BAR_RED, DEMOD_THREADS + 32);
             PHASE(3, 0);
@@ -991,36 +1286,23 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
             const int x = nin_choice(g, nin);
             const float fnew = wl < M ? est[f & 1][x][0][wl] : 0.0f;
             const float phin = wl < M ? est[f & 1][x][3][wl] : 0.0f;
-            double are = wl < NWARPS ? red[wl] : 0.0;
-            double aim = wl < NWARPS ? red[NWARPS + wl] : 0.0;
-            for (int off = NWARPS / 2; off > 0; off >>= 1) {
-                are += __shfl_down_sync(0xffffffffu, are, off);
-                aim += __shfl_down_sync(0xffffffffu, aim, off);
-            }
             // the chain: the timing, frame f+1's nin, the hand-off
-            float norm = 0.0f;
+            const float norm = timing_norm(g, red);
             int nin_next = 0;
             if (wl == 0) {
-                norm = atan2_poly(g, (float)aim, (float)are) / g.two_pi;
-                nin_next = norm > 0.25f ? g.N + g.Ts / 2
-                           : (norm < -0.25f ? g.N - g.Ts / 2 : g.N);
+                nin_next = next_nin(g, norm);
                 st_pos[(f + 1) & 1] = pos + nin;
                 st_nin[(f + 1) & 1] = nin_next;
             }
             PHASE(4, 0);
             __syncwarp();
-            if (f + 1 < g.num_frames) bar_arrive(BAR_GO, THREADS);
+            if (f + 1 < nf) bar_arrive(BAR_GO, THREADS);
             // off the chain: the rest of the timing line
             float ppm = 0.0f, low = 0.0f, fract = 0.0f, high = 0.0f;
             if (wl == 0) {
                 const float rx = norm * (float)g.P;
-                const float d_norm = norm - st_norm;
-                const float appm = 1e6f * d_norm / (float)g.Nsym;
-                ppm = fabsf(d_norm) < 0.2f ? 0.9f * st_ppm + 0.1f * appm
-                                           : st_ppm;
-                low = floorf(rx);
-                fract = rx - low;
-                high = low + (fract > 0.0f ? 1.0f : 0.0f);
+                ppm = ppm_step(g, norm, st_norm, st_ppm);
+                timing_phases(rx, low, fract, high);
                 if constexpr (PROBE) {
                     p.tr_rx[frame] = rx;
                     p.tr_high[frame] = (int)high;
@@ -1032,59 +1314,12 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
             high = __shfl_sync(0xffffffffu, high, 0);
 
             // symbol decisions with linear interpolation between the floor
-            // and ceil integrator phases
-            const float2* fo = fi + (f & 1) * M * NP;
-            float sm = 0.0f, sw = 0.0f;
-            float* so = p.soft + frame * g.Nbits;
-            uint8_t* bo = p.bits + frame * g.Nbits;
-            const float w_lo = 1.0f - fract;
-#pragma unroll 1
-            for (int k = wl; k < g.Nsym; k += 32) {
-                const int st = (k + 1) * g.P;
-                // rx timing lies in [-P/2, P/2], so both phases are in
-                // range; the clamp only keeps a NaN timing inside shared
-                // memory
-                const int ilo = min(max(st + (int)low, 0), NP - 1);
-                const int ihi = min(max(st + (int)high, 0), NP - 1);
-                float tmax[M];
-#pragma unroll
-                for (int m = 0; m < M; ++m) {
-                    const float2 a = fo[m * NP + ilo], b = fo[m * NP + ihi];
-                    const float tr = a.x * w_lo + b.x * fract;
-                    const float ti = a.y * w_lo + b.y * fract;
-                    tmax[m] = tr * tr + ti * ti;
-                }
-                float wv = tmax[0];
-                int sym = 0;
-#pragma unroll
-                for (int m = 1; m < M; ++m)
-                    if (tmax[m] > wv) { wv = tmax[m]; sym = m; }
-                if (M == 2) {
-                    bo[k] = tmax[1] > tmax[0] ? 1 : 0;
-                    so[k] = sqrtf(tmax[0]) - sqrtf(tmax[1 % M]);
-                } else {
-                    const float m0 = sqrtf(tmax[0]), m1 = sqrtf(tmax[1 % M]);
-                    const float m2 = sqrtf(tmax[2 % M]),
-                                m3 = sqrtf(tmax[3 % M]);
-                    bo[2 * k] = (sym >> 1) & 1;
-                    bo[2 * k + 1] = sym & 1;
-                    so[2 * k] = ((-m0 - m1) + m2) + m3;
-                    so[2 * k + 1] = ((-m0 + m1) - m2) + m3;
-                }
-                sm = sm + sqrtf(wv);
-                sw = sw + wv;
-            }
+            // and ceil integrator phases, and Eb/N0
+            const float ebno = decide<M>(g, fi + (f & 1) * M * NP, low, fract,
+                                         high, p.soft + frame * g.Nbits,
+                                         p.bits + frame * g.Nbits);
             PHASE(5, 0);
-            for (int off = 16; off > 0; off >>= 1) {
-                sm = sm + __shfl_down_sync(0xffffffffu, sm, off);
-                sw = sw + __shfl_down_sync(0xffffffffu, sw, off);
-            }
             if (wl == 0) {
-                const float meane = sm / (float)g.Nsym;
-                float stde = sw / (float)g.Nsym - meane * meane;
-                stde = sqrtf(fmaxf(stde, 0.0f));
-                const float ebno =
-                    -6.0f + 20.0f * log10f((1e-6f + meane) / (1e-6f + stde));
                 st_snr = 0.5f * st_snr + 0.5f * ebno;
                 p.valid[frame] = 1;
                 p.o_ebno[frame] = ebno;
@@ -1116,6 +1351,9 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
             p.ppm_out[lane] = st_ppm;
             p.ebno_out[lane] = st_ebno;
             p.snr_out[lane] = st_snr;
+            if (p.counters != nullptr && f > 0)      // after the other path
+                atomicAdd(p.counters + CNT_LANE_FRAMES,
+                          (unsigned long long)f);
         }
     }
     __syncthreads();
@@ -1125,8 +1363,8 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
 
     // frames past the lane's end: invalid, fields zeroed
 #pragma unroll 1
-    for (int r = f; r < g.num_frames; ++r) {
-        const long long frame = (long long)lane * g.num_frames + r;
+    for (int r = f; r < nf; ++r) {
+        const long long frame = frame0 + r;
 #pragma unroll 1
         for (int k = tid; k < g.Nbits; k += THREADS) {
             p.soft[frame * g.Nbits + k] = 0.0f;
@@ -1154,8 +1392,10 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
         }
     }
 
-    // the eye probe: the last valid frame's integrators, on chip still
-    if (p.eye_re != nullptr) {
+    // the eye probe: the last valid frame's integrators, on chip still (a
+    // lane that starts past frame 0 and demodulates none keeps the eye the
+    // frame-parallel path stored)
+    if (p.eye_re != nullptr && (f > 0 || f0 == 0)) {
         const bool ok = f > 0;
         const float2* fl = fi + ((f - 1) & 1) * M * NP;
 #pragma unroll 1
@@ -1179,8 +1419,936 @@ fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
     }
 }
 
+// ------------------------------------------------- the frame-parallel path
+
+// The frame-parallel path (6. above), one cooperative launch.  Its scratch
+// in global memory, per lane: `spec_cap` frame rows of floats (the
+// estimator blocks' magnitudes, the EMA after the frame, the phase terms,
+// f_new, latched, theta0, phi_next, norm_rx_timing, Eb/N0, the high
+// sample) and of ints (the timing's next nin); the carried state and the
+// last kept frame's tones (floats); the window and its verdict (ints).
+#define SPEC_GROUP 128          // threads of one frame in the estimator pass
+#define SPEC_FPB (THREADS / SPEC_GROUP)
+#define SPEC_CHUNK 32           // frames a serial chain stages at once,
+#define SPEC_STAGES 4           // in this many buffers (cp.async)
+enum {                          // a lane's ints
+    LI_F0,                      // the window's first frame
+    LI_WLEN,                    // its frames (0: the lane is not running)
+    LI_POS, LI_NIN,             // pos and nin of frame LI_F0, exact
+    LI_W,                       // the frames the next window may take
+    LI_POOR,                    // poor rounds in a row
+    LI_BAD,                     // the first frame whose next nin missed
+    LI_LPOS, LI_LNIN,           // pos and nin of the last kept frame
+    LI_N
+};
+
+struct SpecScratch {
+    long long row, rows, lane, lanes, first, ints, nxt, n_int;
+    int mag, ema, terms, fnew, la, th, phin, norm, ebno, high, pterms;
+    int l_ema, l_fest, l_phi, l_norm, l_ppm, l_ebno, l_snr, l_fn, l_la,
+        l_th, l_high;                                       // in a lane's
+};
+
+__host__ __device__ static inline SpecScratch spec_scratch(const DemodGeom& g) {
+    SpecScratch s;
+    const int half = g.half, M = g.M;
+    s.mag = 0;                         // every field 16-byte aligned
+    s.ema = g.max_blocks * half;
+    s.terms = s.ema + half;            // M p1, then M p2 (float64)
+    s.fnew = s.terms + 4 * M;
+    s.la = s.fnew + M;
+    s.th = s.la + M;
+    s.phin = s.th + M;
+    s.norm = s.phin + M;               // norm, Eb/N0, high sample, unused
+    s.ebno = s.norm + 1;
+    s.high = s.ebno + 1;
+    s.pterms = s.norm + 4;             // the ppm gate, 0.1 appm, 0.5 Eb/N0
+    s.row = s.pterms + 4;
+    s.rows = (long long)g.lanes * g.spec_cap * s.row;
+    s.l_ema = 0;
+    s.l_fest = half;
+    s.l_phi = s.l_fest + M;
+    s.l_norm = s.l_phi + M;
+    s.l_ppm = s.l_norm + 1;
+    s.l_ebno = s.l_ppm + 1;
+    s.l_snr = s.l_ebno + 1;
+    s.l_fn = s.l_snr + 1;
+    s.l_la = s.l_fn + M;
+    s.l_th = s.l_la + M;
+    s.l_high = s.l_th + M;
+    s.lane = s.l_high + 1;
+    s.lanes = s.rows + (long long)g.lanes * s.lane;          // floats
+    s.first = 0;                                             // ints: first,
+    s.ints = g.lanes;                                        // lane ints,
+    s.nxt = s.ints + (long long)g.lanes * LI_N;              // next nins
+    s.n_int = s.nxt + (long long)g.lanes * g.spec_cap;
+    return s;
+}
+
+// shared memory of a block of the frame-parallel path, in bytes: the
+// tables, the lanes' windows, then the passes' buffers, which share one
+// region (the estimator's SPEC_FPB frames, one frame's downconvert, or a
+// serial chain's SPEC_STAGES chunks)
+struct SpecSmem {
+    size_t tab, idx, hann, spin, win, work, total;
+    size_t group, wbn, wbt, wb, part_c, part_t, part;        // estimator
+    size_t red, d, fi;                                       // demod
+};
+
+__host__ __device__ static inline SpecSmem spec_smem(const DemodGeom& g) {
+    SpecSmem S;
+    size_t at = 0;
+    const bool later = g.max_blocks > 1;
+    S.tab = take(at, (size_t)g.n_tab * sizeof(float2));
+    S.idx = take(at, g.idx_smem ? (size_t)(g.Ndft / 4 + 1) * g.half * 8 : 0);
+    S.hann = take(at, (size_t)g.Ndft * sizeof(float));
+    S.spin = take(at, 2 * (size_t)g.NP * sizeof(float));
+    S.win = take(at, 5 * (size_t)(g.lanes + 1) * sizeof(int));
+    S.work = at;
+    size_t a = 0;                                  // one estimator frame
+    S.wbn = take(a, (size_t)g.fs_common * sizeof(float2));
+    S.wbt = take(a, (size_t)g.tail_len * sizeof(float2));
+    S.wb = take(a, later ? (size_t)(g.Ndft + 4) * sizeof(float2) : 0);
+    S.part_c =
+        take(a, 2 * (size_t)common_groups(g.half) * g.half * sizeof(float));
+    S.part_t = take(a, 2 * (size_t)g.half * sizeof(float));
+    S.part = take(
+        a, later ? 2 * (size_t)dft_groups(g.half) * g.half * sizeof(float)
+                 : 0);
+    S.group = a;
+    size_t e = 0;                                  // one demod frame
+    S.red = take(e, 2 * NWARPS * sizeof(double));
+    S.d = take(e, (size_t)g.M * g.Nmem * sizeof(float2));
+    S.fi = take(e, (size_t)g.M * g.NP * sizeof(float2));
+    // the serial chains' SPEC_STAGES chunks of staged inputs
+    const size_t mags = (size_t)g.max_blocks * g.half * sizeof(float);
+    const size_t terms = 2 * (size_t)g.M * sizeof(double);
+    const size_t chain =
+        SPEC_STAGES * SPEC_CHUNK * (mags > terms ? mags : terms);
+    size_t work = SPEC_FPB * S.group > e ? SPEC_FPB * S.group : e;
+    S.total = S.work + (chain > work ? chain : work);
+    return S;
+}
+
+// lane sample li of the lane that starts at global sample `start`, from
+// global memory, converted as ring_sample converts: 0.0 outside [0, nvalid)
+// and outside the buffer
+__device__ __forceinline__ float2 global_sample(const DemodGeom& g,
+                                                const void* data,
+                                                long long start,
+                                                long long nvalid,
+                                                long long li) {
+    const long long gi = start + li;
+    if (!(li >= 0 && li < nvalid && gi >= 0 && gi < g.n_total))
+        return make_float2(0.0f, 0.0f);
+    if (g.fmt == 1) {
+        const uchar2 v = __ldg((const uchar2*)data + gi);
+        return make_float2(((float)v.x - 127.0f) * 0.0078125f,
+                           ((float)v.y - 127.0f) * 0.0078125f);
+    }
+    if (g.fmt == 2) {
+        const short2 v = __ldg((const short2*)data + gi);
+        return make_float2((float)v.x * g.cs16_scale,
+                           (float)v.y * g.cs16_scale);
+    }
+    return __ldg((const float2*)data + gi);
+}
+
+// frames the window at frame f0 (pos0, nin0) may take: at most W, up to the
+// lane's last frame and while pos + nin <= nvalid under the guess nin = N
+// after f0; 0 where frame f0 is past the lane's end
+__device__ __forceinline__ int spec_window(const DemodGeom& g, int f0,
+                                           long long pos0, int nin0,
+                                           long long nvalid, int W) {
+    if (f0 >= g.num_frames || pos0 + nin0 > nvalid) return 0;
+    const long long fit = (nvalid - pos0 - nin0) / g.N + 1;
+    const long long n = min((long long)min(W, g.num_frames - f0), fit);
+    return (int)n;
+}
+
+// the serial passes' stream: the loader threads (t0 of nt) stage rows
+// [c SPEC_CHUNK, (c + 1) SPEC_CHUNK) of a window of n frames (the last row
+// again past n), of each `pieces` 16-byte pieces from float `at`, into
+// buffer c % SPEC_STAGES of dst with cp.async: one group a chunk (empty
+// past the last chunk), so that SPEC_STAGES - 1 chunks are in flight
+__device__ __forceinline__ void stage_rows(const float* r0, int row, int at,
+                                           int pieces, int c, int n,
+                                           int chunks, float4* dst, int t0,
+                                           int nt) {
+    if (c < chunks) {
+        float4* b = dst + (c % SPEC_STAGES) * SPEC_CHUNK * pieces;
+#pragma unroll 1
+        for (int i = t0; i < SPEC_CHUNK * pieces; i += nt) {
+            const int u = i / pieces, v = i - u * pieces;
+            const int j = min(c * SPEC_CHUNK + u, n - 1);
+            cp_async16(b + i, r0 + (long long)j * row + at + 4 * v, 16);
+        }
+    }
+    cp_async_commit();
+}
+
+__device__ __forceinline__ void cp_async_wait_stages() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(SPEC_STAGES - 2)
+                 : "memory");
+}
+
+// the lane of work item `it` of the round: the last lane whose first item
+// is at most it (off: the lanes' first items, then the total)
+__device__ __forceinline__ int lane_of(const int* off, int lanes, int it) {
+    int lo = 0, hi = lanes - 1;
+    while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (off[mid] <= it) lo = mid; else hi = mid - 1;
+    }
+    return lo;
+}
+
+template <int M>
+__device__ __forceinline__ void spec_body(const DemodGeom& g,
+                                          const DemodPtrs& p) {
+    extern __shared__ __align__(16) char smem[];
+    cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+    const SpecSmem S = spec_smem(g);
+    const SpecScratch Q = spec_scratch(g);
+    float2* tab = (float2*)(smem + S.tab);
+    const uint2* idx = g.idx_smem ? (const uint2*)(smem + S.idx) : p.tw_idx;
+    float* hann = (float*)(smem + S.hann);
+    float* spin_re = (float*)(smem + S.spin);
+    float* spin_im = spin_re + g.NP;
+    const int L = g.lanes;
+    int* off = (int*)(smem + S.win);           // the lanes' first items,
+    int* w_f0 = off + (L + 1);                 // and their windows
+    int* w_pos = w_f0 + (L + 1);
+    int* w_nin = w_pos + (L + 1);
+    int* w_len = w_nin + (L + 1);
+    char* work = smem + S.work;
+
+    const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+    const int half = g.half, Ndft = g.Ndft, Nmem = g.Nmem, cap = g.spec_cap;
+    float* rows = p.spec_f;
+    float* lf = p.spec_f + Q.rows;
+    int* first = p.spec_i + Q.first;
+    int* li = p.spec_i + Q.ints;
+    int* nxt = p.spec_i + Q.nxt;
+
+#pragma unroll 1
+    for (int e = tid; e < g.n_tab; e += THREADS) tab[e] = p.tw_tab[e];
+    if (g.idx_smem) {
+#pragma unroll 1
+        for (int e = tid; e < (Ndft / 4 + 1) * half; e += THREADS)
+            ((uint2*)(smem + S.idx))[e] = p.tw_idx[e];
+    }
+#pragma unroll 1
+    for (int e = tid; e < Ndft; e += THREADS) hann[e] = p.hann[e];
+#pragma unroll 1
+    for (int q = tid; q < g.NP; q += THREADS) {
+        spin_re[q] = p.spin_re[q];
+        spin_im[q] = p.spin_im[q];
+    }
+    // each lane's state into its scratch (block l takes lane l)
+#pragma unroll 1
+    for (int l = blockIdx.x; l < L; l += gridDim.x) {
+        float* s = lf + l * Q.lane;
+#pragma unroll 1
+        for (int k = tid; k < half; k += THREADS)
+            s[Q.l_ema + k] = p.fft_in[l * half + k];
+        if (tid < M) {
+            s[Q.l_fest + tid] = p.fest_in[l * M + tid];
+            s[Q.l_phi + tid] = p.phi_in[l * M + tid];
+        }
+        if (tid == 0) {
+            s[Q.l_norm] = p.norm_in[l];
+            s[Q.l_ppm] = p.ppm_in[l];
+            s[Q.l_ebno] = p.ebno_in[l];
+            s[Q.l_snr] = p.snr_in[l];
+            int* q = li + l * LI_N;
+            q[LI_F0] = 0;
+            q[LI_POS] = p.pos_in[l];
+            q[LI_NIN] = p.nin_in[l];
+            q[LI_W] = min(SPEC_FIRST_WINDOW, cap);
+            q[LI_POOR] = 0;
+            q[LI_BAD] = 0x7fffffff;
+            q[LI_WLEN] = spec_window(g, 0, p.pos_in[l], p.nin_in[l],
+                                     p.n_valid[l], q[LI_W]);
+        }
+    }
+
+#pragma unroll 1
+    for (;;) {
+        grid.sync();
+        // ---- the round's windows: every block reads them all
+#pragma unroll 1
+        for (int l = tid; l < L; l += THREADS) {
+            const int* q = li + l * LI_N;
+            w_f0[l] = __ldcg(q + LI_F0);
+            w_pos[l] = __ldcg(q + LI_POS);
+            w_nin[l] = __ldcg(q + LI_NIN);
+            w_len[l] = __ldcg(q + LI_WLEN);
+        }
+        __syncthreads();
+        if (tid == 0) {
+            int total = 0;
+            for (int l = 0; l < L; ++l) {
+                off[l] = total;
+                total += w_len[l];
+            }
+            off[L] = total;
+        }
+        __syncthreads();
+        const int total = off[L];
+        if (total == 0) break;                        // grid-uniform
+
+        // ---- (a) each frame's estimator blocks: band-masked magnitudes,
+        // SPEC_FPB frames at once, SPEC_GROUP threads each, in the
+        // estimator warps' sample groups and orders
+        {
+            const int grp = tid / SPEC_GROUP, t = tid % SPEC_GROUP;
+            char* gw = work + grp * S.group;
+            float2* wbn = (float2*)(gw + S.wbn);
+            float2* wbt = (float2*)(gw + S.wbt);
+            float2* wb = (float2*)(gw + S.wb);
+            float* part_c = (float*)(gw + S.part_c);
+            float* part_t = (float*)(gw + S.part_t);
+            float* part = (float*)(gw + S.part);
+            const int fsc = g.fs_common, TL = g.tail_len;
+            const int Gc = common_groups(half);
+            const int kb = half / DFT_BINS, logkb = __ffs(kb) - 1;
+#pragma unroll 1
+            for (int b0 = blockIdx.x * SPEC_FPB; b0 < total;
+                 b0 += gridDim.x * SPEC_FPB) {
+                const int it = b0 + grp;
+                const bool on = it < total;
+                const int l = on ? lane_of(off, L, it) : 0;
+                const int j = on ? it - off[l] : 0;
+                const int nin = j > 0 ? g.N : w_nin[l];
+                const long long pos =
+                    j > 0 ? (long long)w_pos[l] + w_nin[l] +
+                                (long long)(j - 1) * g.N
+                          : w_pos[l];
+                const long long start = p.starts[l], nvalid = p.n_valid[l];
+                const int fsx = tail_fs(g, nin_choice(g, nin));
+                float* row = rows + ((long long)l * cap + j) * Q.row;
+#pragma unroll 1
+                for (int i = t; i < fsc + TL; i += SPEC_GROUP) {
+                    float2 x = make_float2(0.0f, 0.0f);
+                    if (on && i < fsx)
+                        x = global_sample(g, p.data, start, nvalid, pos + i);
+                    const float w = hann[min(i, Ndft - 1)];
+                    const float2 y = make_float2(x.x * w, x.y * w);
+                    if (i < fsc)
+                        wbn[i] = y;
+                    else
+                        wbt[i - fsc] = i < fsx ? y : make_float2(0.0f, 0.0f);
+                }
+                __syncthreads();
+#pragma unroll 1
+                for (int u = t; u < (Gc + 1) * kb; u += SPEC_GROUP) {
+                    const int s = u >> logkb, k = u & (kb - 1);
+                    const bool head = s < Gc;
+                    const int i0 = head ? min(s * g.span_common, fsc) : fsc;
+                    const int i1 = head ? min(fsc, i0 + g.span_common) : fsx;
+                    const float2* xb = head ? wbn : wbt - fsc;
+                    float* ore = head ? part_c + s * half : part_t;
+                    float* oim = head ? part_c + (Gc + s) * half
+                                      : part_t + half;
+                    dft_bins(xb, tab, idx, half, k, kb, i0, i1, ore, oim);
+                }
+                __syncthreads();
+#pragma unroll 1
+                for (int k = t; k < half; k += SPEC_GROUP) {
+                    float re = part_c[k], im = part_c[Gc * half + k];
+#pragma unroll 1
+                    for (int s = 1; s < Gc; ++s) {
+                        re = re + part_c[s * half + k];
+                        im = im + part_c[(Gc + s) * half + k];
+                    }
+                    if (on)
+                        row[Q.mag + k] = band_mag(g, k, re + part_t[k],
+                                                  im + part_t[half + k]);
+                }
+                if (g.max_blocks > 1) {
+                    // the blocks after the first (3b. of the estimator)
+                    const int G = dft_groups(half), logG = __ffs(G) - 1;
+#pragma unroll 1
+                    for (int jb = 1; jb < g.max_blocks; ++jb) {
+                        const bool used = on && jb < nin / Ndft;
+                        const int fs =
+                            used ? min(max(nin - (jb + 1) * Ndft, 0), Ndft)
+                                 : 0;
+                        __syncthreads();
+#pragma unroll 1
+                        for (int i = t; i < ((fs + 3) & ~3); i += SPEC_GROUP) {
+                            float2 y = make_float2(0.0f, 0.0f);
+                            if (i < fs) {
+                                const float2 s = global_sample(
+                                    g, p.data, start, nvalid,
+                                    pos + jb * Ndft + i);
+                                y = make_float2(s.x * hann[i], s.y * hann[i]);
+                            }
+                            wb[i] = y;
+                        }
+                        __syncthreads();
+                        const int span = (((fs + G - 1) >> logG) + 3) & ~3;
+#pragma unroll 1
+                        for (int u = t; u < G * kb; u += SPEC_GROUP) {
+                            const int s = u >> logkb, k = u & (kb - 1);
+                            const int i0 = min(s * span, fs);
+                            dft_bins(wb, tab, idx, half, k, kb, i0,
+                                     min(fs, i0 + span), part + s * half,
+                                     part + (G + s) * half);
+                        }
+                        __syncthreads();
+#pragma unroll 1
+                        for (int k = t; k < half; k += SPEC_GROUP) {
+                            float re = part[k], im = part[G * half + k];
+#pragma unroll 1
+                            for (int s = 1; s < G; ++s) {
+                                re = re + part[s * half + k];
+                                im = im + part[(G + s) * half + k];
+                            }
+                            if (used)
+                                row[Q.mag + jb * half + k] =
+                                    band_mag(g, k, re, im);
+                        }
+                    }
+                }
+                __syncthreads();            // the buffers, for the next
+            }
+        }
+        grid.sync();
+
+        // ---- (b) the EMA, serial over a lane's frames: a thread a bin
+        // (tid < half) runs the chain over the frames' magnitudes, which
+        // the other threads stream into shared memory (stage_rows)
+#pragma unroll 1
+        for (int l = blockIdx.x; l < L; l += gridDim.x) {
+            const int n = w_len[l];
+            if (n == 0) continue;
+            const int logn = __ffs(Ndft) - 1;
+            const int nb0 = w_nin[l] >> logn, nbn = g.N >> logn;
+            const int per = g.max_blocks * half;     // a frame's magnitudes
+            float* r0 = rows + (long long)l * cap * Q.row;
+            float e = tid < half ? __ldcg(lf + l * Q.lane + Q.l_ema + tid)
+                                 : 0.0f;
+            const int chunks = (n + SPEC_CHUNK - 1) / SPEC_CHUNK;
+            const bool loader = tid >= half;
+            if (loader)
+                for (int c = 0; c < SPEC_STAGES - 1; ++c)
+                    stage_rows(r0, Q.row, Q.mag, per / 4, c, n, chunks,
+                               (float4*)work, tid - half, THREADS - half);
+#pragma unroll 1
+            for (int c = 0; c < chunks; ++c) {
+                if (loader) cp_async_wait_stages();
+                __syncthreads();
+                if (tid < half) {
+                    const float* b = (const float*)work +
+                                     (c % SPEC_STAGES) * SPEC_CHUNK * per;
+                    float* dst = r0 + (long long)c * SPEC_CHUNK * Q.row +
+                                 Q.ema + tid;
+                    if (g.max_blocks == 1 && n - c * SPEC_CHUNK >= SPEC_CHUNK) {
+                        // a whole chunk, one block a frame: straight-line,
+                        // eight frames' magnitudes loaded at once
+                        const bool use0 = (c == 0 ? nb0 : nbn) > 0;
+                        const bool usen = nbn > 0;
+#pragma unroll
+                        for (int u0 = 0; u0 < SPEC_CHUNK; u0 += 8) {
+                            float mg[8];
+#pragma unroll
+                            for (int v = 0; v < 8; ++v)
+                                mg[v] = b[(u0 + v) * per + tid];
+#pragma unroll
+                            for (int v = 0; v < 8; ++v) {
+                                if (u0 + v == 0 ? use0 : usen)
+                                    e = ema_update(g, e, mg[v]);
+                                dst[(long long)(u0 + v) * Q.row] = e;
+                            }
+                        }
+                    } else {
+#pragma unroll 1
+                        for (int u = 0; u < SPEC_CHUNK; ++u) {
+                            const int j = c * SPEC_CHUNK + u;
+                            if (j >= n) break;
+                            const int nb = j > 0 ? nbn : nb0;
+#pragma unroll 1
+                            for (int q = 0; q < nb; ++q)
+                                e = ema_update(g, e,
+                                               b[u * per + q * half + tid]);
+                            dst[(long long)u * Q.row] = e;
+                        }
+                    }
+                } else {
+                    stage_rows(r0, Q.row, Q.mag, per / 4,
+                               c + SPEC_STAGES - 1, n, chunks, (float4*)work,
+                               tid - half, THREADS - half);
+                }
+            }
+            if (loader) cp_async_wait_all();
+            __syncthreads();
+        }
+        grid.sync();
+
+        // ---- (c) each frame's M peak picks from its EMA, and the phase
+        // chain's terms (tone_terms), which need the frame before's picks
+        // too: a warp a frame picks both
+#pragma unroll 1
+        for (int it = blockIdx.x * NWARPS + warp; it < total;
+             it += gridDim.x * NWARPS) {
+            const int l = lane_of(off, L, it), j = it - off[l];
+            float* row = rows + ((long long)l * cap + j) * Q.row;
+            float v[MAX_BINS];
+            int peaks[M], prev[M];
+#pragma unroll
+            for (int r = 0; r < MAX_BINS; ++r)
+                v[r] = 32 * r + wl < half ? __ldcg(row + Q.ema + 32 * r + wl)
+                                          : -1.0f;
+            pick_peaks<M>(g, v, peaks);
+            float prev0, prevm;
+            if (j > 0) {
+#pragma unroll
+                for (int r = 0; r < MAX_BINS; ++r)
+                    v[r] = 32 * r + wl < half
+                               ? __ldcg(row - Q.row + Q.ema + 32 * r + wl)
+                               : -1.0f;
+                pick_peaks<M>(g, v, prev);
+                int pm = prev[0];
+#pragma unroll
+                for (int r = 1; r < M; ++r) pm = r == wl ? prev[r] : pm;
+                prev0 = (float)prev[0] * g.bin_hz;
+                prevm = (float)pm * g.bin_hz;
+            } else {
+                const float* s = lf + l * Q.lane;
+                prev0 = __ldcg(s + Q.l_fest);
+                prevm = __ldcg(s + Q.l_fest + min(wl, M - 1));
+            }
+            int pk = peaks[0];
+#pragma unroll
+            for (int r = 1; r < M; ++r) pk = r == wl ? peaks[r] : pk;
+            if (wl < M) {
+                const float fn = (float)pk * g.bin_hz;
+                float la;
+                double* terms = (double*)(row + Q.terms);
+                tone_terms(g, j > 0 ? g.N : w_nin[l], fn, prev0, prevm, la,
+                           terms[wl], terms[M + wl]);
+                row[Q.fnew + wl] = fn;
+                row[Q.la + wl] = la;
+            }
+        }
+        grid.sync();
+
+        // ---- (d) the phase chain, serial: lanes m < M of warp 0 over the
+        // frames' terms, which the other warps stream
+#pragma unroll 1
+        for (int l = blockIdx.x; l < L; l += gridDim.x) {
+            const int n = w_len[l];
+            if (n == 0) continue;
+            float* r0 = rows + (long long)l * cap * Q.row;
+            float phi = tid < M ? __ldcg(lf + l * Q.lane + Q.l_phi + tid)
+                                : 0.0f;
+            const int chunks = (n + SPEC_CHUNK - 1) / SPEC_CHUNK;
+            const bool loader = tid >= 32;
+            if (loader)
+                for (int c = 0; c < SPEC_STAGES - 1; ++c)
+                    stage_rows(r0, Q.row, Q.terms, M, c, n, chunks,
+                               (float4*)work, tid - 32, THREADS - 32);
+#pragma unroll 1
+            for (int c = 0; c < chunks; ++c) {
+                if (loader) cp_async_wait_stages();
+                __syncthreads();
+                if (tid < M) {
+                    const double* b = (const double*)work +
+                                      (c % SPEC_STAGES) * SPEC_CHUNK * 2 * M;
+                    float* dst = r0 + (long long)c * SPEC_CHUNK * Q.row + tid;
+                    bool ok = n - c * SPEC_CHUNK >= SPEC_CHUNK;
+                    const float phi0 = phi;
+                    if (ok) {
+                        // a whole chunk: straight-line, four frames' terms
+                        // loaded at once, mod_two_pi's short path
+#pragma unroll
+                        for (int u0 = 0; u0 < SPEC_CHUNK; u0 += 4) {
+                            double p1[4], p2[4];
+#pragma unroll
+                            for (int v = 0; v < 4; ++v) {
+                                p1[v] = b[2 * M * (u0 + v) + tid];
+                                p2[v] = b[2 * M * (u0 + v) + M + tid];
+                            }
+#pragma unroll
+                            for (int v = 0; v < 4; ++v) {
+                                float th, phin;
+                                tone_chain_short(g, p1[v], p2[v], phi, th,
+                                                 phin, ok);
+                                float* r = dst + (long long)(u0 + v) * Q.row;
+                                r[Q.th] = th;
+                                r[Q.phin] = phin;
+                                phi = phin;
+                            }
+                        }
+                    }
+                    if (!ok) {
+                        // the last chunk, or a phase out of the short
+                        // path's range: frame by frame with mod_two_pi
+                        phi = phi0;
+#pragma unroll 1
+                        for (int u = 0; u < SPEC_CHUNK; ++u) {
+                            if (c * SPEC_CHUNK + u >= n) break;
+                            float th, phin;
+                            tone_chain(g, b[2 * M * u + tid],
+                                       b[2 * M * u + M + tid], phi, th, phin);
+                            float* r = dst + (long long)u * Q.row;
+                            r[Q.th] = th;
+                            r[Q.phin] = phin;
+                            phi = phin;
+                        }
+                    }
+                } else if (loader) {
+                    stage_rows(r0, Q.row, Q.terms, M, c + SPEC_STAGES - 1, n,
+                               chunks, (float4*)work, tid - 32, THREADS - 32);
+                }
+            }
+            if (loader) cp_async_wait_all();
+            __syncthreads();
+        }
+        grid.sync();
+
+        // ---- (e) each frame's demod: a block a frame, the lane path's
+        // downconvert, sums and decisions; the first frame whose timing
+        // misses the next frame's guess
+        {
+            double* red = (double*)(work + S.red);
+            float2* d = (float2*)(work + S.d);
+            float2* fi = (float2*)(work + S.fi);
+#pragma unroll 1
+            for (int it = blockIdx.x; it < total; it += gridDim.x) {
+                const int l = lane_of(off, L, it), j = it - off[l];
+                const int nin = j > 0 ? g.N : w_nin[l];
+                const long long pos =
+                    j > 0 ? (long long)w_pos[l] + w_nin[l] +
+                                (long long)(j - 1) * g.N
+                          : w_pos[l];
+                const long long frame =
+                    (long long)l * g.num_frames + w_f0[l] + j;
+                const float* row = rows + ((long long)l * cap + j) * Q.row;
+                float fn[M], la[M], th[M];
+#pragma unroll
+                for (int m = 0; m < M; ++m) {
+                    fn[m] = __ldcg(row + Q.fnew + m);
+                    la[m] = __ldcg(row + Q.la + m);
+                    th[m] = __ldcg(row + Q.th + m);
+                }
+                const long long start = p.starts[l], nvalid = p.n_valid[l];
+                const long long base = pos + nin - Nmem;
+                const float noldf = (float)(Nmem - nin);
+#pragma unroll 2
+                for (int t = tid; t < Nmem; t += THREADS)
+                    downconvert<M>(
+                        g, global_sample(g, p.data, start, nvalid, base + t),
+                        t, noldf, fn, la, th, d);
+                __syncthreads();
+                slot_sums<M, 1, false>(g, d, fi, spin_re, spin_im, warp, 0,
+                                       red, nullptr, 0);
+                __syncthreads();
+                if (warp == 0) {
+                    const float norm = timing_norm(g, red);
+                    float low = 0.0f, fract = 0.0f, high = 0.0f;
+                    if (wl == 0) timing_phases(norm * (float)g.P, low, fract,
+                                               high);
+                    low = __shfl_sync(0xffffffffu, low, 0);
+                    fract = __shfl_sync(0xffffffffu, fract, 0);
+                    high = __shfl_sync(0xffffffffu, high, 0);
+                    const float ebno = decide<M>(g, fi, low, fract, high,
+                                                 p.soft + frame * g.Nbits,
+                                                 p.bits + frame * g.Nbits);
+                    if (wl == 0) {
+                        const int nn = next_nin(g, norm);
+                        float* r = (float*)row;
+                        p.valid[frame] = 1;
+                        p.o_ebno[frame] = ebno;
+                        p.o_norm[frame] = norm;
+                        p.o_nin[frame] = nin;
+                        r[Q.norm] = norm;
+                        r[Q.ebno] = ebno;
+                        r[Q.high] = high;
+                        nxt[(long long)l * cap + j] = nn;
+                        if (j + 1 < w_len[l] && nn != g.N)
+                            atomicMin(li + l * LI_N + LI_BAD, j);
+                    }
+                    if (wl < M) {
+                        float f = fn[0];
+#pragma unroll
+                        for (int m = 1; m < M; ++m) f = m == wl ? fn[m] : f;
+                        p.o_fest[frame * M + wl] = f;
+                    }
+                }
+                __syncthreads();           // d, fi and red, for the next
+            }
+        }
+        grid.sync();
+
+        // ---- (f) keep the frames up to the first miss: the ppm and SNR
+        // chains over them (thread 0 over their terms, formed first by the
+        // whole block and streamed as in (b)), their last state carried,
+        // the next window
+#pragma unroll 1
+        for (int l = blockIdx.x; l < L; l += gridDim.x) {
+            const int wlen = w_len[l];
+            if (wlen == 0) continue;
+            float* r0 = rows + (long long)l * cap * Q.row;
+            float* s = lf + l * Q.lane;
+            int* q = li + l * LI_N;
+            const int bad = __ldcg(q + LI_BAD);
+            const bool miss = bad != 0x7fffffff;
+            const int n = miss ? bad + 1 : wlen;
+            const long long frame0 = (long long)l * g.num_frames + w_f0[l];
+            float ppm = __ldcg(s + Q.l_ppm), snr = __ldcg(s + Q.l_snr);
+            const float norm_in = __ldcg(s + Q.l_norm);
+            // the chains' terms, every frame at once: ppm_step's gate and
+            // 0.1 appm, and half the Eb/N0
+#pragma unroll 1
+            for (int j = tid; j < n; j += THREADS) {
+                float* r = r0 + (long long)j * Q.row;
+                const float norm = __ldcg(r + Q.norm);
+                const float d_norm =
+                    norm - (j > 0 ? __ldcg(r - Q.row + Q.norm) : norm_in);
+                const float appm = 1e6f * d_norm / (float)g.Nsym;
+                *(float4*)(r + Q.pterms) =
+                    make_float4(fabsf(d_norm) < 0.2f ? 1.0f : 0.0f,
+                                0.1f * appm, 0.5f * __ldcg(r + Q.ebno), 0.0f);
+            }
+            __threadfence();         // for the stream's cp.async reads
+            __syncthreads();
+            const int chunks = (n + SPEC_CHUNK - 1) / SPEC_CHUNK;
+            const bool loader = tid >= 32;
+            if (loader)
+                for (int c = 0; c < SPEC_STAGES - 1; ++c)
+                    stage_rows(r0, Q.row, Q.pterms, 1, c, n, chunks,
+                               (float4*)work, tid - 32, THREADS - 32);
+#pragma unroll 1
+            for (int c = 0; c < chunks; ++c) {
+                if (loader) cp_async_wait_stages();
+                __syncthreads();
+                if (tid == 0) {
+                    const float4* b =
+                        (const float4*)work + (c % SPEC_STAGES) * SPEC_CHUNK;
+                    float* dst = p.o_ppm + frame0 + c * SPEC_CHUNK;
+                    // ppm_step and the SNR average from their terms (gate,
+                    // 0.1 appm, Eb/N0 / 2): a whole chunk straight-line,
+                    // eight frames' terms loaded at once
+                    if (n - c * SPEC_CHUNK >= SPEC_CHUNK) {
+#pragma unroll
+                        for (int u0 = 0; u0 < SPEC_CHUNK; u0 += 8) {
+                            float4 x[8];
+#pragma unroll
+                            for (int v = 0; v < 8; ++v) x[v] = b[u0 + v];
+#pragma unroll
+                            for (int v = 0; v < 8; ++v) {
+                                ppm = x[v].x != 0.0f ? 0.9f * ppm + x[v].y
+                                                     : ppm;
+                                snr = 0.5f * snr + x[v].z;
+                                dst[u0 + v] = ppm;
+                            }
+                        }
+                    } else {
+#pragma unroll 1
+                        for (int u = 0; u < n - c * SPEC_CHUNK; ++u) {
+                            const float4 x = b[u];
+                            ppm = x.x != 0.0f ? 0.9f * ppm + x.y : ppm;
+                            snr = 0.5f * snr + x.z;
+                            dst[u] = ppm;
+                        }
+                    }
+                } else if (loader) {
+                    stage_rows(r0, Q.row, Q.pterms, 1, c + SPEC_STAGES - 1, n,
+                               chunks, (float4*)work, tid - 32, THREADS - 32);
+                }
+            }
+            if (loader) cp_async_wait_all();
+            __syncthreads();
+            if (tid == 0) {
+                const float* last = r0 + (long long)(n - 1) * Q.row;
+                s[Q.l_norm] = __ldcg(last + Q.norm);
+                s[Q.l_ppm] = ppm;
+                s[Q.l_ebno] = __ldcg(last + Q.ebno);
+                s[Q.l_snr] = snr;
+                s[Q.l_high] = __ldcg(last + Q.high);
+                const int lnin = n > 1 ? g.N : w_nin[l];
+                const long long lpos =
+                    n > 1 ? (long long)w_pos[l] + w_nin[l] +
+                                (long long)(n - 2) * g.N
+                          : w_pos[l];
+                const int f0 = w_f0[l] + n;
+                const long long pos = lpos + lnin;
+                const int nin = __ldcg(nxt + (long long)l * cap + n - 1);
+                const int W = __ldcg(q + LI_W);
+                const int poor_run = miss && n < SPEC_MIN_WINDOW
+                                         ? __ldcg(q + LI_POOR) + 1 : 0;
+                const bool poor = poor_run >= SPEC_MAX_POOR;
+                const int Wn = miss ? min(max(2 * n, SPEC_MIN_WINDOW), cap)
+                                    : min(2 * W, cap);
+                q[LI_LPOS] = (int)lpos;
+                q[LI_LNIN] = lnin;
+                q[LI_F0] = f0;
+                q[LI_POS] = (int)pos;
+                q[LI_NIN] = nin;
+                q[LI_W] = Wn;
+                q[LI_POOR] = poor_run;
+                q[LI_BAD] = 0x7fffffff;
+                q[LI_WLEN] = poor
+                                 ? 0
+                                 : spec_window(g, f0, pos, nin, p.n_valid[l],
+                                               Wn);
+                if (p.counters != nullptr) {
+                    atomicAdd(p.counters + CNT_SPEC_FRAMES,
+                              (unsigned long long)n);
+                    atomicAdd(p.counters + CNT_ROUNDS, 1ull);
+                    if (poor)
+                        atomicAdd(p.counters + CNT_FALLBACKS, 1ull);
+                }
+            }
+            const float* last = r0 + (long long)(n - 1) * Q.row;
+#pragma unroll 1
+            for (int k = tid; k < half; k += THREADS)
+                s[Q.l_ema + k] = __ldcg(last + Q.ema + k);
+            if (tid < M) {
+                const float fn = __ldcg(last + Q.fnew + tid);
+                s[Q.l_fest + tid] = fn;
+                s[Q.l_phi + tid] = __ldcg(last + Q.phin + tid);
+                s[Q.l_fn + tid] = fn;
+                s[Q.l_la + tid] = __ldcg(last + Q.la + tid);
+                s[Q.l_th + tid] = __ldcg(last + Q.th + tid);
+            }
+        }
+    }
+
+    // ---- the state for the lane path, and the eye probe of the last kept
+    // frame: its integrators formed again
+#pragma unroll 1
+    for (int l = blockIdx.x; l < L; l += gridDim.x) {
+        const float* s = lf + l * Q.lane;
+        const int* q = li + l * LI_N;
+        const int f0 = __ldcg(q + LI_F0);
+#pragma unroll 1
+        for (int k = tid; k < half; k += THREADS)
+            p.fft_out[l * half + k] = __ldcg(s + Q.l_ema + k);
+        if (tid < M) {
+            p.fest_out[l * M + tid] = __ldcg(s + Q.l_fest + tid);
+            p.phi_out[l * M + tid] = __ldcg(s + Q.l_phi + tid);
+        }
+        if (tid == 0) {
+            first[l] = f0;
+            p.pos_out[l] = __ldcg(q + LI_POS);
+            p.nin_out[l] = __ldcg(q + LI_NIN);
+            p.norm_out[l] = __ldcg(s + Q.l_norm);
+            p.ppm_out[l] = __ldcg(s + Q.l_ppm);
+            p.ebno_out[l] = __ldcg(s + Q.l_ebno);
+            p.snr_out[l] = __ldcg(s + Q.l_snr);
+        }
+        if (p.eye_re == nullptr || f0 == 0) continue;
+        float2* d = (float2*)(work + S.d);
+        float2* fi = (float2*)(work + S.fi);
+        double* red = (double*)(work + S.red);
+        float fn[M], la[M], th[M];
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+            fn[m] = __ldcg(s + Q.l_fn + m);
+            la[m] = __ldcg(s + Q.l_la + m);
+            th[m] = __ldcg(s + Q.l_th + m);
+        }
+        const int nin = __ldcg(q + LI_LNIN);
+        const long long base = (long long)__ldcg(q + LI_LPOS) + nin - Nmem;
+        const float noldf = (float)(Nmem - nin);
+#pragma unroll 1
+        for (int t = tid; t < Nmem; t += THREADS)
+            downconvert<M>(g, global_sample(g, p.data, p.starts[l],
+                                            p.n_valid[l], base + t),
+                           t, noldf, fn, la, th, d);
+        __syncthreads();
+        slot_sums<M, 1, false>(g, d, fi, spin_re, spin_im, warp, 0, red,
+                               nullptr, 0);
+        __syncthreads();
+#pragma unroll 1
+        for (int e = tid; e < M * g.NP; e += THREADS) {
+            p.eye_re[(size_t)l * M * g.NP + e] = fi[e].x;
+            p.eye_im[(size_t)l * M * g.NP + e] = fi[e].y;
+        }
+        if (tid == 0) {
+            p.eye_high[l] = (int)__ldcg(s + Q.l_high);
+            p.eye_ok[l] = 1;
+        }
+        __syncthreads();
+    }
+}
+
+// ----------------------------------------------------------------- kernel
+
+// one name for both paths: SPEC, the frame-parallel path (cooperative);
+// otherwise the lane path, PROBE its variant that writes the traces
+template <int M, bool PROBE, bool SPEC>
+__global__ void __launch_bounds__(THREADS, 1)
+fsk_demod_kernel(const DemodGeom g, const DemodPtrs p) {
+    if constexpr (SPEC)
+        spec_body<M>(g, p);
+    else
+        lane_body<M, PROBE>(g, p);
+}
+
 extern "C" int fsk_demod_smem_bytes(const DemodGeom* g) {
     return (int)layout(*g).total;
+}
+
+// the frame-parallel path's scratch: floats, ints
+extern "C" void fsk_demod_spec_scratch(const DemodGeom* g, long long* floats,
+                                       long long* ints) {
+    const SpecScratch s = spec_scratch(*g);
+    *floats = s.lanes;
+    *ints = s.n_int;
+}
+
+template <int M>
+static int spec_resident(const DemodGeom* g, int* blocks) {
+    const size_t smem = spec_smem(*g).total;
+    *blocks = 0;
+    if (smem > 232448) return 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        fsk_demod_kernel<M, false, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    int per_sm = 0, dev = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fsk_demod_kernel<M, false, true>, THREADS, smem);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    *blocks = per_sm * sms;
+    return (int)err;
+}
+
+// blocks of the frame-parallel path that fit on the card at once (0: its
+// shared memory does not fit a block)
+extern "C" int fsk_demod_spec_blocks(const DemodGeom* g, int* blocks) {
+    if (g->M == 2) return spec_resident<2>(g, blocks);
+    if (g->M == 4) return spec_resident<4>(g, blocks);
+    return (int)cudaErrorInvalidValue;
+}
+
+template <int M>
+static int launch_spec(const DemodGeom* g, const DemodPtrs* p, void* stream) {
+    int fit = 0;
+    int err = spec_resident<M>(g, &fit);
+    if (err != 0) return err;
+    // a block for every SPEC_FRAMES_PER_BLOCK frames of the first windows,
+    // as many as fit, and one a lane at least
+    const long long frames =
+        (long long)g->lanes *
+        (g->spec_cap < g->num_frames ? g->spec_cap : g->num_frames);
+    const long long want =
+        (frames + SPEC_FRAMES_PER_BLOCK - 1) / SPEC_FRAMES_PER_BLOCK;
+    const int blocks = (int)(want < fit ? (want > g->lanes ? want : g->lanes)
+                                        : fit);
+    if (blocks > fit) return (int)cudaErrorInvalidValue;
+    void* args[] = {(void*)g, (void*)p};
+    return (int)cudaLaunchCooperativeKernel(
+        (const void*)fsk_demod_kernel<M, false, true>, blocks, THREADS, args,
+        spec_smem(*g).total, (cudaStream_t)stream);
 }
 
 template <int M, bool PROBE>
@@ -1188,11 +2356,31 @@ static int launch(const DemodGeom* g, const DemodPtrs* p, void* stream) {
     const size_t smem = layout(*g).total;
     if (smem > 232448) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
-        fsk_demod_kernel<M, PROBE>,
+        fsk_demod_kernel<M, PROBE, false>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     if (g->lanes == 0) return 0;
-    fsk_demod_kernel<M, PROBE>
+    if (!PROBE && g->spec_cap > 0) {
+        // the frame-parallel path first; the lane path then goes on from
+        // the frame and the state it leaves in place of the outputs'
+        const int rc = launch_spec<M>(g, p, stream);
+        if (rc != 0) return rc;
+        DemodPtrs q = *p;
+        q.first = p->spec_i + spec_scratch(*g).first;
+        q.pos_in = p->pos_out;
+        q.nin_in = p->nin_out;
+        q.fft_in = p->fft_out;
+        q.fest_in = p->fest_out;
+        q.phi_in = p->phi_out;
+        q.norm_in = p->norm_out;
+        q.ppm_in = p->ppm_out;
+        q.ebno_in = p->ebno_out;
+        q.snr_in = p->snr_out;
+        fsk_demod_kernel<M, PROBE, false>
+            <<<g->lanes, THREADS, smem, (cudaStream_t)stream>>>(*g, q);
+        return (int)cudaGetLastError();
+    }
+    fsk_demod_kernel<M, PROBE, false>
         <<<g->lanes, THREADS, smem, (cudaStream_t)stream>>>(*g, *p);
     return (int)cudaGetLastError();
 }
@@ -1209,6 +2397,10 @@ extern "C" int fsk_demod_launch(const DemodGeom* g, const DemodPtrs* p,
                        (p->tr_rx != nullptr) + (p->tr_high != nullptr);
     if (traces != 0 && traces != 4) return (int)cudaErrorInvalidValue;
     const bool probe = traces == 4;
+    // the frame-parallel path: its scratch given, and no traces
+    if (g->spec_cap > 0 &&
+        (probe || p->spec_f == nullptr || p->spec_i == nullptr))
+        return (int)cudaErrorInvalidValue;
     if (g->M == 2)
         return probe ? launch<2, true>(g, p, stream)
                      : launch<2, false>(g, p, stream);

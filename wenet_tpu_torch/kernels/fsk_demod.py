@@ -7,9 +7,42 @@ The kernel replaces the scan body of `wenet_tpu/ops/fsk.py::demod_stream`
 version for CPU tensors; `demod` here takes CUDA tensors only and launches
 the kernel or raises.
 
-One block per lane walks the lane's frames with the demod state in shared
-memory.  The lanes read one raw buffer (cu8 or cs16 pairs, or float32
-pairs) at their own start offsets, so a fused slab's chunks need no copy.
+Two paths compute the same outputs, bit for bit.  The lane path: one
+block per lane walks the lane's frames with the demod state in shared
+memory.  The frame-parallel path: a cooperative launch guesses that every
+frame after a window's first keeps nin = N, demodulates the window's
+frames at once across the card, keeps the frames up to the first whose
+timing chose another nin and goes on from there; a lane whose guesses keep
+failing (noise) is left to the lane path, which always runs after it from
+the frame it reached.  The lanes read one raw buffer (cu8 or cs16 pairs,
+or float32 pairs) at their own start offsets, so a fused slab's chunks
+need no copy.
+
+The shape rule (`frame_parallel`): the frame-parallel path runs when a
+call has one lane (SPEC_MAX_LANES), at least SPEC_MIN_FRAMES frames, and
+no probe traces; otherwise the lane path runs alone.  Set from
+`chip_profile.py --kernel fsk_demod --lanes 1,8,16,32,64,131,132 --frames
+1024,4000` (H100, 700 W; CUDA events, frame-parallel against lane path).
+Lanes that all keep their guesses: 0.06 at one lane of 4,000 frames,
+0.15 of 1,024; 0.22-0.31 at 8 lanes, 0.34-0.48 at 16, 0.75-0.95 at 64
+(v1 at 15 dB).  Lanes of which some fall back (a lane whose timing sits
+on a nin threshold, or noise): 1.03-1.10 at one lane, 1.13-1.18 at 8,
+1.21-1.34 at 16, 1.32-1.50 at 32, 1.5-1.84 at 64 and 2.0-2.2 at 131
+(v2, the lanes' timing offsets spread over a symbol): the lanes that keep
+their guesses finish first, then the lane path takes the rest from
+where it fell back.  So one lane that falls back makes a multi-lane call
+slower than the lane path, and multi-lane calls are where that is
+common: 2 of 8 v2 lanes with spread timing offsets sat on a threshold, a
+wideband station's idle channels are noise, and a capture's dead air
+makes noise chunks (a 16-chunk fused decode with a quarter of dead air at
+each end: 23.4-24.1 ms against the lane path's 18.9-20.2).  Where all of
+them keep their guesses, the eight-lane wideband receiver's demod leaves
+the card idle and its pace follows the host's (2-s pushes of an
+all-busy band: 709-1305 Msamples/s over 15 runs, against 615-641 with
+the lane path).  A single lane that falls back costs 3-10 %, and a
+2-s push (4,000 or 4,800 frames) of a flight receiver runs 16 times
+faster when it does not.  At 132 lanes and more the lane path fills the
+card a block a lane.
 The kernel reads the plain version's Hann window and timing spin
 (`ops.fsk._constants`) and rebuilds the float64-built DFT matrix of
 `utils.compat._dft_matrix` bit for bit from small tables
@@ -30,7 +63,10 @@ from . import load
 FORMATS = {"c64": 0, "cu8": 1, "cs16": 2}
 RAW_DTYPES = {"c64": torch.float32, "cu8": torch.uint8, "cs16": torch.int16}
 
-launches = 0          # kernel launches, counted where the launch succeeds
+launches = 0          # lane-path launches (one a call), counted where the
+#                       launch succeeds
+spec_launches = 0     # cooperative launches of the frame-parallel path,
+#                       each in front of a lane-path launch
 probe_launches = 0    # launches of the PROBE variant (with_probe), counted
 #                       apart from `launches`
 
@@ -47,12 +83,27 @@ _FRAME_OUT = ("soft", "bits", "valid", "o_fest", "o_ebno", "o_norm", "o_ppm",
 _EYE_OUT = ("eye_re", "eye_im", "eye_high", "eye_ok")
 _TRACE_OUT = ("tr_fint", "tr_fft", "tr_rx", "tr_high")
 _EXTRA_FIELDS = ("ring", "ahead", "max_blocks", "n_tab", "idx_smem",
-                 "fs_common", "span_common", "tail_len")
+                 "fs_common", "span_common", "tail_len", "spec_cap")
 SMEM_LIMIT = 232448                   # a block's shared memory on Hopper
 SAMPLE_BYTES = {"c64": 8, "cu8": 2, "cs16": 4}
 SAMPLE_BYTES_BY_FMT = {FORMATS[f]: b for f, b in SAMPLE_BYTES.items()}
 THREADS = 512                          # csrc/fsk_demod.cu
 DFT_THREADS = 384
+# the frame-parallel path: a lane's window holds at most SPEC_WINDOW frames
+# (a 2-s push of either flight mode in one), the windows of a call at most
+# SPEC_FRAMES together (their scratch: about 1 kB a frame at Ndft = 256)
+SPEC_WINDOW = 4096
+SPEC_FRAMES = 32768
+SPEC_MIN_FRAMES = 1024
+SPEC_MAX_LANES = 1
+# the schedule (csrc/fsk_demod.cu's #defines): a launch's first window, the
+# smallest after a miss; a lane whose rounds miss before keeping
+# SPEC_MIN_WINDOW frames SPEC_MAX_POOR times in a row is left to the lane
+# path
+SPEC_FIRST_WINDOW = 2048
+SPEC_MIN_WINDOW = 32
+SPEC_MAX_POOR = 16
+COUNTERS = ("spec_frames", "rounds", "lane_frames", "fallbacks")
 
 
 class Geom(ctypes.Structure):
@@ -69,19 +120,27 @@ class Ptrs(ctypes.Structure):
     _fields_ = [(f, ctypes.c_void_p) for f in (
         "data", "starts", "n_valid", "hann", "tw_tab", "tw_idx", "spin_re",
         "spin_im", *_STATE_IN, *_STATE_OUT, *_FRAME_OUT, *_EYE_OUT,
-        *_TRACE_OUT)]
+        *_TRACE_OUT, "first", "spec_f", "spec_i", "counters")]
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built csrc/fsk_demod.cu."""
+    G, P = ctypes.POINTER(Geom), ctypes.c_void_p
+    lib.fsk_demod_launch.restype = ctypes.c_int
+    lib.fsk_demod_launch.argtypes = [G, ctypes.POINTER(Ptrs), P]
+    lib.fsk_demod_smem_bytes.restype = ctypes.c_int
+    lib.fsk_demod_smem_bytes.argtypes = [G]
+    lib.fsk_demod_spec_scratch.restype = None
+    lib.fsk_demod_spec_scratch.argtypes = [
+        G, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong)]
+    lib.fsk_demod_spec_blocks.restype = ctypes.c_int
+    lib.fsk_demod_spec_blocks.argtypes = [G, ctypes.POINTER(ctypes.c_int)]
+    return lib
 
 
 @functools.lru_cache(maxsize=1)
 def _lib():
-    lib = load("fsk_demod")
-    P = ctypes.c_void_p
-    lib.fsk_demod_launch.restype = ctypes.c_int
-    lib.fsk_demod_launch.argtypes = [ctypes.POINTER(Geom),
-                                     ctypes.POINTER(Ptrs), P]
-    lib.fsk_demod_smem_bytes.restype = ctypes.c_int
-    lib.fsk_demod_smem_bytes.argtypes = [ctypes.POINTER(Geom)]
-    return lib
+    return bind(load("fsk_demod"))
 
 
 def build():
@@ -247,6 +306,54 @@ def smem_bytes(geom: Geom) -> int:
     return _lib().fsk_demod_smem_bytes(ctypes.byref(geom))
 
 
+def _counters(device: torch.device) -> torch.Tensor:
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    return _counters_on(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _counters_on(index: int) -> torch.Tensor:
+    return torch.zeros(len(COUNTERS), dtype=torch.int64,
+                       device=torch.device("cuda", index))
+
+
+def spec_stats(device="cuda") -> dict:
+    """The frame-parallel path's work counts on `device` since the process
+    began (they wait for the device): frames it kept, its rounds (one a
+    window of a lane), frames the lane path demodulated after it, and lanes
+    it left to the lane path.  The kernel adds them without a sync; tests
+    and chip_profile.py read them."""
+    t = _counters(torch.device(device))
+    return dict(zip(COUNTERS, (int(v) for v in t.cpu())))
+
+
+@functools.lru_cache(maxsize=64)
+def _spec_fits(cfg: fsk.FSKConfig, fmt: str, lanes: int,
+               device: torch.device) -> bool:
+    """Whether the frame-parallel path's blocks (one a lane at least) fit
+    on the card at once."""
+    g = geometry(cfg, fmt, lanes, 1, 1)
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _lib().fsk_demod_spec_blocks(ctypes.byref(g),
+                                          ctypes.byref(blocks))
+    return rc == 0 and blocks.value >= lanes
+
+
+def frame_parallel(cfg: fsk.FSKConfig, fmt: str, lanes: int,
+                   num_frames: int, device: torch.device) -> int:
+    """The shape rule: the window (frames a lane) of the frame-parallel
+    path for this call, 0 where the lane path runs alone.  At most
+    SPEC_MAX_LANES lanes (one: a lane that falls back would hold the
+    others back), and at least SPEC_MIN_FRAMES frames a lane."""
+    if not 0 < lanes <= SPEC_MAX_LANES or num_frames < SPEC_MIN_FRAMES:
+        return 0
+    if not _spec_fits(cfg, fmt, lanes, device):
+        return 0
+    return min(SPEC_WINDOW, SPEC_FRAMES // lanes, num_frames)
+
+
 @functools.lru_cache(maxsize=16)
 def _tables(cfg: fsk.FSKConfig, device: torch.device):
     consts = fsk._constants(cfg, device)
@@ -272,7 +379,8 @@ def demod(cfg: fsk.FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
           starts: torch.Tensor, n_valid: torch.Tensor,
           state: fsk.DemodState | None = None, with_eye: bool = False,
           with_probe: bool = False):
-    """Launch the frame loop on L lanes of one raw buffer.
+    """Launch the frame loop on L lanes of one raw buffer, on the path the
+    shape rule (`frame_parallel`) picks.
 
     data: (n, 2) contiguous CUDA tensor of raw pairs (uint8 for cu8, int16
     for cs16, float32 for c64; copied once if it does not start on 16
@@ -288,7 +396,16 @@ def demod(cfg: fsk.FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
     lane's end are invalid with zeroed fields (the trace's EMA: the final
     one).
     """
-    global launches, probe_launches
+    return _demod(cfg, data, fmt, num_frames, starts, n_valid, state,
+                  with_eye, with_probe)
+
+
+def _demod(cfg, data, fmt, num_frames, starts, n_valid, state=None,
+           with_eye=False, with_probe=False, spec=None):
+    """`demod`; spec True or False takes the frame-parallel path (with
+    the lane path after it) or the lane path alone whatever the shape rule
+    says (the tests and chip_profile.py hold the two paths equal)."""
+    global launches, spec_launches, probe_launches
     if fmt not in FORMATS:
         raise ValueError(f"fsk_demod: unknown sample format {fmt!r}")
     if data.dim() != 2:
@@ -333,6 +450,24 @@ def demod(cfg: fsk.FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
         if with_probe else None)
 
     geom = geometry(cfg, fmt, L, num_frames, data.shape[0])
+    if spec is None:
+        cap = 0 if with_probe else frame_parallel(cfg, fmt, L, num_frames,
+                                                  dev)
+    elif spec:
+        if with_probe:
+            raise ValueError("fsk_demod: the probe traces take the lane path")
+        cap = max(1, min(SPEC_WINDOW, SPEC_FRAMES // max(L, 1), num_frames))
+    else:
+        cap = 0
+    scratch = ()
+    if cap and L:
+        geom.spec_cap = cap
+        floats, ints = ctypes.c_longlong(0), ctypes.c_longlong(0)
+        _lib().fsk_demod_spec_scratch(ctypes.byref(geom),
+                                      ctypes.byref(floats), ctypes.byref(ints))
+        scratch = (torch.empty(floats.value, dtype=torch.float32, device=dev),
+                   torch.empty(ints.value, dtype=torch.int32, device=dev),
+                   _counters(dev))
     tables = _tables(cfg, dev)
     ptrs = Ptrs(*(t.data_ptr() for t in (
         data, starts, n_valid, *tables, *state_in, *final,
@@ -341,6 +476,8 @@ def demod(cfg: fsk.FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
     for name, t in zip(_EYE_OUT, eye or ()):
         setattr(ptrs, name, t.data_ptr())
     for name, t in zip(_TRACE_OUT, trace or ()):
+        setattr(ptrs, name, t.data_ptr())
+    for name, t in zip(("spec_f", "spec_i", "counters"), scratch):
         setattr(ptrs, name, t.data_ptr())
     lib = _lib()
     with torch.cuda.device(dev):
@@ -354,6 +491,7 @@ def demod(cfg: fsk.FSKConfig, data: torch.Tensor, fmt: str, num_frames: int,
         probe_launches += L > 0
     else:
         launches += L > 0
+        spec_launches += bool(scratch)
     res = (final, outs)
     if with_eye:
         res += (fsk.EyeProbe(torch.complex(eye[0], eye[1]), eye[2], eye[3]),)

@@ -346,15 +346,12 @@ def _constants(cfg: FSKConfig, device: torch.device) -> dict:
     }
 
 
-def _freq_est_step(cfg: FSKConfig, fft_est, new_samps, nin, consts):
-    """One frame of fsk_demod_freq_est: per-Ndft-block Hann window -> DFT ->
-    band-masked |.| -> EMA; then M first-max peak picks with +/-f_zero
-    blanking on a copy of the EMA; ascending sort; bin -> Hz."""
+def _est_mags(cfg: FSKConfig, new_samps, nin, consts):
+    """The estimator blocks of one frame: per Ndft block, the Hann-windowed
+    DFT's band-masked magnitude (a list of max_fft_blocks rows)."""
     Ndft, half = cfg.Ndft, cfg.Ndft // 2
-    tc = np.float32(cfg.ema_tc)
-    one_m_tc = np.float32(1) - tc
-    n_blocks = nin // Ndft
     blocks = new_samps.reshape(cfg.max_fft_blocks, Ndft)
+    mags = []
     for j in range(cfg.max_fft_blocks):
         # quirk kept from fsk.c:583-584: the last block is windowed only over
         # the samples beyond the next block boundary
@@ -362,10 +359,24 @@ def _freq_est_step(cfg: FSKConfig, fft_est, new_samps, nin, consts):
         win = torch.where(consts["idx"] < fft_samps, consts["hann"], 0.0)
         spec = compat.dft(blocks[j] * win, n_out=half)
         mag2 = torch.square(spec.real) + torch.square(spec.imag)
-        mag = torch.sqrt(torch.where(consts["band"], mag2, 0.0))
+        mags.append(torch.sqrt(torch.where(consts["band"], mag2, 0.0)))
+    return mags
+
+
+def _est_ema(cfg: FSKConfig, fft_est, mags, nin):
+    """The EMA after one frame's estimator blocks (those below nin)."""
+    tc = np.float32(cfg.ema_tc)
+    one_m_tc = np.float32(1) - tc
+    n_blocks = nin // cfg.Ndft
+    for j, mag in enumerate(mags):
         upd = fft_est * one_m_tc + mag * tc
         fft_est = torch.where(j < n_blocks, upd, fft_est)
+    return fft_est
 
+
+def _est_peaks(cfg: FSKConfig, fft_est, consts):
+    """M first-max peak picks with +/-f_zero blanking on a copy of the EMA;
+    ascending sort; bin -> Hz."""
     work = fft_est
     off = consts["off"]
     peaks = []
@@ -374,14 +385,21 @@ def _freq_est_step(cfg: FSKConfig, fft_est, new_samps, nin, consts):
         peaks.append(imax)
         blank = (off >= imax - cfg.f_zero_bins) & (off < imax + cfg.f_zero_bins)
         work = torch.where(blank, 0.0, work)
-    bin_hz = np.float32(cfg.Fs / Ndft)
+    bin_hz = np.float32(cfg.Fs / cfg.Ndft)
     if cfg.M == 2:
         lo = torch.minimum(peaks[0], peaks[1])
         hi = torch.maximum(peaks[0], peaks[1])
-        freqs = torch.stack([lo, hi]).float() * bin_hz
-    else:
-        freqs = torch.sort(torch.stack(peaks)).values.float() * bin_hz
-    return fft_est, freqs
+        return torch.stack([lo, hi]).float() * bin_hz
+    return torch.sort(torch.stack(peaks)).values.float() * bin_hz
+
+
+def _freq_est_step(cfg: FSKConfig, fft_est, new_samps, nin, consts):
+    """One frame of fsk_demod_freq_est: per-Ndft-block Hann window -> DFT ->
+    band-masked |.| -> EMA; then M first-max peak picks with +/-f_zero
+    blanking on a copy of the EMA; ascending sort; bin -> Hz."""
+    fft_est = _est_ema(cfg, fft_est, _est_mags(cfg, new_samps, nin, consts),
+                       nin)
+    return fft_est, _est_peaks(cfg, fft_est, consts)
 
 
 def _fma(a, b, c) -> torch.Tensor:
@@ -404,33 +422,40 @@ def _fmod_floor(x: torch.Tensor, y: float) -> torch.Tensor:
     return torch.where((r != 0) & ((r < 0) != (y < 0)), r + y, r)
 
 
-def _demod_frame(cfg: FSKConfig, state: DemodState, stream, new_blocks,
-                 consts):
-    """Demodulate one frame (fsk2_demod, fsk.c:679-1108).
+def _tone_phases(cfg: FSKConfig, f_prev, phi, f_new, nin):
+    """The latched tones, the downconvert's start phase theta0 (M, 1) and
+    the next frame's carrier phases, from the frame before's tones f_prev
+    and phases phi."""
+    S = cfg.Ts // cfg.P
+    latched = torch.where(f_prev[0] < 1.0, f_new, f_prev)
+    inv_fs = np.float32(1.0 / cfg.Fs)
+    two_pi = np.float32(TWO_PI)
+    two_pi_fs = two_pi * inv_fs
+    noldf = (cfg.Nmem - nin).float()
+    theta0 = _fma(-(two_pi * (noldf - S) * latched[:, None]), inv_fs,
+                  phi[:, None])
+    phi_next = _fmod_floor(
+        _fma(two_pi_fs, _fma(latched, noldf, f_new * (nin.float() - S)),
+             theta0[:, 0]),
+        float(two_pi))
+    return latched, theta0, phi_next
 
-    stream: (Nmem,) complex64 = [history | the nin fresh samples].
-    new_blocks: (max_fft_blocks*Ndft,) complex64 fresh samples for the
-            frequency estimator.
-    """
-    Ts, P, M, Nsym, Nmem = cfg.Ts, cfg.P, cfg.M, cfg.Nsym, cfg.Nmem
-    S = Ts // P
-    nin = state.nin
-    nold = Nmem - nin
 
-    fft_est, f_new = _freq_est_step(cfg, state.fft_est, new_blocks, nin,
-                                    consts)
-    latched = torch.where(state.f_est[0] < 1.0, f_new, state.f_est)
+def _demod_body(cfg: FSKConfig, stream, latched, f_new, theta0, nin, consts):
+    """Downconvert, integrate-and-dump, timing and decisions of one frame
+    -> (fi_re, fi_im, norm_rx_timing, nin_next, soft, bits, ebno_db, high,
+    rx_timing)."""
+    Ts, P, M, Nsym = cfg.Ts, cfg.P, cfg.M, cfg.Nsym
+    noldf = (cfg.Nmem - nin).float()
 
     # downconvert: old samples at the latched estimate, new samples at this
     # frame's estimate, phase-continuous
     inv_fs = np.float32(1.0 / cfg.Fs)
     two_pi = np.float32(TWO_PI)
     two_pi_fs = two_pi * inv_fs
-    noldf = nold.float()
     f_old = latched[:, None]
     f_cur = f_new[:, None]
     t = consts["t"]
-    theta0 = _fma(-(two_pi * (noldf - S) * f_old), inv_fs, state.phi[:, None])
     ang = _fma(two_pi_fs, _fma(f_cur, torch.clamp(t - noldf, min=0.0),
                                f_old * torch.minimum(t, noldf)),
                theta0)
@@ -439,11 +464,6 @@ def _demod_frame(cfg: FSKConfig, state: DemodState, stream, new_blocks,
     # stream * e^{-j ang}
     d_re = sr * cos_a + si * sin_a
     d_im = si * cos_a - sr * sin_a
-
-    phi_next = _fmod_floor(
-        _fma(two_pi_fs, _fma(latched, noldf, f_new * (nin.float() - S)),
-             theta0[:, 0]),
-        float(two_pi))
 
     # integrate-and-dump at P phases: window sums of length Ts at stride
     # Ts/P as one banded matmul, real and imaginary rows stacked
@@ -458,12 +478,6 @@ def _demod_frame(cfg: FSKConfig, state: DemodState, stream, new_blocks,
     tc_im = torch.sum(ft1.double() * consts["spin_im"].double()).float()
     norm_rx_timing = compat.atan2(tc_im, tc_re) / two_pi
     rx_timing = norm_rx_timing * P
-
-    # clock-offset ppm IIR, gated on jumps
-    d_norm = norm_rx_timing - state.norm_rx_timing
-    appm = 1e6 * d_norm / Nsym
-    ppm = torch.where(torch.abs(d_norm) < 0.2,
-                      0.9 * state.ppm + 0.1 * appm, state.ppm)
 
     # elastic nin for the next frame
     nin_next = torch.where(
@@ -501,6 +515,40 @@ def _demod_frame(cfg: FSKConfig, state: DemodState, stream, new_blocks,
     stde = torch.mean(win) - meane * meane
     stde = torch.sqrt(torch.clamp(stde, min=0.0))
     ebno_db = -6 + 20 * torch.log10((1e-6 + meane) / (1e-6 + stde))
+    return (fi_re, fi_im, norm_rx_timing, nin_next, soft, bits, ebno_db,
+            high, rx_timing)
+
+
+def _ppm_step(cfg: FSKConfig, norm_prev, ppm, norm_rx_timing):
+    """The clock-offset ppm IIR, gated on jumps of the timing."""
+    d_norm = norm_rx_timing - norm_prev
+    appm = 1e6 * d_norm / cfg.Nsym
+    return torch.where(torch.abs(d_norm) < 0.2, 0.9 * ppm + 0.1 * appm, ppm)
+
+
+def _demod_frame(cfg: FSKConfig, state: DemodState, stream, new_blocks,
+                 consts):
+    """Demodulate one frame (fsk2_demod, fsk.c:679-1108).
+
+    stream: (Nmem,) complex64 = [history | the nin fresh samples].
+    new_blocks: (max_fft_blocks*Ndft,) complex64 fresh samples for the
+            frequency estimator.
+
+    The frame's pieces: the estimator blocks' magnitudes (`_est_mags`),
+    the EMA (`_est_ema`) and its peaks (`_est_peaks`), the tones' phases
+    (`_tone_phases`), the demod proper (`_demod_body`), the ppm IIR
+    (`_ppm_step`) and the SNR average; the frame-parallel kernel's design
+    test composes them in the kernel's schedule.
+    """
+    nin = state.nin
+    fft_est, f_new = _freq_est_step(cfg, state.fft_est, new_blocks, nin,
+                                    consts)
+    latched, theta0, phi_next = _tone_phases(cfg, state.f_est, state.phi,
+                                             f_new, nin)
+    (fi_re, fi_im, norm_rx_timing, nin_next, soft, bits, ebno_db, high,
+     rx_timing) = _demod_body(cfg, stream, latched, f_new, theta0, nin,
+                              consts)
+    ppm = _ppm_step(cfg, state.norm_rx_timing, state.ppm, norm_rx_timing)
     snr_est = 0.5 * state.snr_est + 0.5 * ebno_db
 
     new_state = DemodState(
