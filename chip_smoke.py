@@ -1851,7 +1851,7 @@ def apps_phase(cfg, path, sent, want_jpg, tmp, smi):
 
 def pipelined_phase(cfg1, cfg2, dev, smi):
     """pipelined: on v2 and v1 captures of TOOL_PP_SECONDS (pp_breakdown's),
-    `rx.pipeline.stream_step` on one push under
+    `rx.pipeline.stream_step_lanes` on one lane of one push under
     torch.cuda.set_sync_debug_mode("error"), with and without the eye
     probe (its packed vector equal to a call outside the mode); one push's
     pageable host-to-device copy timed; pp_breakdown's per-push phases;
@@ -1870,19 +1870,23 @@ def pipelined_phase(cfg1, cfg2, dev, smi):
         push = raw[:step].reshape(-1, 2)
         data = torch.from_numpy(push).to(dev)
         n, nf = data.shape[0], cfg.num_frames(data.shape[0])
+        starts = torch.zeros(1, dtype=torch.int64, device=dev)
+        n_valid = torch.full((1,), n, dtype=torch.int64, device=dev)
         for with_eye in (False, True):
-            state = fsk.demod_init(cfg, dev)
-            want = pipeline.stream_step(cfg, data, state, n, "cu8", nf,
-                                        with_eye)[1]
+            state = fsk.lane_state(fsk.demod_init(cfg, dev), 1)
+            want = pipeline.stream_step_lanes(cfg, data, state, starts,
+                                              n_valid, "cu8", nf, with_eye)[1]
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                got = pipeline.stream_step(cfg, data, state, n, "cu8", nf,
-                                           with_eye)[1]
+                got = pipeline.stream_step_lanes(cfg, data, state, starts,
+                                                 n_valid, "cu8", nf,
+                                                 with_eye)[1]
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             require(torch.equal(got, want),
-                    f"pipelined {mode}: stream_step differs between calls")
+                    f"pipelined {mode}: stream_step_lanes differs between "
+                    f"calls")
         h2d = []
         for _ in range(5):
             torch.cuda.synchronize()

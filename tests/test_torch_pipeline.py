@@ -1,8 +1,9 @@
 """PyTorch port of the streaming Receiver (wenet_tpu_torch.rx.pipeline) on
 the CPU against the JAX Receiver on the same bytes, v2 and v1: payload
 lists and frames/detections/crc_ok are identical for c64 one-shot, cu8 and
-cs16 push, unaligned streaming and pipelined mode; `stream_step` queues its
-work without reading a device value on the host; plus the CLI."""
+cs16 push, unaligned streaming and pipelined mode; `stream_step_lanes` on
+one lane queues its work without reading a device value on the host; plus
+the CLI."""
 import functools
 import os
 import subprocess
@@ -21,7 +22,7 @@ from wenet_tpu.rx.stats import receiver_stats_record as jax_stats_record
 from wenet_tpu_torch.ops import fsk as tfsk
 from wenet_tpu_torch.ops import ldpc
 from wenet_tpu_torch.rx.pipeline import (Receiver, receiver_stats_record,
-                                         stream_step)
+                                         stream_step_lanes)
 
 torch.set_num_threads(1)
 
@@ -105,13 +106,18 @@ def test_raw_push_matches_jax(fmt):
     assert len(want) == 5
 
 
-@pytest.mark.parametrize("mode", ["v2", "v1"])
-def test_unaligned_streaming_equals_oneshot(mode):
+@pytest.mark.parametrize("mode,subframe", [("v2", False), ("v1", False),
+                                           ("v2", True)],
+                         ids=["v2", "v1", "v2-subframe"])
+def test_unaligned_streaming_equals_oneshot(mode, subframe):
+    """Pushes of 37 frames and 13 samples, or (subframe) of a third of a
+    frame, each short push carried on the device until a frame fits."""
     iq, _ = _capture(mode)
     rx = _port(mode)
-    chunk = 37 * rx.cfg.N + 13
+    chunk = rx.cfg.N // 3 if subframe else 37 * rx.cfg.N + 13
     assert _push_all(rx, iq, chunk) == _jax_oneshot(mode)[0]
     assert _stats(rx) == _jax_oneshot(mode)[1]
+    assert rx.stats.samples == len(iq)
 
 
 class _OpLog(TorchDispatchMode):
@@ -133,23 +139,24 @@ HOST_SYNCS = {"aten._local_scalar_dense", "aten.item", "aten.nonzero"}
 @pytest.mark.parametrize("mode,with_eye", [("v2", False), ("v1", True)])
 def test_stream_step_does_not_wait_for_the_device(mode, with_eye,
                                                   monkeypatch):
-    """Under a TorchDispatchMode, stream_step issues no op that reads a
-    device value on the host: the demod is stubbed with its recorded
-    output (the plain loop reads n_valid on the host; the kernel does
-    not), so only the ops of rx/pipeline.py are seen.  The packed vector
+    """Under a TorchDispatchMode, stream_step_lanes on one lane issues no
+    op that reads a device value on the host: the demod is stubbed with
+    its recorded output (the plain loop reads n_valid on the host; the
+    kernel does not), so only the ops of rx/pipeline.py are seen.  The packed vector
     keeps its layout: the stats are the last valid frame's."""
     cfg = tfsk.FSKConfig(**GEOM[mode])
     raw = jfsk.iq_to_cu8(_capture(mode)[0])[: 2 * 40 * cfg.N]
     data = torch.from_numpy(raw.reshape(-1, 2))
     n, nf = data.shape[0], cfg.num_frames(data.shape[0])
-    state = tfsk.demod_init(cfg, "cpu")
-    recorded = tfsk.demod_raw(
-        cfg, data, "cu8", nf, torch.zeros(1, dtype=torch.int64),
-        torch.full((1,), n, dtype=torch.int64), tfsk.lane_state(state, 1),
-        with_eye)
+    state = tfsk.lane_state(tfsk.demod_init(cfg, "cpu"), 1)
+    starts = torch.zeros(1, dtype=torch.int64)
+    n_valid = torch.full((1,), n, dtype=torch.int64)
+    recorded = tfsk.demod_raw(cfg, data, "cu8", nf, starts, n_valid, state,
+                              with_eye)
     monkeypatch.setattr(tfsk, "demod_raw", lambda *a, **k: recorded)
     with _OpLog() as log:
-        final, packed = stream_step(cfg, data, state, n, "cu8", nf, with_eye)
+        final, packed = stream_step_lanes(cfg, data, state, starts, n_valid,
+                                          "cu8", nf, with_eye)
     assert log.ops and not HOST_SYNCS & set(log.ops), sorted(set(log.ops))
     with _OpLog() as probe:        # the log sees the indexing it replaced
         recorded[1].ebno_db[0][torch.tensor(0)]
@@ -165,7 +172,7 @@ def test_stream_step_does_not_wait_for_the_device(mode, with_eye,
                                   np.array(want, np.float32))
     assert packed.shape[0] == at + 4 + cfg.M + (
         2 * cfg.M * (cfg.Nsym + 1) * cfg.P + 1 if with_eye else 0)
-    assert torch.equal(final.pos, recorded[0].pos[0])
+    assert torch.equal(final.pos[0], recorded[0].pos[0])
 
 
 @pytest.mark.parametrize("mode", ["v2", "v1"])

@@ -1,18 +1,17 @@
 """Streaming RX pipeline: IQ samples -> CRC-verified 256-byte packets
 (counterpart of the streaming half of wenet_tpu/rx/pipeline.py).
 
-`Receiver.push` moves the raw chunk (cu8/cs16 bytes or complex64 pairs) to
-the device, converts it there, runs the frame-loop demod with the carried
-`DemodState`, and fetches the soft bits, validity and last-frame stats as
-one packed array.  The host then runs the UW FSM and sends the candidate
-windows as one batch through the device decoder (`ops.deframe`).  Chunked
-pushes equal one-shot decoding, as in the reference.
-
-`WidebandReceiver.push` does the same for a band of N channels as it
-streams in: the streaming channelizer (`ops.channelizer`) on the device,
-the channels as lanes of one demod call (`stream_step_lanes`), a UW FSM a
-channel and one decode batch for all of them on the host.  Both share the
-stages of `_Stages` and their clocks (`utils.spans`).
+Both streaming receivers are fronts of one core (`_Stages`): a push's new
+samples go to the device without blocking, each lane's carried samples
+and `DemodState` stay there, one frame-loop demod call runs over all
+lanes, and the soft bits, validity and last-frame stats come back as one
+packed array; the host then runs a UW FSM a lane and sends the candidate
+windows of all lanes as one batch through the device decoder
+(`ops.deframe`).  `Receiver` is its one-lane case: the raw chunk (cu8/cs16
+bytes or complex64 pairs) converted in the demod.  `WidebandReceiver` is
+its case of N lanes: a band's channels, made as it streams in by the
+streaming channelizer (`ops.channelizer`).  Chunked pushes equal one-shot
+decoding, as in the reference.
 """
 from __future__ import annotations
 
@@ -49,13 +48,19 @@ _RAW_DTYPES = {fmt: INPUT_CONVERTERS[fmt][1] for fmt in ("cu8", "cs16",
 _TORCH_DTYPES = {np.uint8: torch.uint8, np.int16: torch.int16,
                  np.float32: torch.float32}
 
+# pushes of up to this many bytes are staged by one host thread: torch's
+# copy splits a copy over its intra-op threads, which left stalls of 10-25
+# ms in the slowest 5 % of a flight push's stages (a 3.8-MB push; H100
+# host, 8 cores); a band's 30.7-MB push needs those threads to keep pace
+_STAGE_ONE_THREAD = 1 << 23
+
 # the Receiver's stage clocks (`utils.spans`), in the order a chunk meets
 # them, and the totals they add to
 DEMOD_STAGES = ("rx.buffer", "rx.copy_in", "rx.launch", "rx.wait",
                 "rx.retire")
 DEFRAME_STAGES = ("rx.fetch",) + deframe.STAGES
-# the wideband receiver's: the band history, the channelizer and the lane
-# buffer's assembly after the copy in
+# the wideband receiver's: the band history and the channelizer after the
+# copy in
 WIDEBAND_DEMOD_STAGES = ("rx.buffer", "rx.copy_in", "rx.channelize",
                          "rx.launch", "rx.wait", "rx.retire")
 
@@ -75,38 +80,21 @@ class RxStats:
         return (self.detections - self.crc_ok) / max(self.detections, 1)
 
 
-def stream_step(cfg: fsk.FSKConfig, data: torch.Tensor, state: fsk.DemodState,
-                n_valid: int, fmt: str, nf: int, with_eye: bool = False):
-    """One push on the device: ingest conversion + demod of `nf` frames.
-
-    data: (n, 2) raw pairs (uint8 cu8, int16 cs16 or float32 re/im).
-    Returns (final state, packed) where packed is one float32 vector
-    [soft (nf*Nbits) | valid (nf) | ebno, ppm, n_valid_frames, last, f_est]
-    — the host needs exactly one copy of it.  with_eye appends the last
-    valid frame's eye probe: [f_int re (M*NP) | f_int im | high_sample].
-    `stream_step_lanes` with one lane.
-
-    Nothing here waits for the device: the last valid frame's stats are
-    taken with device-side gathers, so on a card the call only queues work.
-    """
-    dev = data.device
-    final, packed = stream_step_lanes(
-        cfg, data, fsk.lane_state(state, 1),
-        torch.zeros(1, dtype=torch.int64, device=dev),
-        torch.full((1,), n_valid, dtype=torch.int64, device=dev), fmt, nf,
-        with_eye)
-    return fsk.DemodState(*(t[0] for t in final)), packed
-
-
 def stream_step_lanes(cfg: fsk.FSKConfig, data: torch.Tensor,
                       state: fsk.DemodState, starts: torch.Tensor,
                       n_valid: torch.Tensor, fmt: str, nf: int,
                       with_eye: bool = False):
-    """`stream_step` over L lanes of one raw buffer (`ops.fsk.demod_raw`'s
-    starts, n_valid and lane-stacked state) -> (final lane-stacked state,
-    packed), packed being [soft (L, nf, Nbits) | valid (L, nf) | the L
+    """One push on the device: the demod of `nf` frames on L lanes of one
+    raw buffer (`ops.fsk.demod_raw`'s data, starts, n_valid and
+    lane-stacked state) -> (final lane-stacked state, packed), packed
+    being one float32 vector [soft (L, nf, Nbits) | valid (L, nf) | the L
     lanes' stats rows (ebno, ppm, n_valid_frames, last, f_est) | with_eye
-    f_int re (L, M, NP) | f_int im | high_sample (L)], read by `_unpack`."""
+    f_int re (L, M, NP) | f_int im | high_sample (L)], read by `_unpack`:
+    the host needs exactly one copy of it.
+
+    Nothing here waits for the device: the last valid frame's stats are
+    taken with device-side gathers, so on a card the call only queues work.
+    """
     dev = data.device
     res = fsk.demod_raw(cfg, data, fmt, nf, starts, n_valid, state, with_eye)
     final, outs = res[:2]
@@ -162,17 +150,16 @@ def _count(st: RxStats, row: np.ndarray, n_new: int) -> int:
 
 
 class _InFlight(NamedTuple):
-    """A chunk whose demod is queued: the carry on the device, the packed
-    vector and (pos, nin) (on a card, pinned host copies that are whole
-    once `done` has fired), the frame count, the buffer the demod read
-    (the raw chunk with its history; the wideband receiver's lane tensor)
-    and the new samples it holds (a lane's, for the wideband receiver)."""
+    """A push whose demod is queued: the carry on the device, the packed
+    vector and the lanes' pos (on a card, pinned host copies that are
+    whole once `done` has fired), the frame count, the lane buffer the
+    demod read and the new samples a lane it holds."""
     final: fsk.DemodState
     packed: torch.Tensor
-    pos_nin: torch.Tensor
+    pos: torch.Tensor
     done: torch.cuda.Event | None
     nf: int
-    buf: np.ndarray | torch.Tensor
+    buf: torch.Tensor
     n_new: int
 
 
@@ -184,21 +171,63 @@ def _to_host_async(t: torch.Tensor) -> torch.Tensor:
 
 
 class _Stages:
-    """What the streaming receivers share: the chunk as raw units, the
-    device work on the receiver's own CUDA stream, the copies of a push's
-    packed result and carry behind it, and the wait for them, each under
-    the stage clock (`utils.spans`) of `seconds` it belongs to."""
+    """The streaming core of both receivers: L lanes, each a stream of
+    samples demodulated as it arrives, with a `StreamDeframer` a lane.
 
-    def __init__(self, device, input_format: str, stages: tuple):
+    A push: the chunk as the input format's raw units (`rx.buffer`),
+    staged through a pinned buffer kept across pushes and copied to the
+    card without blocking (`rx.copy_in`), the front's new samples a lane
+    (`_new_samples`), then the lane buffer, one `stream_step_lanes` call
+    over all lanes with the lane-stacked `DemodState`, and non-blocking
+    copies of its packed result and of the lanes' pos behind it
+    (`rx.launch`); the wait for those copies (`rx.wait`) and the carry's
+    retire (`rx.retire`); then the host half: the packed vector unpacked
+    into each lane's `RxStats`, eye probe and valid soft bits
+    (`rx.fetch`), each lane's UW FSM and the candidates of all lanes in
+    one decode batch (`ops.deframe`).  Serial, a push does all of it;
+    pipelined, it retires the push in flight, queues its own device work
+    and then does the retired push's host half while the device works
+    (`flush` does the last one's).  On a card the device work goes on the
+    receiver's own CUDA stream, so a decode on the current stream runs
+    beside it.  Each stage is clocked in `seconds` (`utils.spans`).
+
+    A lane's carry is its last Nmem samples before its next fresh sample
+    and the samples it has not consumed, right-aligned in a (L, C, 2)
+    device tensor of the demod's input pairs, C the longest lane's (at
+    most Nmem + N + Ts / 2: the demod takes every frame that fits).  The
+    lane buffer is each lane's carry followed by its F new samples, so
+    lane l starts at l * (C + F) + C - c and holds c + F valid samples, c
+    being its carry's length; its `DemodState.pos` counts from that
+    start.
+    """
+
+    def __init__(self, mode: str, cfg: fsk.FSKConfig, lanes: int,
+                 input_format: str, demod_format: str, max_iter: int,
+                 with_eye: bool, pipelined: bool, device, stages: tuple):
         if input_format not in _RAW_DTYPES:
             raise ValueError("input_format must be 'c64', 'cu8' or 'cs16'")
         self.device = resolve_device(device)
+        self.mode, self.cfg = mode, cfg
         self.input_format = input_format
-        self._width = 2 if input_format in ("cu8", "cs16") else 1
+        self._fmt = demod_format
+        self.with_eye = with_eye
+        self.pipelined = pipelined
         self.seconds = dict.fromkeys(("demod", "deframe") + stages, 0.0)
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
-        self._pending = None         # the chunk in flight, when pipelined
+        self._pending = None         # the push in flight, when pipelined
+        self.deframers = [deframe.StreamDeframer(mode, max_iter=max_iter,
+                                                 device=self.device,
+                                                 clocks=self.seconds)
+                          for _ in range(lanes)]
+        self.bp_windows = [0] * lanes
+        self._stats = [RxStats() for _ in range(lanes)]
+        self._eyes = [None] * lanes  # (f_int (M, (Nsym+1)P) complex64, high)
+        self._state = None           # lane-stacked DemodState, lazily
+        self._carry = None           # (L, C, 2) on the device, lazily
+        self._c = np.zeros(lanes, np.int64)      # samples a lane carries
+        self._pos = np.zeros(lanes, np.int64)    # its next fresh sample there
+        self._pinned = None          # the pushes' host staging buffer
 
     def _on_stream(self):
         """The context in which this receiver's device work is queued: its
@@ -207,35 +236,13 @@ class _Stages:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
 
-    def _units(self, chunk) -> np.ndarray:
-        """A chunk as the input format's raw units, whole samples only."""
-        chunk = np.asarray(chunk, _RAW_DTYPES[self.input_format])
-        if self._width == 2:
-            chunk = chunk[: 2 * (len(chunk) // 2)]
-        return chunk
-
-    def _queue_out(self, packed: torch.Tensor, pos_nin: torch.Tensor):
-        """On a card, non-blocking copies of the packed result and of pos
-        and nin into pinned memory behind the demod, and the event that
-        marks them whole -> (packed, pos_nin, event or None)."""
-        if self._stream is None:
-            return packed, pos_nin, None
-        packed, pos_nin = _to_host_async(packed), _to_host_async(pos_nin)
-        done = torch.cuda.Event()
-        done.record(self._stream)
-        return packed, pos_nin, done
-
-    def _wait(self, inflight: _InFlight):
-        """Wait for a push's copies to the host."""
-        with span("rx.wait", self.seconds, "demod"):
-            if inflight.done is not None:
-                inflight.done.synchronize()
-
-    def _push_pipelined(self, chunk) -> list:
-        """Retire the chunk in flight (wait for its copies, keep its
-        carry), queue this chunk's device work, then do the host half of
-        the retired one while the device works -> the retired chunk's
-        results."""
+    def push(self, chunk) -> list:
+        """Feed samples -> the results of the push whose host half this
+        push did: its own, or, pipelined, the previous push's."""
+        if not self.pipelined:
+            inflight = self._dispatch(chunk)
+            self._retire_state(inflight)
+            return self._complete(inflight)
         prev, self._pending = self._pending, None
         if prev is not None:
             self._retire_state(prev)
@@ -243,16 +250,132 @@ class _Stages:
         return [] if prev is None else self._complete(prev)
 
     def flush(self) -> list:
-        """End of stream: the results of the chunk in flight, if any."""
+        """End of stream: the results of the push in flight, if any."""
         prev, self._pending = self._pending, None
         if prev is None:
             return []
         self._retire_state(prev)
         return self._complete(prev)
 
+    def _dispatch(self, chunk) -> _InFlight:
+        """Queue a push's device work: the copy in, the front's new
+        samples, the demod of every lane's carry and new samples, and the
+        copies of the packed result and of the lanes' pos to the host."""
+        cfg, clocks, L = self.cfg, self.seconds, len(self.deframers)
+        with span("rx.buffer", clocks, "demod"):
+            data = np.ascontiguousarray(chunk, _RAW_DTYPES[self.input_format])
+            if self.input_format == "c64":
+                data = data.view(np.float32).reshape(-1, 2)
+            else:                               # whole samples only
+                data = data[: 2 * (len(data) // 2)]
+        with span("rx.copy_in", clocks, "demod"), self._on_stream():
+            x = self._staged(data)
+        new = self._new_samples(x)
+        with span("rx.launch", clocks, "demod"), self._on_stream():
+            if self._state is None:
+                self._state = fsk.lane_state(fsk.demod_init(cfg, self.device),
+                                             L)
+                self._carry = new.new_zeros((L, 0, 2))
+            C, F = self._carry.shape[1], new.shape[1]
+            lanes = torch.cat([self._carry, new], dim=1)
+            n_valid = self._c + F
+            args = torch.as_tensor(
+                np.stack([np.arange(L) * (C + F) + C - self._c, n_valid]),
+                dtype=torch.int64, device=self.device)
+            nf = cfg.num_frames(int((n_valid - self._pos).max()))
+            final, packed = stream_step_lanes(
+                cfg, lanes.reshape(-1, 2), self._state, args[0], args[1],
+                self._fmt, nf, self.with_eye)
+            if self._stream is None:
+                pos, done = final.pos, None
+            else:
+                packed, pos = _to_host_async(packed), _to_host_async(final.pos)
+                done = torch.cuda.Event()
+                done.record(self._stream)
+        return _InFlight(final, packed, pos, done, nf, lanes, F)
+
+    def _staged(self, data: np.ndarray) -> torch.Tensor:
+        """The push's samples on the device.  On a card they go through a
+        pinned buffer kept across pushes (filled by one host thread up to
+        `_STAGE_ONE_THREAD` bytes, else by torch's threads), and the copy
+        to the card is queued without blocking: the next push refills the
+        buffer only after this one's wait, which follows the copy on the
+        stream."""
+        with warnings.catch_warnings():    # read-only input bytes:
+            warnings.simplefilter("ignore", UserWarning)  # only read
+            src = torch.from_numpy(data)
+        if self._stream is None:
+            return src.to(self.device)
+        n = src.numel()
+        if self._pinned is None or self._pinned.numel() < n:
+            self._pinned = torch.empty(n, dtype=src.dtype, pin_memory=True)
+        staged = self._pinned[:n].view(src.shape)
+        if data.nbytes <= _STAGE_ONE_THREAD:
+            staged.numpy()[...] = data
+        else:
+            staged.copy_(src)
+        return staged.to(self.device, non_blocking=True)
+
+    def _retire_state(self, inflight: _InFlight):
+        """Wait for the push's copies; each lane keeps its last Nmem
+        samples before its next fresh sample and those not consumed."""
+        with span("rx.wait", self.seconds, "demod"):
+            if inflight.done is not None:
+                inflight.done.synchronize()
+        with span("rx.retire", self.seconds, "demod"):
+            end = np.asarray(inflight.pos, np.int64)
+            keep = np.minimum(end, self.cfg.Nmem)
+            self._c = keep + self._c + inflight.n_new - end
+            self._pos = keep
+            width = inflight.buf.shape[1]
+            with self._on_stream():
+                self._carry = inflight.buf[
+                    :, width - int(self._c.max()):].clone()
+                self._state = inflight.final._replace(pos=torch.as_tensor(
+                    keep, dtype=torch.int32, device=self.device))
+
+    def _complete(self, inflight: _InFlight) -> list:
+        """The host half of a retired push: each lane's soft bits through
+        its UW FSM, the candidates of all lanes through one decode batch
+        -> the front's results."""
+        clocks = self.seconds
+        with span("rx.fetch", clocks, "deframe"):
+            softs = self._fetch(inflight)
+        found = [d.detect(s) for d, s in zip(self.deframers, softs)]
+        if len(self.deframers) == 1:
+            decoded = [self.deframers[0].decode(found[0][1])]
+        else:
+            decoded = deframe.decode_streams(self.deframers,
+                                             [f[1] for f in found])
+        with span("deframe.consume", clocks, "deframe"):
+            got = []
+            for i, (d, (hard, pos, stale), (pkts, ok)) in enumerate(
+                    zip(self.deframers, found, decoded)):
+                self.bp_windows[i] += len(pos)
+                got.append(d.consume(hard, pos, stale, pkts, ok))
+                self._stats[i].detections = d.n_detections
+                self._stats[i].crc_ok = d.n_crc_ok
+            return self._results(got)
+
+    def _fetch(self, inflight: _InFlight) -> list:
+        """The packed array on the host -> each lane's valid frames' soft
+        bits, with its stats and eye probe taken in (a push without a
+        valid frame keeps the lane's earlier probe)."""
+        L = len(self.deframers)
+        soft, valid, stats, eye = _unpack(inflight.packed.cpu().numpy(),
+                                          self.cfg, L, inflight.nf,
+                                          self.with_eye)
+        for i in range(L):
+            if _count(self._stats[i], stats[i], inflight.n_new) \
+                    and eye is not None:
+                self._eyes[i] = (eye[0][i], int(eye[1][i]))
+        return [soft[i][valid[i]].reshape(-1) for i in range(L)]
+
 
 class Receiver(_Stages):
-    """Streaming Wenet receiver (one logical channel).
+    """Streaming Wenet receiver (one logical channel): the core's one-lane
+    case, whose new samples are the pushed chunk itself, handed to the
+    demod in the input format (raw formats convert on the device).
 
     Args:
       mode: 'v1' or 'v2' (modem geometry and deframer variant)
@@ -273,6 +396,11 @@ class Receiver(_Stages):
         valid frame) for the eye diagram of `receiver_stats_record`
       device: 'cuda' (default) or 'cpu'; CUDA without a card raises
 
+    `push` feeds samples (complex64, or raw u8/s16 IQ for cu8/cs16
+    receivers) and returns the newly completed CRC-valid payloads (from
+    the previous chunk when pipelined).  `state` is the carried
+    `DemodState` (None before the first push), `stats` an `RxStats`.
+
     `seconds` accumulates host wall time a stage (`DEMOD_STAGES`,
     `DEFRAME_STAGES`) and their sums: "demod" (buffer, copy in, launch,
     the wait for the device, carry retire) and "deframe" (fetch, UW FSM,
@@ -284,24 +412,40 @@ class Receiver(_Stages):
                  estimator_limits: tuple | None = None, max_iter: int = 10,
                  pipelined: bool = False, input_format: str = "c64",
                  with_eye: bool = False, device="cuda"):
-        super().__init__(device, input_format, DEMOD_STAGES + DEFRAME_STAGES)
-        self.mode = mode
-        self.with_eye = with_eye
-        self.last_eye = None      # (f_int (M, (Nsym+1)P) complex64, high)
         base = MODE_CONFIGS[mode] if cfg is None else cfg
         if estimator_limits is not None:
             base = dataclasses.replace(
                 base, est_min=estimator_limits[0], est_max=estimator_limits[1])
-        self.cfg = base
-        self.deframer = deframe.StreamDeframer(mode, max_iter=max_iter,
-                                               device=self.device,
-                                               clocks=self.seconds)
-        self.state = None            # DemodState on the device, lazily
-        self._pos = 0                # host copies of state.pos / state.nin
-        self._nin = self.cfg.N
-        self._history = np.zeros(0, _RAW_DTYPES[input_format])
-        self.stats = RxStats()
-        self.pipelined = pipelined
+        super().__init__(mode, base, 1, input_format, input_format, max_iter,
+                         with_eye, pipelined, device,
+                         DEMOD_STAGES + DEFRAME_STAGES)
+
+    @property
+    def deframer(self) -> deframe.StreamDeframer:
+        return self.deframers[0]
+
+    @property
+    def stats(self) -> RxStats:
+        return self._stats[0]
+
+    @property
+    def last_eye(self):
+        """(f_int (M, (Nsym+1)P) complex64, high_sample) of the last valid
+        frame, or None."""
+        return self._eyes[0]
+
+    @property
+    def state(self) -> fsk.DemodState | None:
+        """The carried DemodState on the device (unbatched)."""
+        if self._state is None:
+            return None
+        return fsk.DemodState(*(t[0] for t in self._state))
+
+    def _new_samples(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(1, x.numel() // 2, 2)
+
+    def _results(self, got: list) -> list:
+        return got[0]
 
     # ------------------------------------------------------------- one-shot
 
@@ -318,90 +462,6 @@ class Receiver(_Stages):
             return self.decode_iq(raw)          # device-side conversion
         return self.decode_iq(conv(raw))
 
-    # ------------------------------------------------------------ streaming
-
-    def _dispatch(self, chunk: np.ndarray):
-        """Queue the demod of a chunk on the device, then the copies of its
-        packed result and of its carry's pos and nin to the host behind
-        it; returns the in-flight record, or None if not enough samples
-        are buffered yet.  On a card all of it goes on the receiver's own
-        stream, so the previous chunk's decode on the current stream does
-        not queue behind this demod."""
-        cfg, w, clocks = self.cfg, self._width, self.seconds
-        with span("rx.buffer", clocks, "demod"):
-            chunk = self._units(chunk)
-            buf = np.concatenate([self._history, chunk])
-            n_samples = len(buf) // w
-            nf = cfg.num_frames(max(n_samples - self._pos, 0))
-            if nf <= 0 or n_samples < self._nin:
-                self._history = buf
-                return None
-            if self.input_format == "c64":
-                data = buf.view(np.float32).reshape(-1, 2)
-            else:
-                data = buf.reshape(-1, 2)
-        with span("rx.copy_in", clocks, "demod"), self._on_stream():
-            if self.state is None:
-                self.state = fsk.demod_init(cfg, self.device)
-            # a pageable copy: it waits for this stream, idle here
-            data_t = torch.from_numpy(data).to(self.device)
-        with span("rx.launch", clocks, "demod"), self._on_stream():
-            final, packed = stream_step(cfg, data_t, self.state, n_samples,
-                                        self.input_format, nf, self.with_eye)
-            packed, pos_nin, done = self._queue_out(
-                packed, torch.stack([final.pos, final.nin]))
-        return _InFlight(final, packed, pos_nin, done, nf, buf,
-                         len(chunk) // w)
-
-    def _retire_state(self, inflight: _InFlight):
-        """Fold the in-flight chunk's carry back: wait for its copies, take
-        pos and nin on the host; the rest of the state stays on the
-        device."""
-        self._wait(inflight)
-        with span("rx.retire", self.seconds, "demod"):
-            end_pos, nin = (int(v) for v in inflight.pos_nin)
-            keep = min(end_pos, self.cfg.Nmem)
-            self._history = inflight.buf[(end_pos - keep) * self._width:]
-            with self._on_stream():
-                self.state = inflight.final._replace(pos=torch.full(
-                    (), keep, dtype=torch.int32, device=self.device))
-            self._pos, self._nin = keep, nin
-
-    def _complete(self, inflight: _InFlight) -> list:
-        """Host-side half of a retired chunk: its packed array, then
-        deframe, batch decode and CRC."""
-        d, clocks = self.deframer, self.seconds
-        with span("rx.fetch", clocks, "deframe"):
-            soft = self._fetch(inflight.packed, inflight.nf, inflight.n_new)
-        hard, positions, stale = d.detect(soft)
-        pkts, ok = d.decode(positions)
-        with span("deframe.consume", clocks, "deframe"):
-            payloads = d.consume(hard, positions, stale, pkts, ok)
-            self.stats.detections = d.n_detections
-            self.stats.crc_ok = d.n_crc_ok
-        return payloads
-
-    def _fetch(self, packed: torch.Tensor, nf: int, n_new: int):
-        """The packed array on the host: the valid frames' soft bits, with
-        the stats and the eye probe taken in."""
-        soft, valid, stats, eye = _unpack(packed.cpu().numpy(), self.cfg, 1,
-                                          nf, self.with_eye)
-        if _count(self.stats, stats[0], n_new) and eye is not None:
-            self.last_eye = (eye[0][0], int(eye[1][0]))  # last valid frame's
-        return soft[0][valid[0]].reshape(-1)
-
-    def push(self, chunk: np.ndarray) -> list:
-        """Feed samples (complex64, or raw u8/s16 IQ for cu8/cs16
-        receivers); returns newly completed CRC-valid payloads (from the
-        previous chunk when pipelined)."""
-        if self.pipelined:
-            return self._push_pipelined(chunk)
-        inflight = self._dispatch(chunk)
-        if inflight is None:
-            return []
-        self._retire_state(inflight)
-        return self._complete(inflight)
-
 
 class WidebandReceiver(_Stages):
     """Streaming wideband receiver: one band of n_channels channels of the
@@ -412,27 +472,17 @@ class WidebandReceiver(_Stages):
     channelizer kernel, or complex64) and returns the (channel, payload)
     pairs that the previous push completed, in channel order and each
     channel's in stream order; `flush` returns the last push's.  The
-    receiver is pipelined, as `Receiver(pipelined=True)`: a push retires
-    the previous push's device work, queues its own, then does the
-    previous push's host half while the device works, so the card is not
-    left idle through the host deframe.  On the device: the band history
-    and the channelizer
-    (`ops.channelizer.StreamingChannelizer`), then the selected channels
-    written into one lane buffer after each lane's carry, then one demod
-    call over all lanes with the lane-stacked state (`stream_step_lanes`),
-    one packed vector and the lanes' pos and nin copied back behind it.
-    On the host: each lane's valid soft bits go to its own
-    `StreamDeframer` (the C UW FSM on a card) and the candidates of all
-    lanes through one decode batch (`ops.deframe.decode_streams`).
-
-    A lane's carry is its last Nmem samples before its next fresh sample
-    and the samples it has not consumed, right-aligned in a (L, C, 2)
-    device tensor (C = Nmem + N + Ts / 2 bounds it), so the next push's
-    lane buffer is the carry followed by the new frames and each lane's
-    start and valid count differ by its carry's length.  Each lane's
-    frames equal a `Receiver` (c64) fed that channel's samples in the same
-    pushes, and the payloads those of `ops.channelizer.demod_multichannel`
-    on the whole capture.
+    receiver is pipelined, as `Receiver(pipelined=True)`, so the card is
+    not left idle through the host deframe.  It is the core's L-lane case
+    (L the selected channels): a push's new samples a lane are the
+    channels that the streaming channelizer
+    (`ops.channelizer.StreamingChannelizer`, with its band history on the
+    device) makes of it, as float32 pairs; each lane's valid soft bits go
+    to its own `StreamDeframer` (the C UW FSM on a card) and the
+    candidates of all lanes through one decode batch
+    (`ops.deframe.decode_streams`).  Each lane's frames equal a `Receiver`
+    (c64) fed that channel's samples in the same pushes, and the payloads
+    those of `ops.channelizer.demod_multichannel` on the whole capture.
 
     Args: mode, n_channels, channels (indices in [-N, N), negative ones
     counted from the end; the pairs carry them as given; default all),
@@ -444,7 +494,8 @@ class WidebandReceiver(_Stages):
     `seconds` holds the stage clocks (`WIDEBAND_DEMOD_STAGES`,
     `DEFRAME_STAGES`, the deframe stages summed over the lanes) and their
     sums "demod" and "deframe"; `stats` an `RxStats` a lane, `bp_windows`
-    the UW candidates a lane sent to BP.
+    the UW candidates a lane sent to BP, `state` the lane-stacked
+    `DemodState`.
     """
 
     def __init__(self, mode: str = "v2", n_channels: int = 8, channels=None,
@@ -454,134 +505,35 @@ class WidebandReceiver(_Stages):
         if input_format not in ("cu8", "c64"):
             raise ValueError("input_format must be 'cu8' or 'c64'")
         from ..ops import channelizer
-        super().__init__(device, input_format,
-                         WIDEBAND_DEMOD_STAGES + DEFRAME_STAGES)
-        self.mode, self.with_eye = mode, with_eye
-        self.cfg = cfg = MODE_CONFIGS[mode] if cfg is None else cfg
         self.n_channels = int(n_channels)
         self.channels = (list(range(self.n_channels)) if channels is None
                          else [int(k) for k in channels])
+        L = len(self.channels)
+        super().__init__(mode, MODE_CONFIGS[mode] if cfg is None else cfg, L,
+                         input_format, "c64", max_iter, with_eye, True,
+                         device, WIDEBAND_DEMOD_STAGES + DEFRAME_STAGES)
         self.channelizer = channelizer.StreamingChannelizer(
             self.n_channels, self.channels, input_format)
-        L = len(self.channels)
         self._order = sorted(range(L), key=lambda i: self.channels[i])
-        self.deframers = [deframe.StreamDeframer(mode, max_iter=max_iter,
-                                                 device=self.device,
-                                                 clocks=self.seconds)
-                          for _ in range(L)]
-        self.stats = [RxStats() for _ in range(L)]
-        self.bp_windows = [0] * L
-        self.last_eye = [None] * L
-        self.state = None            # lane-stacked DemodState, lazily
-        self._carry = None           # (L, C, 2) float32 on the device
-        self._C = cfg.Nmem + cfg.N + cfg.Ts // 2
-        self._c = np.zeros(L, np.int64)      # samples a lane carries
-        self._pos = np.zeros(L, np.int64)    # its next fresh sample there
-        self._pinned = None          # the pushes' host staging buffer
 
-    def _dispatch(self, chunk) -> _InFlight:
-        """Queue a band chunk's channelizer and demod on the device, then
-        the copies of the packed result and of the lanes' pos and nin."""
-        cfg, clocks, L = self.cfg, self.seconds, len(self.channels)
-        with span("rx.buffer", clocks, "demod"):
-            data = self._units(chunk)
-            if self.input_format == "c64":
-                data = data.view(np.float32).reshape(-1, 2)
-        with span("rx.copy_in", clocks, "demod"), self._on_stream():
-            if self.state is None:
-                self.state = fsk.lane_state(fsk.demod_init(cfg, self.device),
-                                            L)
-                self._carry = torch.zeros((L, self._C, 2),
-                                          dtype=torch.float32,
-                                          device=self.device)
-            x = self._staged(data)
-        with span("rx.channelize", clocks, "demod"), self._on_stream():
-            new = self.channelizer.push(x)
-            F = new.shape[1]
-            lanes = torch.cat([self._carry, new], dim=1)
-            W = self._C + F
-            n_valid = self._c + F
-            args = torch.as_tensor(
-                np.stack([np.arange(L) * W + self._C - self._c, n_valid]),
-                dtype=torch.int64, device=self.device)
-            nf = cfg.num_frames(int((n_valid - self._pos).max()))
-        with span("rx.launch", clocks, "demod"), self._on_stream():
-            final, packed = stream_step_lanes(
-                cfg, lanes.reshape(-1, 2), self.state, args[0], args[1],
-                "c64", nf, self.with_eye)
-            packed, pos_nin, done = self._queue_out(
-                packed, torch.stack([final.pos, final.nin]))
-        return _InFlight(final, packed, pos_nin, done, nf, lanes, F)
+    @property
+    def stats(self) -> list:
+        return self._stats
 
-    def _staged(self, data: np.ndarray) -> torch.Tensor:
-        """The push's samples on the device.  On a card they go through a
-        pinned buffer kept across pushes, and the copy to the card is
-        queued without blocking: the next push refills the buffer only
-        after this one's wait, which follows the copy on the stream."""
-        with warnings.catch_warnings():    # read-only input bytes:
-            warnings.simplefilter("ignore", UserWarning)  # only read
-            src = torch.from_numpy(data)
-        if self._stream is None:
-            return src.to(self.device)
-        n = src.numel()
-        if self._pinned is None or self._pinned.numel() < n:
-            self._pinned = torch.empty(n, dtype=src.dtype, pin_memory=True)
-        staged = self._pinned[:n].view(src.shape)
-        staged.copy_(src)
-        return staged.to(self.device, non_blocking=True)
+    @property
+    def last_eye(self) -> list:
+        return self._eyes
 
-    def _retire_state(self, inflight: _InFlight):
-        """Wait for the push's copies; each lane keeps its last Nmem
-        samples before its next fresh sample and those not consumed."""
-        self._wait(inflight)
-        with span("rx.retire", self.seconds, "demod"):
-            end = np.asarray(inflight.pos_nin[0], np.int64)
-            keep = np.minimum(end, self.cfg.Nmem)
-            self._c = keep + self._c + inflight.n_new - end
-            self._pos = keep
-            if (self._c > self._C).any():
-                raise RuntimeError(f"lane carry {self._c} past {self._C}")
-            with self._on_stream():
-                self._carry = inflight.buf[:, -self._C:].clone()
-                self.state = inflight.final._replace(pos=torch.as_tensor(
-                    keep, dtype=torch.int32, device=self.device))
+    @property
+    def state(self) -> fsk.DemodState | None:
+        return self._state
 
-    def _complete(self, inflight: _InFlight) -> list:
-        """The host half: each lane's soft bits through its UW FSM, the
-        candidates of all lanes through one decode batch."""
-        clocks = self.seconds
-        with span("rx.fetch", clocks, "deframe"):
-            softs = self._fetch(inflight.packed, inflight.nf, inflight.n_new)
-        found = [d.detect(s) for d, s in zip(self.deframers, softs)]
-        decoded = deframe.decode_streams(self.deframers,
-                                         [f[1] for f in found])
-        with span("deframe.consume", clocks, "deframe"):
-            got = []
-            for i, (d, (hard, pos, stale), (pkts, ok)) in enumerate(
-                    zip(self.deframers, found, decoded)):
-                self.bp_windows[i] += len(pos)
-                got.append(d.consume(hard, pos, stale, pkts, ok))
-                self.stats[i].detections = d.n_detections
-                self.stats[i].crc_ok = d.n_crc_ok
-            return [(self.channels[i], p) for i in self._order
-                    for p in got[i]]
+    def _new_samples(self, x: torch.Tensor) -> torch.Tensor:
+        with span("rx.channelize", self.seconds, "demod"), self._on_stream():
+            return self.channelizer.push(x)
 
-    def _fetch(self, packed: torch.Tensor, nf: int, n_new: int) -> list:
-        """The packed array on the host -> each lane's valid frames' soft
-        bits, with its stats and eye probe taken in."""
-        L = len(self.channels)
-        soft, valid, stats, eye = _unpack(packed.cpu().numpy(), self.cfg, L,
-                                          nf, self.with_eye)
-        for i in range(L):
-            if _count(self.stats[i], stats[i], n_new) and eye is not None:
-                self.last_eye[i] = (eye[0][i], int(eye[1][i]))
-        return [soft[i][valid[i]].reshape(-1) for i in range(L)]
-
-    def push(self, chunk) -> list:
-        """Feed the band's raw samples (cu8 bytes, or complex64) -> the
-        (channel, payload) pairs the previous push's samples completed
-        (pipelined: this push's come with the next push or `flush`)."""
-        return self._push_pipelined(chunk)
+    def _results(self, got: list) -> list:
+        return [(self.channels[i], p) for i in self._order for p in got[i]]
 
 
 # ------------------------------------------------------ whole-capture paths

@@ -4,11 +4,12 @@ tools/pp_breakdown.py).
 Splits the steady-state pushes of a serial `rx.pipeline.Receiver` into
 phases, read from the Receiver's own stage clocks (`Receiver.seconds`,
 `utils.spans`) after real `push` calls:
-  dispatch   rx.buffer + rx.copy_in + rx.launch: build the buffer, copy it
-             to the device, queue the demod kernel and the copies of its
-             results to the host
+  dispatch   rx.buffer + rx.copy_in + rx.launch: stage the push, copy it
+             to the device, queue the demod kernel on the carry and the
+             push and the copies of its results to the host
   exec_wait  rx.wait: wait for the demod and its copies (the event)
-  retire     rx.retire: the carried state's pos and nin read on the host
+  retire     rx.retire: the carried state's pos read on the host, the
+             carry kept
   fetch      rx.fetch: the packed soft bits, validity and stats unpacked
   uw         deframe.detect + deframe.fsm: the hard bits and the UW FSM on
              the host (the C FSM for a CUDA device, its numpy version on
@@ -71,7 +72,7 @@ def push_size(cfg, chunk_s: float, input_format: str) -> int:
 def breakdown(raw, mode, cfg, input_format="cu8", chunk=None, device="cuda"):
     """One warm pass of a Receiver over raw, then a second Receiver's
     pushes, their stage clocks summed into the phases -> (seconds summed a
-    phase, pushes that completed a chunk, payloads in order)."""
+    phase, pushes with samples, payloads in order)."""
     from ..rx.pipeline import Receiver
 
     dev = resolve_device(device)
@@ -87,7 +88,7 @@ def breakdown(raw, mode, cfg, input_format="cu8", chunk=None, device="cuda"):
     for i in range(0, len(raw), chunk):
         samples = rx.stats.samples
         payloads += rx.push(raw[i:i + chunk])
-        pushes += rx.stats.samples > samples     # a chunk was completed
+        pushes += rx.stats.samples > samples     # a push of samples
     acc = {p: sum(rx.seconds[k] for k in STAGES[p]) for p in PHASES}
     return acc, pushes, payloads
 

@@ -22,8 +22,8 @@ The receiver's stages (`rx.pipeline.Receiver.seconds`):
     deframe.bp deframe.consume                          -> "deframe"
 
 The wideband receiver's (`rx.pipeline.WidebandReceiver.seconds`) add
-`rx.channelize` (the band history, the channelizer, the lane buffer)
-after `rx.copy_in`; its deframe stages sum over the channels
+`rx.channelize` (the band history and the channelizer) after
+`rx.copy_in`; its deframe stages sum over the channels
 (`deframe.detect` and `deframe.fsm` once a channel, `deframe.gather`,
 `deframe.bp` and `deframe.consume` once a push for all of them).
 """
