@@ -17,6 +17,10 @@ batches and the wideband fused step's 8 kk), the top-k acquisition kernel
 (positions, exhausted picks and windows exact, LLRs within rtol 1e-5, and
 the decodes of both LLRs equal) on the fused steps' soft bits (v2 and v1,
 16 streams) and on the wideband fused mode's (8 streams, kk picks), the
+streaming receivers' acquisition kernel (meta and positions equal to its
+plain version and to the C FSM; one lane of a 2-s v2 and v1 push and 8
+lanes of a wideband push, frames back to back, with the whole card
+deframe of such a push timed), the
 channelizer kernel (within 1e-5 of the output's rms; all 8 channels, a
 selection, the capture's cu8 bytes read by the kernel (bit for bit the
 float-pair route on the same samples), N = 6 read at run time, and N =
@@ -405,6 +409,11 @@ def run_receiver(cfg, mode, raw, pipelined=False, chunk_seconds=2.0,
     got += rx.flush()
     torch.cuda.synchronize()
     return got, time.perf_counter() - t0, rx
+
+
+def n_pushes(cfg, raw, chunk_seconds=2.0) -> int:
+    """The pushes `run_receiver` makes of a cu8 capture."""
+    return -(-len(raw) // (2 * int(cfg.Fs * chunk_seconds)))
 
 
 def run_cli(path, *args, fmt="cu8"):
@@ -1066,16 +1075,155 @@ def fsm_vs_plain(label, mode, chunks, dev):
     return pc, got_c
 
 
+UW_SHAPES = (("v2_flight", "v2", 1, 192_000), ("v1_flight", "v1", 1, 230_000),
+             ("v2_wideband", "v2", 8, 192_000))   # (case, mode, lanes, push)
+
+
+def packet_soft(mode, n, rng, sigma=0.35):
+    """n soft symbols of back-to-back frames (random payloads) with
+    Gaussian noise, starting at a random point of the first frame."""
+    from wenet_tpu_torch.core import framing
+    from wenet_tpu_torch.ops import ldpc
+    parts, have = [], 0
+    while have < n + 4000:
+        frame = framing.frame_packet(rng.integers(0, 256, 256, np.uint8)
+                                     .tobytes(), ldpc.encode_bytes,
+                                     mode=mode)
+        parts.append(framing.frame_to_bits(frame, mode))
+        have += len(parts[-1])
+    bits = np.concatenate(parts)[int(rng.integers(0, 3000)):][:n]
+    return (1.0 - 2.0 * bits + rng.normal(0, sigma, n)).astype(np.float32)
+
+
+def uw_detect_phase(dev, smi) -> dict:
+    """uw_detect_vs_plain: the streaming receivers' acquisition kernel
+    (csrc/uw_detect.cu) at the flight push's shapes (one lane of a 2-s v2
+    or v1 push and its carried tail) and the wideband push's (8 lanes),
+    on frames back to back: meta and positions equal to its plain version
+    and every lane's positions, cut and register to the C FSM's; the
+    kernel's time (CUDA events over CALL_REPS calls) beside its bound (the
+    soft bits read once) and the plain version's (host clock, one call).
+    Then the windows of its detections (`deframe_topk.fsm_llrs`): the
+    live count and positions equal to `fsm_windows_reference`'s, the LLRs
+    within TOPK_LLR_RTOL of its windows' `sd_to_llr`; and BP with that
+    live count on the card (`bp_decode.decode(live=...)`): its first rows
+    bit for bit a decode of those rows alone.  Last, the whole card
+    deframe of such a push (`LaneDeframer`: append, acquisition, windows,
+    BP, CRC, copy and wait, unpack), host clock after a warm push."""
+    import torch
+    from wenet_tpu_torch.kernels import bp_decode
+    from wenet_tpu_torch.kernels import deframe_topk as ktopk
+    from wenet_tpu_torch.kernels import uw_detect as kuw
+    from wenet_tpu_torch.ops import deframe, ldpc
+    out = {}
+    for case, mode, L, push in UW_SHAPES:
+        before = kuw.launches
+        rng = np.random.default_rng([SEED, L, push])
+        _, nuw, _, syms = kuw.mode_params(mode)
+        n = push + syms + nuw                  # the push and a full tail
+        softs = [packet_soft(mode, n, rng) for _ in range(L)]
+        flat = torch.from_numpy(np.concatenate(softs)).to(dev)
+        ns = np.full(L, n, np.int64)
+        cap = deframe.lane_capacity(ns, mode)
+        table = torch.as_tensor(np.stack([np.cumsum(ns) - ns, ns,
+                                          np.cumsum(cap) - cap, cap], 1),
+                                device=dev)
+        init = torch.zeros((L, 4), dtype=torch.int32, device=dev)
+        meta = torch.empty((L, 4), dtype=torch.int32, device=dev)
+        pos = torch.full((int(cap.sum()),), -1, dtype=torch.int32,
+                         device=dev)
+
+        def run():
+            kuw.detect(flat, table, init, meta, pos, mode, n)
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_m, want_p = deframe.uw_detect_lanes_reference(
+            flat.cpu(), table.cpu(), init.cpu(), mode)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got_m, got_p = meta.cpu(), pos.cpu()
+        counts = got_m[:, 0].numpy()
+        require(torch.equal(got_m, want_m), f"uw_detect {case}: meta "
+                f"{got_m.tolist()} against the plain {want_m.tolist()}")
+        for i in range(L):
+            a, c = int(table[i, 2]), int(counts[i])
+            require(torch.equal(got_p[a: a + c], want_p[a: a + c]),
+                    f"uw_detect {case}: lane {i}'s positions")
+            hard = (softs[i] < 0).astype(np.uint8)
+            pc, _ = deframe.uw_detect_positions(hard, mode)
+            require(np.array_equal(got_p[a: a + c].numpy(), pc),
+                    f"uw_detect {case}: lane {i} against the C FSM "
+                    f"({c} / {len(pc)} detections)")
+        kernel_ms = event_ms(run, CALL_REPS)
+        bound, by = bound_ms(4 * L * n + 16 * L + 4 * int(counts.sum()), 0)
+
+        rows = int(cap.sum())
+        llr, pos_out, n_live = ktopk.fsm_llrs(flat, table, pos, meta, mode,
+                                              rows)
+        sd_w, pos_w = deframe.fsm_windows_reference(
+            flat.cpu(), table.cpu(), pos.cpu(), meta.cpu(), mode)
+        llr_w = ldpc.sd_to_llr(sd_w)
+        live = int(n_live)
+        require(live == len(sd_w) == int(counts.sum()) > 0,
+                f"fsm_windows {case}: {live} live rows for "
+                f"{int(counts.sum())} detections")
+        require(torch.equal(pos_out[:live].cpu(), pos_w),
+                f"fsm_windows {case}: positions differ from the plain ones")
+        llr_g = llr[:live].cpu()
+        rel = float(((llr_g - llr_w).abs() / llr_w.abs().clamp(min=1e-30))
+                    .max())
+        require(rel <= TOPK_LLR_RTOL,
+                f"fsm_windows {case}: LLR rel err {rel}")
+        window_ms = event_ms(lambda: ktopk.fsm_llrs(flat, table, pos, meta,
+                                                    mode, rows), CALL_REPS)
+        got_bp = bp_decode.decode(llr, live=n_live)
+        want_bp = bp_decode.decode(llr[:live].contiguous())
+        require(all(torch.equal(g[:live], w)
+                    for g, w in zip(got_bp, want_bp)),
+                f"bp_decode {case}: the live rows' bits, iterations or "
+                "parity differ from a decode of those rows alone")
+
+        lanes = deframe.LaneDeframer(mode, L, device=dev)
+        walls = []
+        for k in range(4):
+            chunks = [torch.from_numpy(x[(k % 2) * (n // 2):][: n // 2]
+                                       ).to(dev) for x in softs]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lanes.push(chunks)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[case] = {"kernel_ms": kernel_ms, "bound_ms": bound,
+                     "bound_by": by, "plain_ms": plain_ms,
+                     "symbols": n, "lanes": L,
+                     "window_ms": window_ms, "llr_rel_err": rel,
+                     "deframe_ms": min(walls[1:])}
+        say("uw_detect_vs_plain", kernel="uw_detect", case=case, mode=mode,
+            lanes=L, symbols=n, detections=int(counts.sum()),
+            meta_equal=True, c_fsm_equal=True, kernel_ms=f"{kernel_ms:.4f}",
+            bound_ms=f"{bound:.6f}", bound_by=by,
+            share_of_bound=f"{bound / kernel_ms:.5f}",
+            plain_ms=f"{plain_ms:.1f}", on_chip=kuw.on_chip(n),
+            windows_live=live, windows_positions_equal=True,
+            windows_llr_rel_err=f"{rel:.3e}",
+            windows_ms=f"{window_ms:.4f}", bp_live_equal=True,
+            deframe_push_ms=f"{min(walls[1:]):.3f}",
+            deframe_push_ms_all=[f"{w:.3f}" for w in walls],
+            launches=kuw.launches - before, card=repr(smi))
+    return out
+
+
 def native_phase(cfg1, cfg2, raw1, raw2, wide, fs_w, wide_out, dev, smi):
     """native: the C UW FSM (`wenet_tpu_torch.native`, csrc/deframe_fsm.c)
     against its numpy version, positions and final buffers exact, on the
     hard bits of the v2 and v1 flight captures (whole, and across the
-    Receiver's 2-s pushes with the buffer carried) and of each wideband
-    channel (the false lock of WIDE_FALSE_LOCK in both: the FSM modes keep
-    one packet fewer than top-k there); each FSM's ms per Msymbol; then
-    Receiver v2 and v1 and the wideband vectorized and per-Receiver modes
-    re-timed under the C FSM, and under the numpy FSM in the same call,
-    each beside NUMPY_FSM_RATES."""
+    Receiver's 2-s pushes with the buffer carried: the soft bits its card
+    deframe took, whose payloads a StreamDeframer on them gives too) and
+    of each wideband channel (the false lock of WIDE_FALSE_LOCK in both:
+    the FSM modes keep one packet fewer than top-k there); each FSM's ms
+    per Msymbol; then Receiver v2 and v1 (whose FSM is the card's under
+    either) and the wideband vectorized and per-Receiver modes re-timed
+    under the C FSM, and under the numpy FSM in the same call, each beside
+    NUMPY_FSM_RATES."""
     import torch
     from wenet_tpu_torch import native
     from wenet_tpu_torch.ops import channelizer, deframe
@@ -1087,12 +1235,12 @@ def native_phase(cfg1, cfg2, raw1, raw2, wide, fs_w, wide_out, dev, smi):
            "library": os.path.relpath(native.library_path(), ROOT)}
     for mode, cfg, raw in (("v2", cfg2, raw2), ("v1", cfg1, raw1)):
         chunks = []
-        detect = deframe.StreamDeframer.detect     # each push's soft chunk
+        decode = deframe.LaneDeframer.decode    # each push's soft chunk
 
-        def record(self, soft, detect=detect):
-            chunks.append(np.array(soft, np.float32))
-            return detect(self, soft)
-        with mock.patch.object(deframe.StreamDeframer, "detect", record):
+        def record(self, softs, decode=decode):
+            chunks.append(softs[0].cpu().numpy().astype(np.float32))
+            return decode(self, softs)
+        with mock.patch.object(deframe.LaneDeframer, "decode", record):
             got, _, _ = run_receiver(cfg, mode, raw)
         pos, got_c = fsm_vs_plain(mode, mode, chunks, dev)
         require(got_c == got, f"native {mode}: the pushes' payloads differ "
@@ -2054,6 +2202,7 @@ def main() -> int:
     from wenet_tpu_torch.kernels import channelize as kchan
     from wenet_tpu_torch.kernels import crc_pack as kcrc
     from wenet_tpu_torch.kernels import deframe_topk as ktopk
+    from wenet_tpu_torch.kernels import uw_detect as kuw
     from wenet_tpu_torch.ops import channel, channelizer
     from wenet_tpu_torch.ops import crc as dcrc
     from wenet_tpu_torch.ops import deframe, fsk, ldpc, ldpc_onehot
@@ -2072,7 +2221,7 @@ def main() -> int:
     # 2. build: one nvcc per source, all at once
     t0 = time.perf_counter()
     names = ("bp_decode", "bp_onehot", "fsk_demod", "crc_pack",
-             "deframe_topk", "channelize")
+             "deframe_topk", "channelize", "uw_detect")
     kernels.build(*names)
     build_s = time.perf_counter() - t0
     # the host runtime's C UW FSM, built with the host C compiler
@@ -2352,21 +2501,30 @@ def main() -> int:
     raw2 = make_capture(cfg2, "v2", sent2, EBNO_DB, rng)
     want2 = [framing.pad_payload(p) for p in sent2]
     batches = []                  # the decode batch of each push
-    decode = ldpc.decode
-    ldpc.decode = lambda llr, *a, **k: (batches.append(llr.shape[0]),
-                                        decode(llr, *a, **k))[1]
+    decode = bp_decode.decode
+    bp_decode.decode = lambda llr, *a, **k: (batches.append(llr.shape[0]),
+                                             decode(llr, *a, **k))[1]
     bp_decode.launches = fsk_demod.launches = kcrc.launches = 0
-    fsk_demod.spec_launches = 0
+    fsk_demod.spec_launches = kuw.launches = ktopk.window_launches = 0
     try:
         got2, dt2, rx2 = run_receiver(cfg2, "v2", raw2)
     finally:
-        ldpc.decode = decode
+        bp_decode.decode = decode
     main_launches = {"bp_decode": bp_decode.launches,
                      "fsk_demod": fsk_demod.launches,
-                     "fsk_demod_spec": fsk_demod.spec_launches}
+                     "fsk_demod_spec": fsk_demod.spec_launches,
+                     "uw_detect": kuw.launches,
+                     "fsm_windows": ktopk.window_launches}
     require(kcrc.launches == len(batches),
             f"v2 main path: {kcrc.launches} crc_pack launches for "
             f"{len(batches)} decode batches")
+    pushes2 = n_pushes(cfg2, raw2)
+    require(kuw.launches == ktopk.window_launches == len(batches)
+            == pushes2 and rx2.waits == 2 * pushes2,
+            f"v2 main path: {kuw.launches} uw_detect, "
+            f"{ktopk.window_launches} fsm_windows launches, "
+            f"{len(batches)} decode batches and {rx2.waits} waits for "
+            f"{pushes2} pushes (one each a push, two waits)")
     n2 = len(raw2) // 2
     require(got2 == want2, f"v2: {len(got2)}/{len(want2)} payloads match")
     require(main_launches["bp_decode"] > 0,
@@ -2382,7 +2540,10 @@ def main() -> int:
         bp_launches=main_launches["bp_decode"],
         demod_launches=main_launches["fsk_demod"],
         demod_frame_parallel_launches=main_launches["fsk_demod_spec"],
-        crc_launches=kcrc.launches, frames=rx2.stats.frames,
+        crc_launches=kcrc.launches, pushes=pushes2,
+        uw_launches=main_launches["uw_detect"],
+        window_launches=main_launches["fsm_windows"], waits=rx2.waits,
+        frames=rx2.stats.frames,
         decode_batches=batches, card=repr(smi))
 
     # 6. main path, v1 at flight rate; pipelined == serial
@@ -2391,15 +2552,25 @@ def main() -> int:
              for _ in range(V1_PACKETS)]
     raw1 = make_capture(cfg1, "v1", sent1, EBNO_DB, rng)
     before = bp_decode.launches
-    fsk_demod.launches = 0
+    fsk_demod.launches = kuw.launches = ktopk.window_launches = 0
     got1, dt1, rx1 = run_receiver(cfg1, "v1", raw1)
     require(fsk_demod.launches > 0, "v1 path never launched fsk_demod")
+    pushes1 = n_pushes(cfg1, raw1)
+    require(kuw.launches == ktopk.window_launches == pushes1
+            and rx1.waits == 2 * pushes1,
+            f"v1 main path: {kuw.launches} uw_detect and "
+            f"{ktopk.window_launches} fsm_windows launches, {rx1.waits} "
+            f"waits for {pushes1} pushes (one each a push, two waits)")
+    main_launches["uw_detect"] += kuw.launches
+    main_launches["fsm_windows"] += ktopk.window_launches
     got1p, dt1p, _ = run_receiver(cfg1, "v1", raw1, pipelined=True)
     n1 = len(raw1) // 2
     require(got1 == sent1, f"v1: {len(got1)}/{len(sent1)} payloads match")
     require(got1p == got1, "v1 pipelined differs from serial")
     require(bp_decode.launches > before, "v1 path never launched bp_decode")
     say("v1_stream", packets=f"{len(got1)}/{len(sent1)}", samples=n1,
+        pushes=pushes1, uw_launches=pushes1, window_launches=pushes1,
+        waits=rx1.waits,
         wall_s=f"{dt1:.3f}", msps=f"{n1 / dt1 / 1e6:.4f}",
         pipelined_wall_s=f"{dt1p:.3f}", pipelined_equal=True,
         realtime_msps=f"{cfg1.Fs / 1e6:.3f}",
@@ -2639,6 +2810,7 @@ def main() -> int:
 
     topk_vs_plain("v2", "v2", soft_f.contiguous(), k)
     topk_vs_plain("v1", "v1", *fused_soft(cfg1, "v1", raw1))
+    uw_times = uw_detect_phase(dev, smi)
 
     raw_t = np.tile(raw2, RX_TILES)
 
@@ -3277,6 +3449,30 @@ def main() -> int:
                 "wideband_picks": tw["picks"], "wideband_ms": tw["ms"],
                 "wideband_plain_ms": tw["plain_ms"],
                 "wideband_bound_ms": tw["bound_ms"]})
+    uf, u1, u8 = (uw_times[c] for c in ("v2_flight", "v1_flight",
+                                         "v2_wideband"))
+    # the JAX package runs this FSM on the host (`replaces` null; its
+    # counterpart there is wenet_tpu/native/deframe_fsm.c)
+    out.append({"name": "uw_detect", "route": "cuda",
+                "source": "wenet_tpu_torch/csrc/uw_detect.cu",
+                "replaces": None,
+                "host_counterpart": "wenet_tpu/native/deframe_fsm.c",
+                "launches": main_launches["uw_detect"], "max_abs_err": 0,
+                "ms": uf["kernel_ms"], "plain_ms": uf["plain_ms"],
+                "bound_ms": uf["bound_ms"], "bound_by": uf["bound_by"],
+                "library_ms": None, "lanes": uf["lanes"],
+                "symbols": uf["symbols"],
+                "v1_ms": u1["kernel_ms"], "v1_plain_ms": u1["plain_ms"],
+                "v1_bound_ms": u1["bound_ms"], "v1_symbols": u1["symbols"],
+                "wideband_lanes": u8["lanes"], "wideband_ms": u8["kernel_ms"],
+                "wideband_plain_ms": u8["plain_ms"],
+                "wideband_bound_ms": u8["bound_ms"],
+                "window_launches": main_launches["fsm_windows"],
+                "window_ms": uf["window_ms"],
+                "window_llr_rel_err": max(m["llr_rel_err"]
+                                          for m in uw_times.values()),
+                "deframe_push_ms": {c: m["deframe_ms"]
+                                    for c, m in uw_times.items()}})
     ca, cs, cq, cr, cw, ct, cn = (chan_times[lb] for lb in (
         "all", "select", "cu8", "runtime_n", "wide_n", "taps", "reach"))
     out.append({"name": "channelize", "route": "cuda",

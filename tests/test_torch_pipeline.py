@@ -143,7 +143,8 @@ def test_stream_step_does_not_wait_for_the_device(mode, with_eye,
     op that reads a device value on the host: the demod is stubbed with
     its recorded output (the plain loop reads n_valid on the host; the
     kernel does not), so only the ops of rx/pipeline.py are seen.  The packed vector
-    keeps its layout: the stats are the last valid frame's."""
+    holds the stats, the last valid frame's, and the eye probe; the soft
+    bits are the demod's own tensor."""
     cfg = tfsk.FSKConfig(**GEOM[mode])
     raw = jfsk.iq_to_cu8(_capture(mode)[0])[: 2 * 40 * cfg.N]
     data = torch.from_numpy(raw.reshape(-1, 2))
@@ -155,8 +156,8 @@ def test_stream_step_does_not_wait_for_the_device(mode, with_eye,
                               with_eye)
     monkeypatch.setattr(tfsk, "demod_raw", lambda *a, **k: recorded)
     with _OpLog() as log:
-        final, packed = stream_step_lanes(cfg, data, state, starts, n_valid,
-                                          "cu8", nf, with_eye)
+        final, packed, soft = stream_step_lanes(cfg, data, state, starts,
+                                                n_valid, "cu8", nf, with_eye)
     assert log.ops and not HOST_SYNCS & set(log.ops), sorted(set(log.ops))
     with _OpLog() as probe:        # the log sees the indexing it replaced
         recorded[1].ebno_db[0][torch.tensor(0)]
@@ -165,13 +166,15 @@ def test_stream_step_does_not_wait_for_the_device(mode, with_eye,
     outs = tfsk._drop(recorded)[1]
     valid = outs.valid.numpy()
     last = int(np.flatnonzero(valid)[-1])
-    at = nf * (cfg.Nbits + 1)
     want = [outs.ebno_db[last], outs.ppm[last], valid.sum(), last,
             *outs.f_est[last]]
-    np.testing.assert_array_equal(packed[at: at + 4 + cfg.M].numpy(),
+    np.testing.assert_array_equal(packed[: 4 + cfg.M].numpy(),
                                   np.array(want, np.float32))
-    assert packed.shape[0] == at + 4 + cfg.M + (
+    assert packed.shape[0] == 4 + cfg.M + (
         2 * cfg.M * (cfg.Nsym + 1) * cfg.P + 1 if with_eye else 0)
+    # the soft bits stay where the demod wrote them, valid frames first
+    assert soft.data_ptr() == recorded[1].soft.data_ptr()
+    assert valid[: valid.sum()].all()
     assert torch.equal(final.pos[0], recorded[0].pos[0])
 
 

@@ -127,6 +127,7 @@ bp_decode_kernel(const float* __restrict__ llr,
                  int32_t* __restrict__ iters_out,
                  uint8_t* __restrict__ parity_out,
                  int* __restrict__ queue,
+                 const int* __restrict__ live,
                  int batch, int max_iter, float scale) {
     static_assert(!MINSUM || K == 1, "min-sum runs unclustered");
     constexpr int CB = N_CHECKS / K;   // checks of a block
@@ -184,6 +185,10 @@ bp_decode_kernel(const float* __restrict__ llr,
         if (s0 + i < SLOTS)
             valid |= (uint32_t)((ctab[(s0 + i) * CB + cl] & VALID) != 0) << i;
 
+    // the codewords to decode: the first *live of the batch where the
+    // caller counts them on the card, so that a batch sized by a capacity
+    // runs its live rows alone (the rows past them exit at once)
+    if (live != nullptr) batch = min(batch, *live);
     __shared__ int next_cw;
     for (int cw = blockIdx.x / K; cw < batch;) {
         // qi = llr (every copy holds all of it); rmsg needs no reset, since
@@ -356,7 +361,8 @@ template <bool MINSUM, int K>
 static cudaError_t launch_k(const float* llr, const uint16_t* ctab,
                             const uint16_t* vtab, uint8_t* bits,
                             int32_t* iters, uint8_t* parity_ok, int* queue,
-                            int batch, int max_iter, float scale, int grid,
+                            const int* live, int batch, int max_iter,
+                            float scale, int grid,
                             cudaStream_t stream) {
     auto kernel = bp_decode_kernel<MINSUM, K>;
     const size_t smem = smem_bytes(K);
@@ -381,7 +387,7 @@ static cudaError_t launch_k(const float* llr, const uint16_t* ctab,
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, kernel, llr, ctab, vtab, bits, iters,
-                             parity_ok, queue, batch, max_iter, scale);
+                             parity_ok, queue, live, batch, max_iter, scale);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
@@ -389,49 +395,53 @@ static cudaError_t launch_k(const float* llr, const uint16_t* ctab,
 template <bool MINSUM>
 static int launch(const float* llr, const uint16_t* ctab,
                   const uint16_t* vtab, uint8_t* bits, int32_t* iters,
-                  uint8_t* parity_ok, int* queue, int batch, int max_iter,
-                  float scale, int cluster, int grid, void* stream) {
+                  uint8_t* parity_ok, int* queue, const int* live,
+                  int batch, int max_iter, float scale, int cluster,
+                  int grid, void* stream) {
     if (batch <= 0) return 0;
     if (grid <= 0 || grid % cluster) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     if (cluster == 1)
         return (int)launch_k<MINSUM, 1>(llr, ctab, vtab, bits, iters,
-                                        parity_ok, queue, batch, max_iter,
-                                        scale, grid, s);
+                                        parity_ok, queue, live, batch,
+                                        max_iter, scale, grid, s);
     if constexpr (!MINSUM) {
         if (cluster == 2)
             return (int)launch_k<false, 2>(llr, ctab, vtab, bits, iters,
-                                           parity_ok, queue, batch, max_iter,
-                                           scale, grid, s);
+                                           parity_ok, queue, live, batch,
+                                           max_iter, scale, grid, s);
         if (cluster == 4)
             return (int)launch_k<false, 4>(llr, ctab, vtab, bits, iters,
-                                           parity_ok, queue, batch, max_iter,
-                                           scale, grid, s);
+                                           parity_ok, queue, live, batch,
+                                           max_iter, scale, grid, s);
     }
     return (int)cudaErrorInvalidValue;
 }
 
 // Launch on `stream` with `grid` blocks in clusters of `cluster` (1, 2 or
 // 4; min-sum: 1); `queue` is one int of scratch, used (and zeroed on the
-// stream first) when an unclustered grid is smaller than the batch.  Returns
-// cudaGetLastError() (0 on success).
+// stream first) when an unclustered grid is smaller than the batch; `live`,
+// where not null, one int on the card: only the batch's first *live
+// codewords are decoded (the other rows' outputs are left unwritten).
+// Returns cudaGetLastError() (0 on success).
 extern "C" int bp_decode_launch(const float* llr, const uint16_t* ctab,
                                 const uint16_t* vtab, uint8_t* bits,
                                 int32_t* iters, uint8_t* parity_ok,
-                                int* queue, int batch, int max_iter,
-                                int cluster, int grid, void* stream) {
+                                int* queue, const int* live, int batch,
+                                int max_iter, int cluster, int grid,
+                                void* stream) {
     return launch<false>(llr, ctab, vtab, bits, iters, parity_ok, queue,
-                         batch, max_iter, 0.0f, cluster, grid, stream);
+                         live, batch, max_iter, 0.0f, cluster, grid, stream);
 }
 
 extern "C" int bp_minsum_launch(const float* llr, const uint16_t* ctab,
                                 const uint16_t* vtab, uint8_t* bits,
                                 int32_t* iters, uint8_t* parity_ok,
-                                int* queue, int batch, int max_iter,
-                                float scale, int cluster, int grid,
-                                void* stream) {
+                                int* queue, const int* live, int batch,
+                                int max_iter, float scale, int cluster,
+                                int grid, void* stream) {
     return launch<true>(llr, ctab, vtab, bits, iters, parity_ok, queue,
-                        batch, max_iter, scale, cluster, grid, stream);
+                        live, batch, max_iter, scale, cluster, grid, stream);
 }
 
 // Resident blocks per SM of the unclustered kernel (the persistent grid of

@@ -49,6 +49,16 @@
 //      with block reductions of |sd|, x and x^2 (x = sd / mean - sign(sd))
 //      in float32.  An exhausted window is zero, so its LLRs are NaN (0/0),
 //      as in the plain version.
+//
+// The window code (`window_llr`) has a second entry, `fsm_windows_launch`:
+// the streaming receivers' windows (ops/deframe.py: LaneDeframer), at the
+// UW-end positions that csrc/uw_detect.cu found in L lanes' buffers.  One
+// block a row of a batch sized by the lanes' capacities: row r is the
+// detection that takes it, lane after lane, counted from the lanes'
+// counts on the card; rows past the detections exit at once, and the
+// first block writes their number for the BP kernel's live count.  Its
+// plain version is ops/deframe.py::fsm_windows_reference, then
+// ops/ldpc.sd_to_llr.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -361,31 +371,25 @@ topk_picks_kernel(const TopkArgs g, int on_chip) {
     }
 }
 
-// 3. each pick's window, descrambled or stripped, and its LLRs
-__global__ void __launch_bounds__(WIN_THREADS)
-topk_windows_kernel(const TopkArgs g) {
-    __shared__ float red[2][WIN_WARPS];
+// a window's soft decisions and their LLRs, one block of WIN_THREADS: the
+// CODE_LEN symbols kept from soft[col0 ...] (v2: symbol i times the
+// descramble code; v1: symbol 8 - i % 8 of 10-bit word i / 8), columns
+// past n - 1 reading soft[n - 1], zero where `dead`; then sd_to_llr with
+// block reductions in float32.  `row` only names the phase clocks.
+__device__ __forceinline__ void window_llr(
+    const float* soft, long long col0, long long n, bool dead, int v2,
+    const float (&code)[VPT], float* llr, float* sd_out,
+    float (*red)[WIN_WARPS], long long row) {
     const int tid = threadIdx.x;
-    float vals[VPT], code[VPT];
-    #pragma unroll
-    for (int j = 0; j < VPT; ++j)          // the code does not wait for picks
-        code[j] = g.v2 && tid + j * WIN_THREADS < CODE_LEN
-                      ? __ldg(g.code + tid + j * WIN_THREADS) : 1.f;
-    pdl_wait();
-    const long long row = blockIdx.x;
-    PHASE(2, row, 0);
-    const int p = g.pos[row];
-    const bool dead = p < 0;
-    const long long s = dead ? 0 : p;
-    const float* soft = g.soft + (row / g.k) * g.n;
+    float vals[VPT];
     #pragma unroll
     for (int j = 0; j < VPT; ++j) {         // every load in flight first
         const int i = tid + j * WIN_THREADS;
         vals[j] = 0.f;
         if (i < CODE_LEN && !dead) {
-            const int src = g.v2 ? i : (i >> 3) * 10 + 8 - (i & 7);
-            long long col = s + g.nuw + src;
-            if (col > g.n - 1) col = g.n - 1;
+            const int src = v2 ? i : (i >> 3) * 10 + 8 - (i & 7);
+            long long col = col0 + src;
+            if (col > n - 1) col = n - 1;
             vals[j] = __ldg(soft + col);
         }
     }
@@ -394,8 +398,8 @@ topk_windows_kernel(const TopkArgs g) {
     for (int j = 0; j < VPT; ++j) {
         const int i = tid + j * WIN_THREADS;
         if (i < CODE_LEN) {
-            if (g.v2) vals[j] = vals[j] * code[j];
-            if (g.sd_out != nullptr) g.sd_out[row * CODE_LEN + i] = vals[j];
+            if (v2) vals[j] = vals[j] * code[j];
+            if (sd_out != nullptr) sd_out[i] = vals[j];
             sabs += fabsf(vals[j]);
         }
     }
@@ -419,9 +423,92 @@ topk_windows_kernel(const TopkArgs g) {
     #pragma unroll
     for (int j = 0; j < VPT; ++j) {
         const int i = tid + j * WIN_THREADS;
-        if (i < CODE_LEN) g.llr[row * CODE_LEN + i] = scale * vals[j];
+        if (i < CODE_LEN) llr[i] = scale * vals[j];
     }
     PHASE(2, row, 2);
+}
+
+// the v2 descramble code of this thread's symbols (1 in v1)
+__device__ __forceinline__ void load_code(const float* code_g, int v2,
+                                          float (&code)[VPT]) {
+    #pragma unroll
+    for (int j = 0; j < VPT; ++j)
+        code[j] = v2 && threadIdx.x + j * WIN_THREADS < CODE_LEN
+                      ? __ldg(code_g + threadIdx.x + j * WIN_THREADS) : 1.f;
+}
+
+// 3. each pick's window, descrambled or stripped, and its LLRs
+__global__ void __launch_bounds__(WIN_THREADS)
+topk_windows_kernel(const TopkArgs g) {
+    __shared__ float red[2][WIN_WARPS];
+    float code[VPT];
+    load_code(g.code, g.v2, code);         // the code does not wait for picks
+    pdl_wait();
+    const long long row = blockIdx.x;
+    PHASE(2, row, 0);
+    const int p = g.pos[row];
+    const bool dead = p < 0;
+    const long long s = dead ? 0 : p;
+    window_llr(g.soft + (row / g.k) * g.n, s + g.nuw, g.n, dead, g.v2, code,
+               g.llr + row * CODE_LEN,
+               g.sd_out == nullptr ? nullptr : g.sd_out + row * CODE_LEN,
+               red, row);
+}
+
+// The streaming receivers' windows (ops/deframe.py: LaneDeframer): the
+// UW-end positions that csrc/uw_detect.cu found in L lanes' buffers,
+// gathered into one compact batch, lane after lane, for the BP kernel.
+struct FsmWindowArgs {
+    const float* soft;        // the lanes' buffers, one after another
+    const float* code;        // (CODE_LEN,) v2 descramble +/-1
+    const long long* lanes;   // (L, 4): offset, symbols n, first position
+                              // slot, capacity
+    const int32_t* pos;       // UW-end positions, lane l's from lanes[l][2]
+    const int32_t* meta;      // (L, 4): detections first
+    float* llr;               // (rows, CODE_LEN), rows [0, n_live) written
+    int32_t* pos_out;         // (rows,): each written row's position
+    int32_t* n_live;          // the detections of all lanes
+    int L, v2;
+};
+
+// one block a row of the batch: row r is detection i of the lane whose
+// detections (lane after lane) take r; rows past them exit at once
+__global__ void __launch_bounds__(WIN_THREADS)
+fsm_windows_kernel(const FsmWindowArgs g) {
+    __shared__ float red[2][WIN_WARPS];
+    float code[VPT];
+    load_code(g.code, g.v2, code);
+    const long long row = blockIdx.x;
+    long long before = 0, i = 0;
+    int lane = -1;
+    for (int l = 0; l < g.L; ++l) {
+        long long c = g.meta[4 * l];
+        if (c > g.lanes[4 * l + 3]) c = g.lanes[4 * l + 3];
+        if (lane < 0 && row < before + c) {
+            lane = l;
+            i = row - before;
+        }
+        before += c;
+    }
+    if (row == 0 && threadIdx.x == 0) *g.n_live = (int32_t)before;
+    if (lane < 0) return;
+    PHASE(2, row, 0);
+    const long long t = g.pos[g.lanes[4 * lane + 2] + i];
+    if (threadIdx.x == 0) g.pos_out[row] = (int32_t)t;
+    window_llr(g.soft + g.lanes[4 * lane], t + 1, g.lanes[4 * lane + 1],
+               false, g.v2, code, g.llr + row * CODE_LEN, nullptr, red, row);
+}
+
+extern "C" int fsm_windows_launch(const FsmWindowArgs* a, long long rows,
+                                  void* stream_ptr) {
+    if (a->L < 1 || rows < 1 || rows > 0x7FFFFFFFLL || a->soft == nullptr ||
+        a->code == nullptr || a->lanes == nullptr || a->pos == nullptr ||
+        a->meta == nullptr || a->llr == nullptr || a->pos_out == nullptr ||
+        a->n_live == nullptr)
+        return (int)cudaErrorInvalidValue;
+    fsm_windows_kernel<<<(unsigned)rows, WIN_THREADS, 0,
+                         (cudaStream_t)stream_ptr>>>(*a);
+    return (int)cudaGetLastError();
 }
 
 // once a device, before the first launch

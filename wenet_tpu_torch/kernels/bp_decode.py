@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..core import ldpc_tables as T
-from . import load
+from . import launch_context, load
 
 VALID = 0x8000        # valid bit of a packed table entry
 VAR_MASK = 0x0FFF     # variable index of a check-table entry
@@ -37,9 +37,9 @@ def _lib():
     lib = load("bp_decode")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.bp_decode_launch.restype = I
-    lib.bp_decode_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
+    lib.bp_decode_launch.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P]
     lib.bp_minsum_launch.restype = I
-    lib.bp_minsum_launch.argtypes = [P, P, P, P, P, P, P, I, I,
+    lib.bp_minsum_launch.argtypes = [P, P, P, P, P, P, P, P, I, I,
                                      ctypes.c_float, I, I, P]
     lib.bp_decode_blocks_per_sm.restype = I
     lib.bp_decode_blocks_per_sm.argtypes = [I, ctypes.POINTER(I)]
@@ -117,7 +117,8 @@ def check_llr(llr: torch.Tensor, name: str):
         raise ValueError(f"{name}: needs a contiguous tensor")
 
 
-def _run(llr: torch.Tensor, max_iter: int, scale: float | None):
+def _run(llr: torch.Tensor, max_iter: int, scale: float | None,
+         live: torch.Tensor | None = None):
     """Launch the sum-product (scale None) or min-sum kernel; returns the
     outputs and whether a kernel was launched (not for an empty batch)."""
     B = llr.shape[0]
@@ -135,9 +136,10 @@ def _run(llr: torch.Tensor, max_iter: int, scale: float | None):
         queue = torch.empty((1,), dtype=torch.int32, device=llr.device)
     args = (llr.data_ptr(), ctab.data_ptr(), vtab.data_ptr(),
             bits.data_ptr(), iters.data_ptr(), parity_ok.data_ptr(),
-            None if queue is None else queue.data_ptr(), B, int(max_iter))
-    with torch.cuda.device(llr.device):
-        stream = torch.cuda.current_stream(llr.device).cuda_stream
+            None if queue is None else queue.data_ptr(),
+            None if live is None else live.data_ptr(), B, int(max_iter))
+    ctx, stream = launch_context(llr.device)
+    with ctx:
         if scale is None:
             rc = lib.bp_decode_launch(*args, cluster, grid, stream)
         else:
@@ -150,12 +152,23 @@ def _run(llr: torch.Tensor, max_iter: int, scale: float | None):
     return bits, iters, parity_ok, True
 
 
-def decode(llr: torch.Tensor, max_iter: int = T.MAX_ITER):
+def decode(llr: torch.Tensor, max_iter: int = T.MAX_ITER,
+           live: torch.Tensor | None = None):
     """Sum-product: llr (B, 2580) float32 contiguous CUDA tensor ->
-    bits (B, 2580) uint8, iters (B,) int32, parity_ok (B,) bool."""
+    bits (B, 2580) uint8, iters (B,) int32, parity_ok (B,) bool.
+
+    live: a (1,) int32 tensor on the llr's card, or None: only the first
+    `live` rows are decoded, a count the card holds and the host need not
+    read (rows past it exit at once, their outputs left unwritten); the
+    launch shape is that of all B rows."""
     global launches
     check_llr(llr, "bp_decode")
-    bits, iters, parity_ok, launched = _run(llr, max_iter, None)
+    if live is not None and (live.device != llr.device
+                             or live.dtype != torch.int32
+                             or live.numel() != 1):
+        raise ValueError("bp_decode: live must be one int32 on the llr's "
+                         "device")
+    bits, iters, parity_ok, launched = _run(llr, max_iter, None, live)
     launches += launched
     return bits, iters, parity_ok
 

@@ -110,10 +110,13 @@ def _launch(bits: torch.Tensor, rows, tail: int, extra, ok_out):
 
 
 def pack(bits: torch.Tensor, iters: torch.Tensor | None = None,
-         positions: torch.Tensor | None = None) -> torch.Tensor:
+         positions: torch.Tensor | None = None,
+         out: torch.Tensor | None = None) -> torch.Tensor:
     """bits (B, >= 2064) uint8 CUDA tensor -> rows (B, 259 + tail) uint8,
     the layout of `ops.crc.crc_pack` (tail: iters clamped to one byte, or
-    positions as 4 little-endian bytes)."""
+    positions as 4 little-endian bytes); `out`, where given, the
+    contiguous uint8 rows to write them into (a view of a larger buffer
+    that goes to the host in one copy)."""
     _check_bits(bits)
     if (iters is None) == (positions is None):
         raise ValueError("crc_pack: iters or positions, one of them")
@@ -125,8 +128,15 @@ def pack(bits: torch.Tensor, iters: torch.Tensor | None = None,
                          f"{bits.device} beside the bits")
     if extra.dtype != torch.int32 or not extra.is_contiguous():
         extra = extra.to(torch.int32).contiguous()
-    rows = torch.empty((B, dcrc.PACKET_BYTES + 1 + TAIL_BYTES[tail]),
-                       dtype=torch.uint8, device=bits.device)
+    shape = (B, dcrc.PACKET_BYTES + 1 + TAIL_BYTES[tail])
+    if out is None:
+        rows = torch.empty(shape, dtype=torch.uint8, device=bits.device)
+    elif (out.shape != shape or out.dtype != torch.uint8
+          or out.device != bits.device or not out.is_contiguous()):
+        raise ValueError(f"crc_pack: out must be contiguous uint8 {shape} "
+                         f"on {bits.device}")
+    else:
+        rows = out
     _launch(bits, rows, tail, extra, None)
     return rows
 

@@ -1,4 +1,6 @@
-"""Wrapper of the top-k UW acquisition kernel (`csrc/deframe_topk.cu`).
+"""Wrapper of the top-k UW acquisition kernel (`csrc/deframe_topk.cu`),
+and of its window code's second entry, the streaming receivers' windows
+(`fsm_llrs`).
 
 The kernel replaces `wenet_tpu/ops/deframe.py::deframe_topk` up to its BP
 call (correlation, k first-maximum picks with blanking, window gather,
@@ -24,6 +26,7 @@ SMEM_LIMIT = 232448 - 2048         # shared memory the pick kernel takes
 TILE = 64                          # starts a tile of the pick kernel
 
 launches = 0          # kernel launches, counted where the launch succeeds
+window_launches = 0   # `fsm_llrs` launches (the streaming receivers' windows)
 
 
 class Args(ctypes.Structure):
@@ -36,11 +39,21 @@ class Args(ctypes.Structure):
                                        "nlive", "ntiles")])
 
 
+class WindowArgs(ctypes.Structure):
+    """`FsmWindowArgs` of csrc/deframe_topk.cu."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "soft", "code", "lanes", "pos", "meta", "llr", "pos_out", "n_live")]
+        + [(f, ctypes.c_int) for f in ("L", "v2")])
+
+
 @functools.lru_cache(maxsize=1)
 def _lib():
     lib = load("deframe_topk")
     lib.deframe_topk_launch.restype = ctypes.c_int
     lib.deframe_topk_launch.argtypes = [ctypes.POINTER(Args), ctypes.c_void_p]
+    lib.fsm_windows_launch.restype = ctypes.c_int
+    lib.fsm_windows_launch.argtypes = [ctypes.POINTER(WindowArgs),
+                                       ctypes.c_longlong, ctypes.c_void_p]
     lib.deframe_topk_init.restype = ctypes.c_int
     lib.deframe_topk_scratch_bytes.restype = ctypes.c_longlong
     lib.deframe_topk_scratch_bytes.argtypes = [ctypes.c_int] * 3
@@ -146,3 +159,47 @@ def llrs(soft: torch.Tensor, mode: str, k: int, with_sd: bool = False):
                            f" cudaError_t {rc}")
     launches += C * k > 0
     return (llr, pos, exhausted, sd) if with_sd else (llr, pos, exhausted)
+
+
+def fsm_llrs(soft: torch.Tensor, lanes: torch.Tensor, pos: torch.Tensor,
+             meta: torch.Tensor, mode: str, rows: int):
+    """The streaming receivers' windows (`ops.deframe.LaneDeframer`): the
+    UW-end positions the acquisition kernel (`kernels.uw_detect`) wrote,
+    gathered lane after lane into one compact batch, descrambled or
+    stripped and turned into LLRs by the window code the top-k kernel
+    uses.  soft, lanes, pos, meta: `uw_detect.detect`'s, on one card; rows:
+    the lanes' capacities summed.  -> (llr (rows, 2580) float32, positions
+    (rows,) int32, n_live (1,) int32): the first n_live rows (the
+    detections of all lanes, counted on the card) written, each row's
+    position beside it; the rest left unwritten.  Its plain version is `ops.deframe.fsm_windows_reference`, then
+    `ops.ldpc.sd_to_llr`."""
+    global window_launches
+    dev = soft.device
+    for name, t, dtype in (("soft", soft, torch.float32),
+                           ("lanes", lanes, torch.int64),
+                           ("pos", pos, torch.int32),
+                           ("meta", meta, torch.int32)):
+        if t.device != dev or dev.type != "cuda" or t.dtype != dtype \
+                or not t.is_contiguous():
+            raise ValueError(f"fsm_windows: {name} needs a contiguous "
+                             f"{dtype} tensor on the soft's CUDA device")
+    L = lanes.shape[0]
+    if rows < 1 or lanes.shape != (L, 4) or meta.shape != (L, 4):
+        raise ValueError("fsm_windows: needs rows >= 1 and (L, 4) lanes and "
+                         "meta")
+    llr = torch.empty((rows, T.CODE_LEN), dtype=torch.float32, device=dev)
+    pos_out = torch.empty((rows,), dtype=torch.int32, device=dev)
+    n_live = torch.empty((1,), dtype=torch.int32, device=dev)
+    args = WindowArgs(soft.data_ptr(), _code(dev).data_ptr(),
+                      lanes.data_ptr(), pos.data_ptr(), meta.data_ptr(),
+                      llr.data_ptr(), pos_out.data_ptr(), n_live.data_ptr(),
+                      L, int(mode == "v2"))
+    lib = _lib()
+    ctx, stream = launch_context(dev)
+    with ctx:
+        rc = lib.fsm_windows_launch(ctypes.byref(args), rows, stream)
+    if rc != 0:
+        raise RuntimeError(f"fsm_windows launch failed (L={L}, rows={rows}):"
+                           f" cudaError_t {rc}")
+    window_launches += 1
+    return llr, pos_out, n_live

@@ -2,16 +2,21 @@
 (counterpart of wenet_tpu/ops/deframe.py).
 
 UW acquisition is the reference's C FSM (`wenet_ldpc.c` /
-`drs232_ldpc.c`) on the host: for a CUDA device the C library of
+`drs232_ldpc.c`).  On the host path (`StreamDeframer`, `deframe_soft`) it
+runs on the host: for a CUDA device the C library of
 `csrc/deframe_fsm.c` (`native`, built at first use, raising where it cannot
 be built), for the CPU its plain version, the numpy emulation
 (`uw_detect_positions(..., force_numpy=True)`).  The candidate windows then
 decode as one batch on the device: descramble or RS232 strip on the host,
 then `sd_to_llr`, the BP decode and the CRC gate with byte packing (on a
 CUDA device the BP and CRC kernels), with one device-to-host copy of the
-packed result.  `deframe_topk` is the variant of the fused paths that runs
-wholly on the device: k strongest UW picks per stream (on a CUDA device
-the acquisition kernel), one decode batch.
+packed result.  `LaneDeframer` is the streaming receivers' path on a
+card: each lane's soft bits stay on the device, and the same FSM (the
+acquisition kernel `kernels.uw_detect`), the window gather, BP and CRC
+run there with one copy back and one wait a push.  `deframe_topk` is the
+variant of the fused paths that runs wholly on the device: k strongest UW
+picks per stream (on a CUDA device the acquisition kernel), one decode
+batch.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from .. import native
 from ..core import framing
 from ..core import ldpc_tables as T
 from ..device import resolve_device
+from ..kernels import uw_detect as kuw
 from ..utils.spans import span
 from . import crc as dcrc
 from . import ldpc
@@ -319,6 +325,8 @@ class StreamDeframer:
 def descramble_or_strip(wins: torch.Tensor, mode: str) -> torch.Tensor:
     """(B, syms) soft windows -> (B, CODE_LEN) soft decisions: the v2 +/-1
     descramble or the v1 RS232 strip (`core.framing`) on the device."""
+    if wins.shape[0] == 0:
+        return wins.new_zeros((0, T.CODE_LEN))
     if mode == "v2":
         code = torch.as_tensor(np.resize(framing.SCRAMBLE_PM1, wins.shape[1]),
                                device=wins.device)
@@ -425,6 +433,300 @@ def deframe_topk(soft, mode: str = "v2", k: int = 8,
         torch.int32)
     out = (pbytes, ok, iters, positions)
     return tuple(t[0] for t in out) if flat else out
+
+
+# ------------------------------------------ the streaming deframe on a card
+
+ROW_BYTES = 263     # a decoded row: 258 bytes, CRC flag, position (LE 32)
+
+
+def lane_capacity(n: np.ndarray, mode: str) -> np.ndarray:
+    """The most UW detections lanes of n symbols can hold: a detection and
+    its packet take syms + 1 symbols, so ceil(n / (syms + 1)) + 1."""
+    syms = kuw.mode_params(mode)[3]
+    return -(-np.asarray(n, np.int64) // (syms + 1)) + 1
+
+
+def register_bits(reg: int, nuw: int) -> np.ndarray:
+    """An FSM register (symbol t - k at bit k) -> the bit buffer it holds,
+    oldest first, as `uw_detect_positions` carries it ((nuw,) int8)."""
+    return np.array([(int(reg) >> (nuw - 1 - i)) & 1 for i in range(nuw)],
+                    np.int8)
+
+
+def uw_detect_lanes_reference(soft: torch.Tensor, lanes: torch.Tensor,
+                              init: torch.Tensor, mode: str):
+    """The plain version of the acquisition kernel (`kernels.uw_detect`),
+    on any device.
+
+    soft (S,) float32, the lanes' buffers one after another; lanes (L, 4)
+    int64 (offset, symbols n, first position slot, capacity); init (L, 4)
+    int32, the last push's meta (the register in front of each buffer in
+    columns 2 and 3, zeros at the stream's start) -> (meta (L, 4) int32:
+    count, cut, the register after the cut as low and high 32 bits;
+    positions (capacities summed,) int32, each lane's UW-end positions
+    from its first slot, -1 in slots not taken).
+
+    Per lane, as the kernel: the windows that lie wholly in the buffer
+    scored at once (a +/-1 correlation), then the C FSM's walk over them,
+    the windows that mix the frozen register with the buffer's bits (the
+    first nuw - 1 of the buffer, and of the symbols after each packet)
+    shifted in one by one; a match whose packet would pass the buffer's
+    end stops the walk.  The cut and the register: after the last packet
+    and its frozen register; with no detection, the last syms + nuw
+    symbols kept and the register before them; a buffer of at most
+    syms + nuw symbols is kept whole (`StreamDeframer.consume`).
+    """
+    uw, nuw, allowed, syms = kuw.mode_params(mode)
+    mask = (1 << nuw) - 1
+    table = lanes.cpu().numpy()
+    prev = init.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+    uw_pm = torch.as_tensor(
+        [1.0 - 2.0 * ((uw >> (nuw - 1 - i)) & 1) for i in range(nuw)],
+        dtype=torch.float32)
+    meta = np.zeros((len(table), 4), np.int32)
+    pos = np.full(int(table[:, 3].sum()), -1, np.int32)
+    for lane, (off, n, first, cap) in enumerate(table):
+        hard = (soft[off: off + n] < 0).cpu()
+        bits = hard.to(torch.int64).tolist()
+        hits = []
+        if n >= nuw:     # exact: +/-1 operands, integer sums
+            corr = torch.nn.functional.conv1d(
+                (1.0 - 2.0 * hard.float())[None, None], uw_pm[None, None])
+            hits = (torch.nonzero(corr[0, 0] >= nuw - 2 * allowed)[:, 0]
+                    + nuw - 1).tolist()
+        init_reg = int(prev[lane, 2] | (prev[lane, 3] << 32)) & mask
+        frozen, t0, t, k = init_reg, 0, 0, 0
+        found = []
+        while t < n:
+            fresh = t0 + nuw - 1
+            if t < fresh:            # t == t0: shift the buffer's bits in
+                reg, hit = frozen, -1
+                for u in range(t, min(fresh, n)):
+                    reg = ((reg << 1) | bits[u]) & mask
+                    if bin(reg ^ uw).count("1") <= allowed:
+                        hit = u
+                        break
+                if hit < 0:
+                    t = fresh
+                    continue
+            else:
+                while k < len(hits) and hits[k] < t:
+                    k += 1
+                if k == len(hits):
+                    break
+                hit = hits[k]
+                reg = sum(bits[hit - j] << j for j in range(nuw))
+            t = hit
+            if t + syms >= n:        # the packet cannot complete
+                break
+            found.append(t)
+            frozen, t0 = reg, t + syms + 1
+            t = t0
+        cut, reg = 0, init_reg
+        if found:
+            cut, reg = found[-1] + syms + 1, frozen
+        elif n > syms + nuw:
+            cut = n - syms - nuw
+            for u in range(max(cut - nuw, 0), cut):
+                reg = ((reg << 1) | bits[u]) & mask
+        pos[first: first + min(len(found), cap)] = found[:cap]
+        meta[lane] = np.array([len(found), cut, reg & 0xFFFFFFFF, reg >> 32],
+                              np.int64).astype(np.uint32).view(np.int32)
+    return (torch.as_tensor(meta, device=soft.device),
+            torch.as_tensor(pos, device=soft.device))
+
+
+def fsm_windows_reference(soft: torch.Tensor, lanes: torch.Tensor,
+                          pos: torch.Tensor, meta: torch.Tensor, mode: str):
+    """The plain version of the streaming receivers' windows
+    (`kernels.deframe_topk.fsm_llrs` up to `sd_to_llr`), on any device:
+    the acquisition's positions, lane after lane -> (soft decisions (B,
+    2580) float32 of each window, descrambled or stripped; positions (B,)
+    int32), B the detections of all lanes."""
+    syms = kuw.mode_params(mode)[3]
+    table, counts = lanes.cpu().numpy(), meta[:, 0].cpu().numpy()
+    at = pos.cpu().numpy()
+    wins, got = [], []
+    for (off, _, first, cap), c in zip(table, counts):
+        for t in at[first: first + min(int(c), cap)]:
+            wins.append(soft[off + t + 1: off + t + 1 + syms])
+            got.append(int(t))
+    wins = (torch.stack(wins) if wins
+            else soft.new_zeros((0, syms)))
+    return (descramble_or_strip(wins, mode),
+            torch.as_tensor(got, dtype=torch.int32, device=soft.device))
+
+
+class LaneDeframer:
+    """The streaming deframe of L lanes, a push at a time, with each lane's
+    soft bits left on the device: `StreamDeframer`'s results (the same
+    positions, payloads, counters and carried tail and register) for the
+    streaming receivers on a card (`rx.pipeline._Stages`), where the
+    demod's soft bits are already.
+
+    A push (`decode`, then `consume`): each lane's carried tail and its
+    new soft bits joined into one buffer of all lanes on the device
+    (`deframe.detect`), the acquisition of every lane
+    (`deframe.fsm`: `uw_detect_lanes`), the windows of all lanes'
+    detections gathered into one batch, descrambled or stripped, as LLRs
+    (`deframe.gather`), BP and the CRC rows, their one copy to the host
+    and its one wait (`deframe.bp`), then the rows unpacked, counted and
+    each lane's tail cut (`deframe.consume`).  The device's work queues on
+    its current stream and no step between the copy in and the wait reads
+    a device value on the host: the batch is sized by the lanes'
+    capacities (`lane_capacity`), and the rows past the detections exit at
+    once.  The meta rows and the CRC rows are one device buffer, so that
+    the host reads them through one copy.  On a CUDA device: the kernels
+    `uw_detect`, `deframe_topk`'s windows, `bp_decode` and `crc_pack`; on
+    the CPU their plain versions.
+
+    `waits` counts the host's waits on the card (one a push there),
+    `n_detections` and `n_crc_ok` a lane's counters; `seconds` the stage
+    clocks of `STAGES` (clocks: the dict to add to, else its own).
+    """
+
+    def __init__(self, mode: str = "v2", lanes: int = 1,
+                 max_iter: int = T.MAX_ITER, device="cuda",
+                 clocks: dict | None = None):
+        self.mode = mode
+        self.max_iter = max_iter
+        self.device = resolve_device(device)
+        self.lanes = int(lanes)
+        self._nuw = kuw.mode_params(mode)[1]
+        self._card = self.device.type == "cuda"
+        empty = torch.zeros(0, dtype=torch.float32, device=self.device)
+        self._tails = [empty] * self.lanes
+        # the last push's meta rows: the register in front of each buffer
+        self._meta = torch.zeros((self.lanes, 4), dtype=torch.int32,
+                                 device=self.device)
+        # the lane table, its host side pinned on a card for its copy in
+        self._table = torch.zeros((self.lanes, 4), dtype=torch.int64,
+                                  pin_memory=self._card)
+        self._lane_table = torch.zeros((self.lanes, 4), dtype=torch.int64,
+                                       device=self.device)
+        # on a card: the event the result's copy to the host waits for
+        self._done = torch.cuda.Event() if self._card else None
+        self.n_detections = np.zeros(self.lanes, np.int64)
+        self.n_crc_ok = np.zeros(self.lanes, np.int64)
+        self.waits = 0
+        self.seconds = (dict.fromkeys(("deframe",) + STAGES, 0.0)
+                        if clocks is None else clocks)
+
+    def push(self, softs: list) -> list:
+        """Each lane's new soft bits (1-d float32 tensors on the device) ->
+        each lane's CRC-valid payloads, in order."""
+        return self.consume(self.decode(softs))[0]
+
+    def tail(self, lane: int) -> torch.Tensor:
+        """The soft bits a lane carries into its next push."""
+        return self._tails[lane]
+
+    def state(self, lane: int) -> np.ndarray:
+        """The bit buffer a lane carries in front of its tail, oldest first
+        (`StreamDeframer._state`)."""
+        lo, hi = (int(x) & 0xFFFFFFFF for x in self._meta[lane, 2:].tolist())
+        return register_bits(lo | (hi << 32), self._nuw)
+
+    def decode(self, softs: list):
+        """Queue a push's deframe on the device and wait for its one copy
+        -> what `consume` reads."""
+        clocks = self.seconds
+        with span("deframe.detect", clocks, "deframe"):
+            flat = torch.cat([x for pair in zip(self._tails, softs)
+                              for x in pair])
+            n = np.array([t.numel() + s.numel()
+                          for t, s in zip(self._tails, softs)], np.int64)
+            cap = lane_capacity(n, self.mode)
+            table = self._table.numpy()
+            table[:, 0] = np.cumsum(n) - n
+            table[:, 1] = n
+            table[:, 2] = np.cumsum(cap) - cap
+            table[:, 3] = cap
+            table = table.copy()
+            lanes = self._lane_table.copy_(self._table, non_blocking=True)
+            if flat.numel() == 0:       # the kernels take a real buffer
+                flat = flat.new_zeros(1)
+            # what the host reads: the meta rows (L, 4) int32, then the
+            # CRC rows of the batch
+            L, rows = self.lanes, int(cap.sum())
+            result = torch.empty(16 * L + rows * ROW_BYTES,
+                                 dtype=torch.uint8, device=self.device)
+            meta = result[: 16 * L].view(torch.int32).view(L, 4)
+            out = result[16 * L:].view(rows, ROW_BYTES)
+        with span("deframe.fsm", clocks, "deframe"):
+            pos = torch.empty(rows, dtype=torch.int32, device=self.device)
+            uw_detect_lanes(flat, lanes, self._meta, meta, pos, self.mode,
+                            int(n.max()))
+            self._meta = meta
+        with span("deframe.gather", clocks, "deframe"):
+            if self._card:
+                from ..kernels import deframe_topk as ktopk
+                llr, pos_out, live = ktopk.fsm_llrs(flat, lanes, pos, meta,
+                                                    self.mode, rows)
+            else:
+                sd, pos_out = fsm_windows_reference(flat, lanes, pos, meta,
+                                                    self.mode)
+                llr, live = ldpc.sd_to_llr(sd), len(sd)
+        with span("deframe.bp", clocks, "deframe"):
+            if self._card:
+                from ..kernels import bp_decode
+                from ..kernels import crc_pack as kcrc
+                bits = bp_decode.decode(llr, self.max_iter, live=live)[0]
+                kcrc.pack(bits, positions=pos_out, out=out)
+                host = torch.empty(result.numel(), dtype=torch.uint8,
+                                   pin_memory=True)
+                host.copy_(result, non_blocking=True)
+                self._done.record()
+                self._done.synchronize()
+                self.waits += 1
+            else:
+                if live:
+                    bits, _, _ = ldpc.decode_reference(llr, self.max_iter)
+                    out[:live] = dcrc.crc_pack_reference(bits,
+                                                         positions=pos_out)
+                host = result
+        return host, flat, table
+
+    def consume(self, decoded):
+        """`decode`'s copy on the host -> (each lane's CRC-valid payloads,
+        in order; each lane's detections this push).  Counts them and
+        carries each lane's tail."""
+        host, flat, table = decoded
+        L = self.lanes
+        h = host.numpy()
+        m = h[: 16 * L].view(np.int32).reshape(L, 4)
+        counts = m[:, 0].astype(np.int64)
+        if (counts > table[:, 3]).any():
+            raise RuntimeError(f"uw_detect: {counts} detections past the "
+                               f"lanes' capacities {table[:, 3]}")
+        rows = h[16 * L:].reshape(-1, ROW_BYTES)
+        got, r = [], 0
+        for lane in range(L):
+            c = int(counts[lane])
+            ok = rows[r: r + c, 258].astype(bool)
+            good = rows[r: r + c][ok, :256].tobytes()
+            got.append([good[i: i + 256] for i in range(0, len(good), 256)])
+            self.n_detections[lane] += c
+            self.n_crc_ok[lane] += int(ok.sum())
+            off, n = int(table[lane, 0]), int(table[lane, 1])
+            self._tails[lane] = flat[off + int(m[lane, 1]): off + n]
+            r += c
+        return got, counts
+
+
+def uw_detect_lanes(soft: torch.Tensor, lanes: torch.Tensor,
+                    init: torch.Tensor, meta: torch.Tensor,
+                    pos: torch.Tensor, mode: str, n_max: int):
+    """The acquisition of L lanes' buffers into meta and pos
+    (`kernels.uw_detect.detect`'s arguments): the kernel for a CUDA
+    tensor, the plain version (`uw_detect_lanes_reference`) otherwise."""
+    if soft.device.type == "cuda":
+        kuw.detect(soft, lanes, init, meta, pos, mode, n_max)
+        return
+    m, p = uw_detect_lanes_reference(soft, lanes, init, mode)
+    meta.copy_(m)
+    pos[: len(p)] = p
 
 
 def unpack_decode_results(packed: np.ndarray):

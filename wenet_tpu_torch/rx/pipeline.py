@@ -4,11 +4,14 @@
 Both streaming receivers are fronts of one core (`_Stages`): a push's new
 samples go to the device without blocking, each lane's carried samples
 and `DemodState` stay there, one frame-loop demod call runs over all
-lanes, and the soft bits, validity and last-frame stats come back as one
-packed array; the host then runs a UW FSM a lane and sends the candidate
-windows of all lanes as one batch through the device decoder
-(`ops.deframe`).  `Receiver` is its one-lane case: the raw chunk (cu8/cs16
-bytes or complex64 pairs) converted in the demod.  `WidebandReceiver` is
+lanes, and the last-frame stats (and eye probes) come back as one packed
+array.  On a card the soft bits stay there too: each lane's buffer, the
+UW FSM, the window gather, BP and CRC run on the device with one copy
+back and one wait a push (`ops.deframe.LaneDeframer`).  On the CPU the
+host runs a UW FSM a lane and sends the candidate windows of all lanes
+as one batch through the decoder (`ops.deframe.StreamDeframer`).
+`Receiver` is its one-lane case: the raw chunk (cu8/cs16 bytes or
+complex64 pairs) converted in the demod.  `WidebandReceiver` is
 its case of N lanes: a band's channels, made as it streams in by the
 streaming channelizer (`ops.channelizer`).  Chunked pushes equal one-shot
 decoding, as in the reference.
@@ -86,11 +89,13 @@ def stream_step_lanes(cfg: fsk.FSKConfig, data: torch.Tensor,
                       with_eye: bool = False):
     """One push on the device: the demod of `nf` frames on L lanes of one
     raw buffer (`ops.fsk.demod_raw`'s data, starts, n_valid and
-    lane-stacked state) -> (final lane-stacked state, packed), packed
-    being one float32 vector [soft (L, nf, Nbits) | valid (L, nf) | the L
-    lanes' stats rows (ebno, ppm, n_valid_frames, last, f_est) | with_eye
-    f_int re (L, M, NP) | f_int im | high_sample (L)], read by `_unpack`:
-    the host needs exactly one copy of it.
+    lane-stacked state) -> (final lane-stacked state, packed, soft),
+    packed being one float32 vector [the L lanes' stats rows (ebno, ppm,
+    n_valid_frames, last, f_est) | with_eye f_int re (L, M, NP) | f_int im
+    | high_sample (L)], read by `_unpack`: the host needs exactly one copy
+    of it; soft the frames' soft bits (L, nf, Nbits) on the device, whose
+    valid frames are a prefix of each lane (n_valid_frames of them: the
+    state freezes at the first frame that does not fit).
 
     Nothing here waits for the device: the last valid frame's stats are
     taken with device-side gathers, so on a card the call only queues work.
@@ -107,33 +112,27 @@ def stream_step_lanes(cfg: fsk.FSKConfig, data: torch.Tensor,
                        last.float()[:, None],
                        outs.f_est.gather(1, li[:, :, None].expand(
                            L, 1, cfg.M)).reshape(L, cfg.M).float()], dim=1)
-    parts = [outs.soft.reshape(-1), outs.valid.float().reshape(-1),
-             stats.reshape(-1)]
-    if with_eye:
-        eye = res[2]
-        parts += [eye.f_int.real.reshape(-1), eye.f_int.imag.reshape(-1),
-                  eye.high_sample.float().reshape(-1)]
-    return final, torch.cat(parts)
-
-
-def _unpack(p: np.ndarray, cfg: fsk.FSKConfig, L: int, nf: int,
-            with_eye: bool):
-    """`stream_step_lanes`' packed vector on the host -> (soft (L, nf,
-    Nbits), valid (L, nf) bool, stats rows (L, 4 + M), and with_eye the
-    eye probes (f_int (L, M, NP) complex64, high_sample (L,)) else
-    None)."""
-    nbits, o = cfg.Nbits, L * nf * cfg.Nbits
-    soft = p[:o].reshape(L, nf, nbits)
-    valid = p[o: o + L * nf].reshape(L, nf) > 0.5
-    o += L * nf
-    stats = p[o: o + L * (4 + cfg.M)].reshape(L, 4 + cfg.M)
     if not with_eye:
-        return soft, valid, stats, None
-    o += L * (4 + cfg.M)
+        return final, stats.reshape(-1), outs.soft
+    eye = res[2]
+    packed = torch.cat([stats.reshape(-1), eye.f_int.real.reshape(-1),
+                        eye.f_int.imag.reshape(-1),
+                        eye.high_sample.float().reshape(-1)])
+    return final, packed, outs.soft
+
+
+def _unpack(p: np.ndarray, cfg: fsk.FSKConfig, L: int, with_eye: bool):
+    """`stream_step_lanes`' packed vector on the host -> (stats rows (L, 4
+    + M), and with_eye the eye probes (f_int (L, M, NP) complex64,
+    high_sample (L,)) else None)."""
+    stats = p[: L * (4 + cfg.M)].reshape(L, 4 + cfg.M)
+    if not with_eye:
+        return stats, None
+    o = L * (4 + cfg.M)
     n_int = L * cfg.M * (cfg.Nsym + 1) * cfg.P
     f_int = (p[o: o + n_int] + 1j * p[o + n_int: o + 2 * n_int]).astype(
         np.complex64).reshape(L, cfg.M, -1)
-    return soft, valid, stats, (f_int, p[o + 2 * n_int:].astype(np.int64))
+    return stats, (f_int, p[o + 2 * n_int:].astype(np.int64))
 
 
 def _count(st: RxStats, row: np.ndarray, n_new: int) -> int:
@@ -152,13 +151,13 @@ def _count(st: RxStats, row: np.ndarray, n_new: int) -> int:
 class _InFlight(NamedTuple):
     """A push whose demod is queued: the carry on the device, the packed
     vector and the lanes' pos (on a card, pinned host copies that are
-    whole once `done` has fired), the frame count, the lane buffer the
-    demod read and the new samples a lane it holds."""
+    whole once `done` has fired), the frames' soft bits on the device, the
+    lane buffer the demod read and the new samples a lane it holds."""
     final: fsk.DemodState
     packed: torch.Tensor
     pos: torch.Tensor
     done: torch.cuda.Event | None
-    nf: int
+    soft: torch.Tensor
     buf: torch.Tensor
     n_new: int
 
@@ -172,7 +171,9 @@ def _to_host_async(t: torch.Tensor) -> torch.Tensor:
 
 class _Stages:
     """The streaming core of both receivers: L lanes, each a stream of
-    samples demodulated as it arrives, with a `StreamDeframer` a lane.
+    samples demodulated as it arrives and deframed as its soft bits come:
+    on a card by one `ops.deframe.LaneDeframer` for all lanes, on the CPU
+    by a `StreamDeframer` a lane.
 
     A push: the chunk as the input format's raw units (`rx.buffer`),
     staged through a pinned buffer kept across pushes and copied to the
@@ -181,15 +182,20 @@ class _Stages:
     over all lanes with the lane-stacked `DemodState`, and non-blocking
     copies of its packed result and of the lanes' pos behind it
     (`rx.launch`); the wait for those copies (`rx.wait`) and the carry's
-    retire (`rx.retire`); then the host half: the packed vector unpacked
-    into each lane's `RxStats`, eye probe and valid soft bits
-    (`rx.fetch`), each lane's UW FSM and the candidates of all lanes in
-    one decode batch (`ops.deframe`).  Serial, a push does all of it;
+    retire (`rx.retire`); then the deframe: the packed vector unpacked
+    into each lane's `RxStats` and eye probe, and each lane's valid soft
+    bits taken where the demod left them (`rx.fetch`); on a card the
+    deframe of all lanes on the device, its result copied back with one
+    wait (`LaneDeframer`), on the CPU each lane's UW FSM on the host and
+    the candidates of all lanes in one decode batch (`StreamDeframer`,
+    `ops.deframe.decode_streams`).  Serial, a push does all of it;
     pipelined, it retires the push in flight, queues its own device work
-    and then does the retired push's host half while the device works
-    (`flush` does the last one's).  On a card the device work goes on the
-    receiver's own CUDA stream, so a decode on the current stream runs
-    beside it.  Each stage is clocked in `seconds` (`utils.spans`).
+    and then does the retired push's deframe while the device works
+    (`flush` does the last one's).  On a card the demod goes on the
+    receiver's own CUDA stream, so the deframe on the current stream runs
+    beside it.  Each stage is clocked in `seconds` (`utils.spans`);
+    `waits` counts the host's waits on the card (a serial push: two, the
+    demod's and the deframe's).
 
     A lane's carry is its last Nmem samples before its next fresh sample
     and the samples it has not consumed, right-aligned in a (L, C, 2)
@@ -216,10 +222,14 @@ class _Stages:
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         self._pending = None         # the push in flight, when pipelined
-        self.deframers = [deframe.StreamDeframer(mode, max_iter=max_iter,
-                                                 device=self.device,
-                                                 clocks=self.seconds)
-                          for _ in range(lanes)]
+        self._lanes = (deframe.LaneDeframer(mode, lanes, max_iter,
+                                            self.device, self.seconds)
+                       if self.device.type == "cuda" else None)
+        self.deframers = [] if self._lanes is not None else [
+            deframe.StreamDeframer(mode, max_iter=max_iter,
+                                   device=self.device, clocks=self.seconds)
+            for _ in range(lanes)]
+        self._demod_waits = 0
         self.bp_windows = [0] * lanes
         self._stats = [RxStats() for _ in range(lanes)]
         self._eyes = [None] * lanes  # (f_int (M, (Nsym+1)P) complex64, high)
@@ -228,6 +238,13 @@ class _Stages:
         self._c = np.zeros(lanes, np.int64)      # samples a lane carries
         self._pos = np.zeros(lanes, np.int64)    # its next fresh sample there
         self._pinned = None          # the pushes' host staging buffer
+
+    @property
+    def waits(self) -> int:
+        """The host's waits on the card so far: each push's demod copies,
+        and each deframe's copy on the card path."""
+        return self._demod_waits + (0 if self._lanes is None
+                                    else self._lanes.waits)
 
     def _on_stream(self):
         """The context in which this receiver's device work is queued: its
@@ -261,7 +278,7 @@ class _Stages:
         """Queue a push's device work: the copy in, the front's new
         samples, the demod of every lane's carry and new samples, and the
         copies of the packed result and of the lanes' pos to the host."""
-        cfg, clocks, L = self.cfg, self.seconds, len(self.deframers)
+        cfg, clocks, L = self.cfg, self.seconds, len(self._stats)
         with span("rx.buffer", clocks, "demod"):
             data = np.ascontiguousarray(chunk, _RAW_DTYPES[self.input_format])
             if self.input_format == "c64":
@@ -283,7 +300,7 @@ class _Stages:
                 np.stack([np.arange(L) * (C + F) + C - self._c, n_valid]),
                 dtype=torch.int64, device=self.device)
             nf = cfg.num_frames(int((n_valid - self._pos).max()))
-            final, packed = stream_step_lanes(
+            final, packed, soft = stream_step_lanes(
                 cfg, lanes.reshape(-1, 2), self._state, args[0], args[1],
                 self._fmt, nf, self.with_eye)
             if self._stream is None:
@@ -292,7 +309,7 @@ class _Stages:
                 packed, pos = _to_host_async(packed), _to_host_async(final.pos)
                 done = torch.cuda.Event()
                 done.record(self._stream)
-        return _InFlight(final, packed, pos, done, nf, lanes, F)
+        return _InFlight(final, packed, pos, done, soft, lanes, F)
 
     def _staged(self, data: np.ndarray) -> torch.Tensor:
         """The push's samples on the device.  On a card they go through a
@@ -322,6 +339,7 @@ class _Stages:
         with span("rx.wait", self.seconds, "demod"):
             if inflight.done is not None:
                 inflight.done.synchronize()
+                self._demod_waits += 1
         with span("rx.retire", self.seconds, "demod"):
             end = np.asarray(inflight.pos, np.int64)
             keep = np.minimum(end, self.cfg.Nmem)
@@ -335,13 +353,23 @@ class _Stages:
                     keep, dtype=torch.int32, device=self.device))
 
     def _complete(self, inflight: _InFlight) -> list:
-        """The host half of a retired push: each lane's soft bits through
-        its UW FSM, the candidates of all lanes through one decode batch
-        -> the front's results."""
+        """The deframe of a retired push: on a card all lanes' soft bits
+        through `LaneDeframer`, on the CPU each lane's through its UW FSM
+        and the candidates of all lanes through one decode batch -> the
+        front's results."""
         clocks = self.seconds
         with span("rx.fetch", clocks, "deframe"):
             softs = self._fetch(inflight)
-        found = [d.detect(s) for d, s in zip(self.deframers, softs)]
+        if self._lanes is not None:
+            decoded = self._lanes.decode(softs)
+            with span("deframe.consume", clocks, "deframe"):
+                got, counts = self._lanes.consume(decoded)
+                for i, st in enumerate(self._stats):
+                    self.bp_windows[i] += int(counts[i])
+                    st.detections = int(self._lanes.n_detections[i])
+                    st.crc_ok = int(self._lanes.n_crc_ok[i])
+                return self._results(got)
+        found = [d.detect(s.cpu()) for d, s in zip(self.deframers, softs)]
         if len(self.deframers) == 1:
             decoded = [self.deframers[0].decode(found[0][1])]
         else:
@@ -359,17 +387,19 @@ class _Stages:
 
     def _fetch(self, inflight: _InFlight) -> list:
         """The packed array on the host -> each lane's valid frames' soft
-        bits, with its stats and eye probe taken in (a push without a
-        valid frame keeps the lane's earlier probe)."""
-        L = len(self.deframers)
-        soft, valid, stats, eye = _unpack(inflight.packed.cpu().numpy(),
-                                          self.cfg, L, inflight.nf,
-                                          self.with_eye)
+        bits (a view of the demod's output where it lies), with its stats
+        and eye probe taken in (a push without a valid frame keeps the
+        lane's earlier probe)."""
+        L = len(self._stats)
+        stats, eye = _unpack(inflight.packed.cpu().numpy(), self.cfg, L,
+                             self.with_eye)
+        softs = []
         for i in range(L):
-            if _count(self._stats[i], stats[i], inflight.n_new) \
-                    and eye is not None:
+            nframes = _count(self._stats[i], stats[i], inflight.n_new)
+            if nframes and eye is not None:
                 self._eyes[i] = (eye[0][i], int(eye[1][i]))
-        return [soft[i][valid[i]].reshape(-1) for i in range(L)]
+            softs.append(inflight.soft[i, :nframes].reshape(-1))
+        return softs
 
 
 class Receiver(_Stages):
@@ -422,6 +452,11 @@ class Receiver(_Stages):
 
     @property
     def deframer(self) -> deframe.StreamDeframer:
+        """The host path's deframer (a CPU receiver's; on a card the
+        deframe is the core's `LaneDeframer`)."""
+        if not self.deframers:
+            raise AttributeError("a receiver on a card deframes through its "
+                                 "LaneDeframer and has no StreamDeframer")
         return self.deframers[0]
 
     @property
@@ -477,10 +512,10 @@ class WidebandReceiver(_Stages):
     (L the selected channels): a push's new samples a lane are the
     channels that the streaming channelizer
     (`ops.channelizer.StreamingChannelizer`, with its band history on the
-    device) makes of it, as float32 pairs; each lane's valid soft bits go
-    to its own `StreamDeframer` (the C UW FSM on a card) and the
-    candidates of all lanes through one decode batch
-    (`ops.deframe.decode_streams`).  Each lane's frames equal a `Receiver`
+    device) makes of it, as float32 pairs; the lanes' valid soft bits are
+    deframed as one batch (on a card all on the device, `LaneDeframer`;
+    on the CPU a `StreamDeframer` a lane and one decode batch,
+    `ops.deframe.decode_streams`).  Each lane's frames equal a `Receiver`
     (c64) fed that channel's samples in the same pushes, and the payloads
     those of `ops.channelizer.demod_multichannel` on the whole capture.
 
